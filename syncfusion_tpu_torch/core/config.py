@@ -1,7 +1,8 @@
-"""Model configuration of the diffusion system, without a YAML dependency.
+"""Configuration of the diffusion system, without a YAML dependency.
 
-The defaults are the values of ``exp/model/diffusion.yaml`` (the
-reference's hyperparameters).  ``from_dict`` reads an already-loaded config
+The model defaults are the values of ``exp/model/diffusion.yaml`` (the
+reference's hyperparameters); ``TrainConfig``'s are those of
+``exp/train_diffusion_gh.yaml``.  ``from_dict`` reads an already-loaded config
 node; ``from_yaml`` reads the file itself and needs PyYAML, which only the
 callers that use it must have.
 """
@@ -79,3 +80,45 @@ def from_yaml(path) -> tuple[UNetConfig, EncoderConfig]:
     with open(path) as f:
         node = yaml.safe_load(f)
     return model_configs(node["model"])
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Diffusion training: the values of ``exp/train_diffusion_gh.yaml``
+    (with ``config.yaml``'s seed and ``exp/model/diffusion.yaml``'s
+    optimizer and embedder), named after the YAML keys that hold them."""
+
+    seed: int = 12345
+    sampling_rate: int = 48000
+    length: int = 262144
+    max_steps: int = 1000000
+    embedding_mask_proba: float = 0.0
+    # datamodule
+    batch_size: int = 4
+    shuffle_size: int = 200
+    wire_int16: bool = False
+    # trainer
+    precision: str = "32"  # "32": f32 compute, no TF32; "bf16": bf16 compute
+    gradient_clip_val: float = 0.5
+    accumulate_grad_batches: int = 2
+    log_every_n_steps: int = 10
+    val_check_interval: int = 1000
+    val_batches: int = 16
+    model_parallel: int = 1
+    fsdp: bool = False
+    # callbacks: model_checkpoint
+    monitor: str = "valid_loss"
+    mode: str = "min"
+    save_top_k: int = 1
+    save_last: bool = True
+    # callbacks: audio_samples_logger
+    num_items: int = 2
+    sampling_steps: tuple[int, ...] = (100,)
+    embedding_scale: float = 7.0
+    # model: optimizer and embedder
+    lr: float = 1e-4
+    lr_beta1: float = 0.95
+    lr_beta2: float = 0.999
+    lr_eps: float = 1e-6
+    lr_weight_decay: float = 1e-3
+    amodel: str = "HTSAT-tiny"

@@ -1,6 +1,9 @@
-"""v-objective deterministic sampler (port of
-``syncfusion_tpu/models/diffusion.py``: ``v_sample`` without DeepCache).
+"""v-objective diffusion: training loss and deterministic sampler (port of
+``syncfusion_tpu/models/diffusion.py``: ``v_diffusion_loss``, and
+``v_sample`` without DeepCache).
 
+  * loss: ``sigma ~ U(0, 1)`` per row, ``x_noisy = alpha·x + beta·eps``,
+    target ``v = alpha·eps - beta·x``, MSE of the net's v against it
   * sigmas = linspace(1 -> 0, num_steps + 1); angle = sigma·pi/2,
     alpha = cos, beta = sin
   * per step ``x0 = a_i·x - b_i·v``, ``eps = b_i·x + a_i·v``,
@@ -27,6 +30,31 @@ DPM_TODO = "DPM-Solver++ is not ported yet (ROADMAP.md, port queue: 'DPM++')"
 def alpha_beta(sigma):
     angle = sigma * (math.pi / 2)
     return torch.cos(angle), torch.sin(angle)
+
+
+def v_diffusion_loss(net: Callable, x, *, context: Optional[Sequence] = None,
+                     embedding=None, embedding_mask_proba: float = 0.0,
+                     sigma=None, noise=None, embedding_cfg_mask=None,
+                     generator: Optional[torch.Generator] = None):
+    """Training loss on waveforms ``x`` (B, L, C), a 0-dim f32 tensor.
+
+    ``sigma`` (B,), ``noise`` (like ``x``) and the CFG-dropout mask
+    (B, 1, 1) may be passed in; what is absent is drawn from ``generator``
+    (the JAX package draws all three from one key: the numbers differ, the
+    distributions do not).
+    """
+    if sigma is None:
+        sigma = torch.rand((x.shape[0],), generator=generator, device=x.device)
+    if noise is None:
+        noise = torch.randn(x.shape, generator=generator, device=x.device,
+                            dtype=x.dtype)
+    alpha, beta = alpha_beta(sigma.reshape(-1, *([1] * (x.dim() - 1))))
+    x_noisy = alpha * x + beta * noise
+    v_target = alpha * noise - beta * x
+    v_pred = net(x_noisy, sigma, context=context, embedding=embedding,
+                 embedding_cfg_mask=embedding_cfg_mask,
+                 embedding_mask_proba=embedding_mask_proba, generator=generator)
+    return torch.mean(torch.square(v_pred - v_target))
 
 
 def guidance_band_mask(num_steps: int, lo: float, hi: float) -> list[bool]:

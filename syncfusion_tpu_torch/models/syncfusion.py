@@ -18,7 +18,7 @@ from torch import nn
 from syncfusion_tpu_torch.core.config import EncoderConfig, UNetConfig, model_configs
 from syncfusion_tpu_torch.device import default_device
 from syncfusion_tpu_torch.models import blocks
-from syncfusion_tpu_torch.models.diffusion import DPM_TODO, v_sample
+from syncfusion_tpu_torch.models.diffusion import DPM_TODO, v_diffusion_loss, v_sample
 from syncfusion_tpu_torch.models.encoder1d import Encoder1d
 from syncfusion_tpu_torch.models.unet1d import UNet1d
 
@@ -71,10 +71,23 @@ class SyncFusionDiffusion(nn.Module):
                 m.fixed_embedding.normal_(generator=gen)
         return self
 
-    @torch.no_grad()
     def encode_context(self, onsets) -> list:
-        """Onset track (B, L, 1) -> the UNet context pyramid ``xs[2:-1]``."""
+        """Onset track (B, L, 1) -> the UNet context pyramid ``xs[2:-1]``.
+        Differentiable: the encoder is trained with the UNet."""
         return self.onsets_encoder(onsets)[2:-1]
+
+    def loss(self, wav, onsets, embedding, embedding_mask_proba: float = 0.0,
+             *, sigma=None, noise=None, embedding_cfg_mask=None,
+             generator: Optional[torch.Generator] = None):
+        """v-diffusion training loss of waveforms (B, L, 1) under the onset
+        track (B, L, 1) and the embedding (B, 1, features) or None; the
+        gradient reaches the UNet and the onset encoder.  ``sigma``,
+        ``noise`` and the CFG mask as in ``v_diffusion_loss``."""
+        return v_diffusion_loss(
+            self.unet, wav, context=self.encode_context(onsets),
+            embedding=embedding, embedding_mask_proba=embedding_mask_proba,
+            sigma=sigma, noise=noise, embedding_cfg_mask=embedding_cfg_mask,
+            generator=generator)
 
     @torch.no_grad()
     def sample(self, noise, onsets, embedding, num_steps: int = 150,

@@ -27,6 +27,16 @@ from syncfusion_tpu_torch.models.blocks import (
 )
 
 
+def cfg_dropout_mask(batch: int, proba: float,
+                     generator: Optional[torch.Generator] = None,
+                     device=None) -> torch.Tensor:
+    """(B, 1, 1) bool: rows that take the fixed embedding, each with
+    probability ``proba`` (the JAX package draws the same Bernoulli from
+    its ``cfg`` key; the bits differ, the distribution does not)."""
+    u = torch.rand((batch, 1, 1), generator=generator, device=device)
+    return u < proba
+
+
 class UNet1d(nn.Module):
     """``context_levels``: how many levels receive a context map (the
     encoder's ``len(factors) - 1``).  Flax infers each level's input width
@@ -105,12 +115,16 @@ class UNet1d(nn.Module):
         return h
 
     def forward(self, x, sigma, *, context: Optional[Sequence] = None,
-                embedding=None, embedding_cfg_mask=None):
+                embedding=None, embedding_cfg_mask=None,
+                embedding_mask_proba: float = 0.0,
+                generator: Optional[torch.Generator] = None):
         """x (B, L, in_channels), sigma (B,), context: the encoder's
         ``xs[2:-1]`` (each (B, length, channels)), embedding (B, tokens,
         features) or None.  ``embedding_cfg_mask`` (B, 1, 1): rows where it
-        is 1 use the fixed (unconditional) embedding.  Returns (B, L, out)
-        in f32."""
+        is 1 use the fixed (unconditional) embedding.  Without a mask,
+        ``embedding_mask_proba > 0`` is the training-time CFG dropout: each
+        row takes the fixed embedding with that probability, drawn from
+        ``generator``.  Returns (B, L, out) in f32."""
         c = self.cfg
         n = len(c.channels)
         context = list(context) if context is not None else []
@@ -123,8 +137,13 @@ class UNet1d(nn.Module):
             fixed = self.fixed_embedding[None].expand(x.shape[0], -1, -1)
             if embedding is None:
                 embedding = fixed
-            elif embedding_cfg_mask is not None:
-                embedding = torch.where(embedding_cfg_mask.bool(), fixed, embedding)
+            else:
+                if embedding_cfg_mask is None and embedding_mask_proba > 0.0:
+                    embedding_cfg_mask = cfg_dropout_mask(
+                        x.shape[0], embedding_mask_proba, generator, x.device)
+                if embedding_cfg_mask is not None:
+                    embedding = torch.where(embedding_cfg_mask.bool(), fixed,
+                                            embedding)
 
         h = x.to(self.dtype).transpose(1, 2)
         skips = []

@@ -1,11 +1,20 @@
-"""Attention for the UNet's self-attention levels.
+"""Attention for the UNet's self-attention levels, differentiable.
 
-``flash_attention(q, k, v)`` in the JAX package's (B, L, H, D) layout: on a
-CUDA tensor it launches the hand-written kernel of ``csrc/flash_fwd.cu``
-(the port of the TPU kernel ``_flash_kernel``, forward only: sampling needs
-no gradient); on a CPU tensor it takes the plain version,
-``attention_reference``.  It never falls back from the kernel to the plain
-version on the card.
+``flash_attention(q, k, v)`` in the JAX package's (B, L, H, D) layout is one
+``torch.autograd.Function`` on every device, the counterpart of the JAX
+package's custom VJP.  On a CUDA tensor its forward is the hand-written
+kernel of ``csrc/flash_fwd.cu`` (the port of the TPU kernel
+``_flash_kernel``, K1) and its backward the two kernels of
+``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``, K2a, then
+``_flash_bwd_dkv_kernel``, K2b).  On a CPU tensor the same Function runs
+their plain versions, so the CPU tests reach the wiring the card runs.  It
+never falls back from a kernel to a plain version on the card.
+
+Each wrapper (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``) launches
+its kernel on a CUDA tensor and takes its plain version on a CPU tensor, and
+counts which, on ``flash_attention``: ``kernel_launches`` (K1),
+``dq_launches`` (K2a), ``dkv_launches`` (K2b); ``plain_calls`` (K1's plain
+version) and ``plain_bwd_calls`` (K2a's and K2b's).
 """
 
 from __future__ import annotations
@@ -18,7 +27,7 @@ import torch
 
 from syncfusion_tpu_torch.ops import _build
 
-HEAD_DIM = 64  # the one head width the kernel is built for
+HEAD_DIM = 64  # the one head width the kernels are built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -33,27 +42,72 @@ def attention_reference(q, k, v, causal: bool = False,
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("blhd,bmhd->bhlm", q.float() * scale, k.float())
     if causal:
-        lq, lk = s.shape[-2:]
-        keep = torch.ones(lq, lk, dtype=torch.bool, device=s.device).tril()
-        s = s.masked_fill(~keep, float("-inf"))
+        s = s.masked_fill(~_causal_keep(s), float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bhlm,bmhd->blhd", p, v.float()).to(q.dtype)
     return (o, lse) if return_lse else o
 
 
+def _causal_keep(s):
+    lq, lk = s.shape[-2:]
+    return torch.ones(lq, lk, dtype=torch.bool, device=s.device).tril()
+
+
+def _softmax_grad(q, k, v, lse, do, delta, causal):
+    """(q·scale, P, dS) in f32 by recompute: P = exp(q kᵀ·scale - lse),
+    dS = P∘(dO vᵀ - delta), masked pairs 0."""
+    qs = q.float() * (1.0 / math.sqrt(q.shape[-1]))
+    s = torch.einsum("blhd,bmhd->bhlm", qs, k.float())
+    if causal:
+        s = s.masked_fill(~_causal_keep(s), float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("blhd,bmhd->bhlm", do.float(), v.float())
+    return qs, p, p * (dp - delta[..., None])
+
+
+def flash_bwd_dq_reference(q, k, v, o, lse, do, causal: bool = False):
+    """Plain version of K2a: ``(dq, delta)``, delta = rowsum(dO∘O) as a
+    (B, H, Lq) f32 tensor, dq in ``q``'s dtype."""
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    _, _, ds = _softmax_grad(q, k, v, lse, do, delta, causal)
+    dq = torch.einsum("bhlm,bmhd->blhd", ds, k.float()) / math.sqrt(q.shape[-1])
+    return dq.to(q.dtype), delta
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = False):
+    """Plain version of K2b: ``(dk, dv)`` in ``k``'s dtype."""
+    qs, p, ds = _softmax_grad(q, k, v, lse, do, delta, causal)
+    dk = torch.einsum("bhlm,blhd->bmhd", ds, qs)
+    dv = torch.einsum("bhlm,blhd->bmhd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, causal: bool = False):
+    """The attention backward by recompute in plain PyTorch: ``(dq, dk,
+    dv)`` from q, k, v, the forward's O and row LSE (B, H, Lq), and dO."""
+    dq, delta = flash_bwd_dq_reference(q, k, v, o, lse, do, causal)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    return dq, dk, dv
+
+
 @functools.cache
-def _kernel():
-    lib = _build.library("flash_fwd")
-    fn = lib.flash_fwd
-    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = [i, p, p, p, p, p, i, i, i, i, *([ll] * 12), i,
-                   ctypes.c_float, p]
-    fn.restype = i
-    return fn
+def _kernels():
+    fwd = _build.library("flash_fwd").flash_fwd
+    bwd = _build.library("flash_bwd")
+    i, ll, p, f = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float
+    fwd.argtypes = [i, p, p, p, p, p, i, i, i, i, *([ll] * 12), i, f, p]
+    bwd_args = [i, p, p, p, p, p, p, p, p, i, i, i, i, p, i, f, p]
+    bwd.flash_bwd_dq.argtypes = bwd_args
+    bwd.flash_bwd_dkv.argtypes = bwd_args
+    for fn in (fwd, bwd.flash_bwd_dq, bwd.flash_bwd_dkv):
+        fn.restype = i
+    return fwd, bwd.flash_bwd_dq, bwd.flash_bwd_dkv
 
 
 def _check(q, k, v):
+    if q.device.type != "cuda":
+        raise RuntimeError(f"the kernels run on cuda, not {q.device.type}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
@@ -71,34 +125,134 @@ def _check(q, k, v):
         raise ValueError("the head dim of q, k and v must be contiguous")
 
 
-def flash_attention(q, k, v, causal: bool = False, return_lse: bool = False):
-    """Attention in (B, L, H, D) layout: the CUDA kernel on the card, the
-    plain version on the CPU.  Same returns as ``attention_reference``.
+def _check_rows(q, **tensors):
+    """o and dO: q's shape, dtype and device with a contiguous head dim;
+    lse and delta: contiguous (B, H, Lq) f32 on q's device."""
+    b, lq, h, _ = q.shape
+    for name, x in tensors.items():
+        if name in ("lse", "delta"):
+            ok = (x.dtype == torch.float32 and x.shape == (b, h, lq)
+                  and x.is_contiguous())
+        else:
+            ok = x.dtype == q.dtype and x.shape == q.shape and x.stride(-1) == 1
+        if not ok or x.device != q.device:
+            raise ValueError(f"{name} does not fit q {tuple(q.shape)} "
+                             f"{q.dtype}: {tuple(x.shape)} {x.dtype} {x.device}")
 
-    Counts each kernel launch in ``flash_attention.kernel_launches`` and
-    each plain call in ``flash_attention.plain_calls``.
-    """
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def flash_fwd(q, k, v, causal: bool = False):
+    """K1: ``(o, lse)``, O in q's dtype, LSE (B, H, Lq) f32.  The kernel on
+    a CUDA tensor, ``attention_reference`` on a CPU tensor."""
     if q.device.type == "cpu":
         flash_attention.plain_calls += 1
-        return attention_reference(q, k, v, causal, return_lse)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention runs on cuda or cpu, "
-                           f"not {q.device.type}")
+        return attention_reference(q, k, v, causal, return_lse=True)
     _check(q, k, v)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = [t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)]
-    err = _kernel()(
+    _raise_on(_kernels()[0](
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, h, lq, lk, *strides, int(causal),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+        1.0 / math.sqrt(d), _stream(q)), "flash_fwd")
     flash_attention.kernel_launches += 1
+    return o, lse
+
+
+def _stride_array(*tensors):
+    return (ctypes.c_longlong * 18)(
+        *[t.stride(i) for t in tensors for i in (0, 1, 2)])
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False):
+    """K2a: ``(dq, delta)`` as ``flash_bwd_dq_reference``.  The kernel on a
+    CUDA tensor, that plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        flash_attention.plain_bwd_calls += 1
+        return flash_bwd_dq_reference(q, k, v, o, lse, do, causal)
+    _check(q, k, v)
+    _check_rows(q, o=o, do=do, lse=lse)
+    b, lq, h, d = q.shape
+    dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    _raise_on(_kernels()[1](
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), b, h, lq, k.shape[1], _stride_array(q, k, v, o, do, dq),
+        int(causal), 1.0 / math.sqrt(d), _stream(q)), "flash_bwd_dq")
+    flash_attention.dq_launches += 1
+    return dq, delta
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
+    """K2b: ``(dk, dv)`` as ``flash_bwd_dkv_reference``.  The kernel on a
+    CUDA tensor, that plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        flash_attention.plain_bwd_calls += 1
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    _check(q, k, v)
+    _check_rows(q, do=do, lse=lse, delta=delta)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    b, lq, h, d = q.shape
+    _raise_on(_kernels()[2](
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, h, lq, k.shape[1], _stride_array(q, k, v, do, dk, dv),
+        int(causal), 1.0 / math.sqrt(d), _stream(q)), "flash_bwd_dkv")
+    flash_attention.dkv_launches += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward K1, backward K2a then K2b (each wrapper takes its plain
+    version on a CPU tensor).  Saves q, k, v, O and the LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_fwd(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, delta = flash_bwd_dq(q, k, v, o, lse, do, ctx.causal)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = False, return_lse: bool = False):
+    """Attention in (B, L, H, D) layout, differentiable in q, k and v: the
+    CUDA kernels on the card, the plain versions on the CPU.  Same returns
+    as ``attention_reference`` (the LSE carries no gradient)."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"flash_attention runs on cuda or cpu, "
+                           f"not {q.device.type}")
+    o, lse = _FlashAttention.apply(q, k, v, causal)
     return (o, lse) if return_lse else o
 
 
-flash_attention.kernel_launches = 0
-flash_attention.plain_calls = 0
+def reset_counts() -> None:
+    """Set every launch and plain-call count of ``flash_attention`` to 0."""
+    for name in COUNTS:
+        setattr(flash_attention, name, 0)
+
+
+COUNTS = ("kernel_launches", "dq_launches", "dkv_launches", "plain_calls",
+          "plain_bwd_calls")
+reset_counts()

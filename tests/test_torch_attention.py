@@ -5,8 +5,7 @@ the Pallas kernel run in interpret mode (``block_q = block_k = 128``, as
 tests/test_attention.py runs it) and against ``attention_reference``, O and
 the row LSE, causal and not.  Tolerance 2e-5 abs in f32, as
 tests/test_attention.py holds the Pallas kernel.  The CUDA kernel itself
-is compared with the plain version by the tests marked ``cuda``, which run
-only on the card."""
+is compared with the plain version on the card by tests/test_torch_cuda.py."""
 
 import math
 
@@ -58,21 +57,3 @@ def test_cpu_tensors_take_the_plain_path():
     assert torch.equal(o, want) and torch.equal(lse, want_lse)
     assert ta.flash_attention.kernel_launches == before[0]
     assert ta.flash_attention.plain_calls == before[1] + 1
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
-@pytest.mark.parametrize("length,causal", [(2048, False), (256, False),
-                                           (1000, False), (512, True)])
-def test_kernel_matches_plain_on_card(dtype, tol, length, causal):
-    """The CUDA kernel against its plain version (chip_smoke.py's tolerances:
-    f32 summation order; bf16 O rounded by both, one ulp may flip)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    gen = torch.Generator(device="cuda").manual_seed(length)
-    qkv = torch.randn((8, length, 3, 8, 64), generator=gen, device="cuda").to(dtype)
-    q, k, v = qkv.unbind(2)
-    o, lse = ta.flash_attention(q, k, v, causal, return_lse=True)
-    want, want_lse = ta.attention_reference(q, k, v, causal, return_lse=True)
-    assert (o.float() - want.float()).abs().max().item() <= tol
-    assert (lse - want_lse).abs().max().item() <= 1e-4
