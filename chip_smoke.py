@@ -27,15 +27,28 @@ Phases, each printed with its seconds; any failure exits non-zero:
      backward, the plain versions never;
   7. training cross-check: one f32 loss and gradient at full width through
      the kernels against the plain attention, on the same batch, sigma and
-     noise.
+     noise;
+  8. fused generation at full width: the same model and inputs as phase 4
+     with the UNet's fused configuration on (``fused_resnet``,
+     ``fused_stats`` at ``fold_cap`` 256, from the config as the JAX
+     package reads it); K3, K4 and K1 launch 12, 12 and 9 times per
+     forward, no plain version runs;
+  9. fused cross-check, f32, same weights: 2 sampler steps of the fused
+     model against the plain one (gated as phase 5), then one full-width
+     loss and gradient (gated as phase 7);
+ 10. fused training: phase 6's command line with a model config that turns
+     the fused configuration on; K3 and K4 launch 12 times per forward.
 Phase 3 also holds the backward kernels K2a and K2b against their plain
-versions at the training shapes.  The line before the last is the kernels'
-JSON record, the last line ``{"ok": true, "device": ...}``.  Needs nothing
-but this checkout: it imports no JAX and nothing of the JAX package.
+versions at the training shapes, and K3 and K4 (the fused resnet chain)
+at every shape of that chain, in bf16 at B = 8 and f32 at B = 4, with a
+ragged and a wide case.  The line before the last is the kernels' JSON
+record, the last line ``{"ok": true, "device": ...}``.  Needs nothing but
+this checkout: it imports no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import math
@@ -96,6 +109,32 @@ TRAIN_STEPS, ACCUMULATE, SAMPLE_STEPS, SAMPLE_ITEMS = 4, 2, 2, 2
 # max |g| = 1.5e-6 against a largest gradient of 0.5, on an NVIDIA H100 80GB
 # HBM3 at 700 W)
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, GRAD_FLOOR = 1e-5, 1e-3, 1e-3
+# the fused resnet chain (phases 3, 8-10): the UNet's fused configuration
+# as the JAX package reads it (model.fused_resnet, model.fused_stats and the
+# top-level fold_cap); at L = 2^18 compute_folds gives folds [16, 4, 1, ...],
+# so levels 0-1 run K4 and levels 2-3 run K3 where the block gate admits it
+# (32 <= channels <= 128, L % 4096 == 0)
+FUSED_SWITCHES = {"fused_resnet": True, "fused_stats": True}
+FOLD_CAP = 256
+# (C, Cout, L, K3 calls per forward in that configuration, with
+# fused_resnet alone): down levels 1, 1, 2, 2, 3 and up 3, 2, 2, 1, 1
+K3_SHAPES = [(40, 32, 2**16, 0, 1), (32, 32, 2**16, 0, 6), (64, 32, 2**16, 0, 1),
+             (80, 64, 2**14, 1, 1), (64, 64, 2**14, 6, 6), (128, 64, 2**14, 1, 1),
+             (128, 128, 2**12, 4, 4)]
+# (C, Cout, L, residual, K4 calls per forward): levels 0-1, 6 blocks
+K4_SHAPES = [(10, 8, 2**18, False, 1), (8, 8, 2**18, True, 2),
+             (16, 8, 2**18, False, 1), (40, 32, 2**16, False, 1),
+             (32, 32, 2**16, True, 4), (32, 32, 2**16, False, 2),
+             (64, 32, 2**16, False, 1)]
+K3_PER_FORWARD = sum(row[3] for row in K3_SHAPES)  # 12
+K4_PER_FORWARD = sum(row[4] for row in K4_SHAPES)  # 12
+FUSED_GROUPS = 8
+# K3 and K4 against their plain versions: y, max abs error relative to max
+# |plain| (f32: sums of up to 3·1024 products in other orders; bf16: both
+# round the same f32 value, one ulp, 2^-8, may flip); the sums s and ss,
+# relative to their bounds sqrt(n·ss) and ss (f32, other orders)
+FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+STATS_TOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -280,6 +319,118 @@ def phase_kernels(attn):
     return total
 
 
+def fused_work(b, c, cout, length, dtype, residual):
+    """(bytes, operations) of K3 or K4 as a function: x (and the residual)
+    read once, y written once, scale, shift, weights and bias read once;
+    2 operations per multiply-add of the 3-tap conv."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    rows = b * length * (c + cout * (2 if residual else 1))
+    return rows * esize + 4 * (2 * b * c + 3 * c * cout + cout), 6 * b * length * c * cout
+
+
+def phase_fused_kernels(fr):
+    """Phase 3, the fused resnet chain: K3 and K4 against their plain
+    versions at every shape of the chain, bf16 at B = 8 (the generation
+    batch) and f32 at B = 4 (training), with a ragged (L = 1000) and a wide
+    (C = 1024) case; x and the residual as the blocks pass them, (B, L, C)
+    views of (B, C, L) tensors.  Returns the per-forward totals of the
+    main path's bf16 shapes and K3's per-forward time with fused_resnet
+    alone."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    cases = ([("k3", c, co, n, False, per) for c, co, n, per, _ in K3_SHAPES]
+             + [("k3", 64, 64, 1000, False, 0), ("k3", 1024, 1024, 256, False, 0)]
+             + [("k4", c, co, n, r, per) for c, co, n, r, per in K4_SHAPES]
+             + [("k4", 32, 32, 1000, True, 0), ("k4", 1024, 1024, 256, True, 0)])
+    alone = {(c, co, n): a for c, co, n, _, a in K3_SHAPES}
+    total = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+                 "ops": 0, "max_abs_err": 0.0} for k in ("k3", "k4")}
+    k3_alone_ms = 0.0
+    for dtype, rows in ((torch.bfloat16, ROWS), (torch.float32, TRAIN_ROWS)):
+        for kind, c, cout, length, residual, per in cases:
+            x = randn(rows, c, length).to(dtype).transpose(1, 2)
+            scale, shift = randn(rows, c) * 0.3 + 1.0, randn(rows, c) * 0.5
+            w = (randn(3, c, cout) / math.sqrt(3 * c)).to(dtype)
+            bias = randn(cout) * 0.1
+            r = (randn(rows, cout, length).to(dtype).transpose(1, 2)
+                 if residual else None)
+            if kind == "k3":
+                def run():
+                    return fr.affine_silu_conv(x, scale, shift, w, bias)
+
+                def plain():
+                    return fr._reference(x, scale, shift, w, bias)
+            else:
+                def run():
+                    return fr.affine_silu_conv_stats(x, scale, shift, w, bias, r,
+                                                     FUSED_GROUPS)
+
+                def plain():
+                    return fr._stats_reference(x, scale, shift, w, bias, r,
+                                               FUSED_GROUPS)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            y, y_ref = (got, want) if kind == "k3" else (got[0], want[0])
+            err = (y.float() - y_ref.float()).abs().max().item()
+            rel = err / y_ref.float().abs().max().item()
+            rel_s = 0.0
+            if kind == "k4":
+                n = length * cout // FUSED_GROUPS
+                rel_s = max(((got[1] - want[1]).abs()
+                             / (n * want[2]).sqrt()).max().item(),
+                            ((got[2] - want[2]).abs() / want[2]).max().item())
+            ok = rel <= FUSED_TOL[dtype] and rel_s <= STATS_TOL
+            ms = time_ms(run, 20)
+            plain_ms = time_ms(plain, 5)
+            # the library yardstick: the conv alone, on the input already
+            # normalised and activated, in the compute dtype
+            h = F.silu(x.float() * scale[:, None, :] + shift[:, None, :])
+            h = h.to(dtype).transpose(1, 2).contiguous()
+            wt, bt = w.permute(2, 1, 0).contiguous(), bias.to(dtype)
+            lib = time_ms(lambda: F.conv1d(h, wt, bt, padding=1), 20)
+            nbytes, ops = fused_work(rows, c, cout, length, dtype, residual)
+            bms, by = bound_ms(nbytes, ops, dtype)
+            print(f"  {kind} {str(dtype)[6:]:8s} B={rows} C={c:4d} Cout={cout:4d} "
+                  f"L={length:6d} res={int(residual)}: err y {err:.3e} (rel "
+                  f"{rel:.2e}, tol {FUSED_TOL[dtype]:.0e}) sums rel {rel_s:.2e} "
+                  f"(tol {STATS_TOL:.0e}) | kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, conv alone {lib:.4f} ms, bound {bms:.4f} ms "
+                  f"({by}) {'ok' if ok else 'MISMATCH'}", flush=True)
+            check(ok, f"{kind} {dtype} C={c} Cout={cout} L={length} disagrees "
+                      f"with its plain version")
+            if dtype == torch.bfloat16 and per:
+                tot = total[kind]
+                tot["ms"] += per * ms
+                tot["plain_ms"] += per * plain_ms
+                tot["library_ms"] += per * lib
+                tot["bytes"] += per * nbytes
+                tot["ops"] += per * ops
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            if dtype == torch.bfloat16 and kind == "k3":
+                k3_alone_ms += alone.get((c, cout, length), 0) * ms
+            del x, r, h, got, want
+    print(f"  per in-band forward (bf16, B={ROWS}): K3 {total['k3']['ms']:.4f} ms "
+          f"x {K3_PER_FORWARD} calls, K4 {total['k4']['ms']:.4f} ms x "
+          f"{K4_PER_FORWARD}; K3 with fused_resnet alone (20 calls) "
+          f"{k3_alone_ms:.4f} ms")
+    return total, k3_alone_ms
+
+
+def fused_model_cfg() -> dict:
+    """exp/model/diffusion.yaml's model node with the fused configuration
+    on: ``model.fused_resnet``, ``model.fused_stats``, ``fold_cap``."""
+    from syncfusion_tpu_torch.core.config import EncoderConfig, UNetConfig
+
+    return {"model": {**dataclasses.asdict(UNetConfig()), **FUSED_SWITCHES},
+            "onsets_encoder": dataclasses.asdict(EncoderConfig()),
+            "fold_cap": FOLD_CAP}
+
+
 def kernel_vs_plain(model, attn, blocks, noise, onsets, embedding) -> float:
     """2 sampler steps (one out of the band, one in it) through the kernel
     and through the plain attention; max |diff| / max |plain|."""
@@ -318,34 +469,52 @@ def write_shard(path: str, tracks: int = 4, seconds: float = 12.0,
                 tar.addfile(info, io.BytesIO(body))
 
 
-def counts(attn) -> dict:
-    return {name: getattr(attn.flash_attention, name) for name in attn.COUNTS}
+def counts(attn, fr) -> dict:
+    """Every kernel's launch count and every plain version's call count:
+    K1, K2a, K2b (``attn``), K3 and K4 (``fr``)."""
+    out = {name: getattr(attn.flash_attention, name) for name in attn.COUNTS}
+    for key, fn in (("k3", fr.affine_silu_conv), ("k4", fr.affine_silu_conv_stats)):
+        out.update({f"{key}_{name}": getattr(fn, name) for name in fr.COUNTS})
+    return out
 
 
-def phase_train(attn, tmp: str):
-    """Phase 6: the training command line at full width, f32.  Returns
-    (final state, launch counts, seconds per micro-step, peak GiB)."""
+def reset_counts(attn, fr) -> None:
+    attn.reset_counts()
+    fr.reset_counts()
+
+
+def phase_train(attn, fr, tmp: str, name: str, model_cfg=None):
+    """Phases 6 and 10: the training command line at full width, f32, with
+    the default model or ``model_cfg`` (passed as ``--model_config``).
+    Returns (final state, launch counts, seconds per micro-step, peak GiB)."""
     from syncfusion_tpu_torch import train_diffusion
     from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
 
     shard = os.path.join(tmp, "shard.tar")
-    write_shard(shard)
+    if not os.path.exists(shard):
+        write_shard(shard)
+    logs = os.path.join(tmp, name)
     args = ["--train_path", shard, "--val_path", shard,
-            "--logs_dir", os.path.join(tmp, "logs"), "--embedder", "none",
+            "--logs_dir", logs, "--embedder", "none",
             "--precision", "32", "--batch_size", str(BATCH), "--length", str(LENGTH),
             "--accumulate_grad_batches", str(ACCUMULATE),
             "--max_steps", str(TRAIN_STEPS), "--log_every_n_steps", "1",
             "--val_check_interval", str(TRAIN_STEPS), "--val_batches", "1",
             "--num_items", str(SAMPLE_ITEMS), "--sampling_steps", str(SAMPLE_STEPS),
             "--device", "cuda"]
+    if model_cfg is not None:
+        path = os.path.join(tmp, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(model_cfg, f)
+        args += ["--model_config", path]
     torch.cuda.reset_peak_memory_stats()
-    attn.reset_counts()
+    reset_counts(attn, fr)
     state = train_diffusion.main(args)
     torch.cuda.synchronize()
-    launched = counts(attn)
+    launched = counts(attn, fr)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    (run,) = os.listdir(os.path.join(tmp, "logs", "runs"))
-    run = os.path.join(tmp, "logs", "runs", run)
+    (run,) = os.listdir(os.path.join(logs, "runs"))
+    run = os.path.join(logs, "runs", run)
     with open(os.path.join(run, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     train = [r for r in recs if "train_loss" in r]
@@ -367,20 +536,22 @@ def phase_train(attn, tmp: str):
     # step (CFG runs both branches as one forward); backwards: one per
     # micro-step
     forwards, backwards = TRAIN_STEPS + 1 + SAMPLE_STEPS, TRAIN_STEPS
+    fused = model_cfg is not None
     want = {"kernel_launches": 9 * forwards, "dq_launches": 9 * backwards,
-            "dkv_launches": 9 * backwards, "plain_calls": 0, "plain_bwd_calls": 0}
+            "dkv_launches": 9 * backwards, "plain_calls": 0, "plain_bwd_calls": 0,
+            "k3_kernel_launches": K3_PER_FORWARD * forwards if fused else 0,
+            "k3_plain_calls": 0,
+            "k4_kernel_launches": K4_PER_FORWARD * forwards if fused else 0,
+            "k4_plain_calls": 0}
     print(f"  launches {launched} (expected {want}), peak memory {peak:.3f} GiB")
     check(launched == want, f"launch counts {launched} != {want}")
     sec = statistics.median(r["sec_per_step"] for r in train[1:])
     return state, launched, sec, peak
 
 
-def train_vs_plain(model, attn, blocks, tmp: str):
-    """Phase 7: one f32 loss and gradient through the kernels and through
-    the plain attention, same batch, sigma and noise.  Returns (relative
-    loss difference, max over tensors of max |dg| / max(max |g_plain|,
-    GRAD_FLOOR · the largest gradient)).  A second plain run shows the
-    run-to-run rounding of the same computation (printed)."""
+def training_batch(tmp: str) -> tuple:
+    """One full-width batch of the phase-6 shard with sigma, noise and an
+    embedding: (wav, onsets, embedding, sigma, noise), on the card."""
     from syncfusion_tpu_torch.data.sfx_dataset import batched, create_sfx_dataset
 
     items = create_sfx_dataset(os.path.join(tmp, "shard.tar"), sample_rate=SR,
@@ -392,53 +563,113 @@ def train_vs_plain(model, attn, blocks, tmp: str):
     emb = torch.randn((BATCH, 1, 512), generator=gen, device="cuda")
     sigma = torch.rand((BATCH,), generator=gen, device="cuda")
     noise = torch.randn(wav.shape, generator=gen, device="cuda")
+    return wav, onsets, emb, sigma, noise
 
-    def loss_and_grads():
-        for p in model.parameters():
-            p.grad = None
-        loss = model.loss(wav, onsets, emb, sigma=sigma, noise=noise)
-        loss.backward()
-        return loss.item(), {k: p.grad for k, p in model.named_parameters()}
 
-    attn.reset_counts()
-    loss_k, grads_k = loss_and_grads()
-    launched = counts(attn)
+def loss_and_grads(model, batch) -> tuple:
+    """One loss and the gradient of every parameter, by name."""
+    wav, onsets, emb, sigma, noise = batch
+    for p in model.parameters():
+        p.grad = None
+    loss = model.loss(wav, onsets, emb, sigma=sigma, noise=noise)
+    loss.backward()
+    return loss.item(), {k: p.grad for k, p in model.named_parameters()}
+
+
+def grad_gaps(grads, grads_ref) -> list:
+    """Per tensor, sorted worst first: (max |g - g_ref| / max(max |g_ref|,
+    GRAD_FLOOR · the largest gradient), max |g_ref|, name, unfloored)."""
+    top = max(g.abs().max().item() for g in grads_ref.values() if g is not None)
+    floor = GRAD_FLOOR * top
+    rows = []
+    for name, gp in grads_ref.items():
+        g = grads[name]
+        check((g is None) == (gp is None), f"{name}: gradient on one side only")
+        if gp is not None:
+            scale = gp.abs().max().item()
+            diff = (g - gp).abs().max().item()
+            rows.append((diff / max(scale, floor), scale, name,
+                         diff / scale if scale > 0 else 0.0))
+    return sorted(rows, reverse=True)
+
+
+def print_gaps(label: str, rows) -> None:
+    raw = max(rows, key=lambda row: row[3])
+    print(f"  {label}: worst floored {rows[0][0]:.2e} ({rows[0][2]}), worst "
+          f"unfloored {raw[3]:.2e} ({raw[2]}, max |g| {raw[1]:.2e})")
+
+
+def train_vs_plain(model, attn, fr, blocks, tmp: str):
+    """Phase 7: one f32 loss and gradient through the kernels and through
+    the plain attention, same batch, sigma and noise.  Returns (relative
+    loss difference, max over tensors of max |dg| / max(max |g_plain|,
+    GRAD_FLOOR · the largest gradient)).  A second plain run shows the
+    run-to-run rounding of the same computation (printed)."""
+    batch = training_batch(tmp)
+    reset_counts(attn, fr)
+    loss_k, grads_k = loss_and_grads(model, batch)
+    launched = counts(attn, fr)
     check(launched["kernel_launches"] == launched["dq_launches"]
           == launched["dkv_launches"] == 9, f"cross-check launches {launched}")
     attns = [m for m in model.modules() if isinstance(m, blocks.SelfAttention1d)]
     for m in attns:
         m.attend = attn.attention_reference
-    loss_p, grads_p = loss_and_grads()
-    _, grads_p2 = loss_and_grads()
+    loss_p, grads_p = loss_and_grads(model, batch)
+    _, grads_p2 = loss_and_grads(model, batch)
     for m in attns:
         del m.attend
-    top = max(g.abs().max().item() for g in grads_p.values() if g is not None)
-    floor = GRAD_FLOOR * top
-
-    def worst_of(grads):
-        rows = []
-        for name, gp in grads_p.items():
-            g = grads[name]
-            check((g is None) == (gp is None), f"{name}: gradient on one side only")
-            if gp is not None:
-                scale = gp.abs().max().item()
-                diff = (g - gp).abs().max().item()
-                rows.append((diff / max(scale, floor), scale, name,
-                             diff / scale if scale > 0 else 0.0))
-        return sorted(rows, reverse=True)
-
-    rels, rerun = worst_of(grads_k), worst_of(grads_p2)
-    floored = sum(row[1] < floor for row in rels)
+    rels, rerun = grad_gaps(grads_k, grads_p), grad_gaps(grads_p2, grads_p)
+    top = max(row[1] for row in rels)
+    floored = sum(row[1] < GRAD_FLOOR * top for row in rels)
     print(f"  largest gradient {top:.3e}; {floored} of {len(rels)} tensors have "
           f"max |g| below {GRAD_FLOOR:.0e} of it; worst: " + ", ".join(
               f"{n_} {r:.2e} (max |g| {g:.2e})" for r, g, n_, _ in rels[:3]))
-    for label, rows in (("kernels vs plain", rels), ("plain vs plain, run to run",
-                                                     rerun)):
-        raw = max(rows, key=lambda row: row[3])
-        print(f"  {label}: worst floored {rows[0][0]:.2e} ({rows[0][2]}), worst "
-              f"unfloored {raw[3]:.2e} ({raw[2]}, max |g| {raw[1]:.2e})")
-    worst = rels[0][0]
-    return abs(loss_k - loss_p) / abs(loss_p), worst
+    print_gaps("kernels vs plain", rels)
+    print_gaps("plain vs plain, run to run", rerun)
+    return abs(loss_k - loss_p) / abs(loss_p), rels[0][0]
+
+
+def fused_vs_plain(attn, fr, noise, onsets, embedding, tmp: str):
+    """Phase 9, f32, the same weights: 2 sampler steps and one loss and
+    gradient of the fused model against the plain one.  Returns (sampling
+    max |diff| / max |plain|, relative loss difference, worst floored
+    gradient gap)."""
+    from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
+
+    plain = SyncFusionDiffusion.from_config(None, dtype=torch.float32,
+                                            device="cuda", seed=0)
+    fused = SyncFusionDiffusion.from_config(fused_model_cfg(), dtype=torch.float32,
+                                            device="cuda", seed=0)
+    fused.load_state_dict(plain.state_dict(), strict=True)
+
+    def two_steps(model):
+        return model.sample(noise, onsets, embedding, num_steps=2,
+                            embedding_scale=SCALE, guidance_interval=BAND)
+
+    reset_counts(attn, fr)
+    a = two_steps(fused)
+    launched = counts(attn, fr)
+    # 2 steps, one out of the band (B rows) and one in it (2B rows)
+    check(launched["k3_kernel_launches"] == 2 * K3_PER_FORWARD
+          and launched["k4_kernel_launches"] == 2 * K4_PER_FORWARD
+          and launched["k3_plain_calls"] == launched["k4_plain_calls"] == 0,
+          f"fused sampling launches {launched}")
+    b = two_steps(plain)
+    rel_sample = ((a - b).abs().max() / b.abs().max()).item()
+
+    batch = training_batch(tmp)
+    reset_counts(attn, fr)
+    loss_f, grads_f = loss_and_grads(fused, batch)
+    launched = counts(attn, fr)
+    check(launched["k3_kernel_launches"] == K3_PER_FORWARD
+          and launched["k4_kernel_launches"] == K4_PER_FORWARD
+          and launched["k3_plain_calls"] == launched["k4_plain_calls"] == 0,
+          f"fused training launches {launched}")
+    loss_p, grads_p = loss_and_grads(plain, batch)
+    rels = grad_gaps(grads_f, grads_p)
+    print(f"  fused vs plain loss {loss_f:.6f} / {loss_p:.6f}")
+    print_gaps("fused vs plain gradients", rels)
+    return rel_sample, abs(loss_f - loss_p) / abs(loss_p), rels[0][0]
 
 
 def main() -> int:
@@ -450,6 +681,7 @@ def main() -> int:
     from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
     from syncfusion_tpu_torch.ops import _build
     from syncfusion_tpu_torch.ops import attention as attn
+    from syncfusion_tpu_torch.ops import fused_resblock as fr
     from syncfusion_tpu_torch.ops.wav import write_wav
 
     # f32 references run in full f32 (matmul and cuDNN convolutions)
@@ -475,6 +707,7 @@ def main() -> int:
     t0 = time.perf_counter()
     total = phase_kernels(attn)
     bwd_total = phase_bwd_kernels(attn)
+    fused_total, k3_alone_ms = phase_fused_kernels(fr)
     phase("3 kernels against plain versions", t0)
 
     t0 = time.perf_counter()
@@ -489,28 +722,31 @@ def main() -> int:
     torch.cuda.synchronize()
     phase("4a build the full-width model", t0)
 
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    attn.reset_counts()
-    wav = model.sample(noise, onsets, embedding, num_steps=NUM_STEPS,
+    def generate(m, label):
+        """One run of 4 clips; returns (clips, seconds, launch counts)."""
+        start = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(attn, fr)
+        out = m.sample(noise, onsets, embedding, num_steps=NUM_STEPS,
                        embedding_scale=SCALE, guidance_interval=BAND)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = attn.flash_attention.kernel_launches
-    plain_calls = attn.flash_attention.plain_calls
-    check(counts(attn)["dq_launches"] == counts(attn)["dkv_launches"] == 0,
-          "sampling launched a backward kernel")
-    check(tuple(wav.shape) == (BATCH, LENGTH, 1), f"output shape {tuple(wav.shape)}")
-    check(bool(torch.isfinite(wav).all()), "non-finite output")
-    expected = 9 * NUM_STEPS
-    check(launches == expected, f"kernel_launches {launches} != {expected}")
-    check(plain_calls == 0, f"plain_calls {plain_calls} != 0")
-    clips = BATCH * LENGTH / SR / 8.0
-    print(f"  generated {tuple(wav.shape)}: {seconds:.3f} s, "
-          f"{clips / seconds * 60:.3f} 8-s clips/min, "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
-          f"flash launches {launches}, plain calls {plain_calls}, "
-          f"rms {wav.float().pow(2).mean().sqrt().item():.4f}")
+        torch.cuda.synchronize()
+        took = time.perf_counter() - start
+        launched = counts(attn, fr)
+        check(tuple(out.shape) == (BATCH, LENGTH, 1), f"output shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), "non-finite output")
+        clips = BATCH * LENGTH / SR / 8.0
+        print(f"  {label}: generated {tuple(out.shape)}: {took:.3f} s, "
+              f"{clips / took * 60:.3f} 8-s clips/min, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches "
+              f"{launched}, rms {out.float().pow(2).mean().sqrt().item():.4f}")
+        return out, took, launched
+
+    t0 = time.perf_counter()
+    wav, seconds, gen_launched = generate(model, "plain UNet")
+    launches = gen_launched["kernel_launches"]
+    want = {name: 0 for name in gen_launched}
+    want["kernel_launches"] = 9 * NUM_STEPS
+    check(gen_launched == want, f"launch counts {gen_launched} != {want}")
     with tempfile.TemporaryDirectory() as tmp:
         write_wav(os.path.join(tmp, "clip0.wav"), wav[0, :, 0].cpu().numpy(), SR)
     phase("4b generate 4 full-width clips", t0)
@@ -534,31 +770,77 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        state, train_launched, sec, peak = phase_train(attn, tmp)
+        state, train_launched, sec, peak = phase_train(attn, fr, tmp, "plain")
         print(f"  training, f32, B={BATCH}, L={LENGTH}: {sec:.4f} s per micro-step "
               f"(median of steps 2-{TRAIN_STEPS}), peak memory {peak:.3f} GiB")
         phase("6 training at full width", t0)
 
         t0 = time.perf_counter()
-        rel_loss, rel_grad = train_vs_plain(state.model, attn, blocks, tmp)
+        rel_loss, rel_grad = train_vs_plain(state.model, attn, fr, blocks, tmp)
         print(f"  f32 loss and gradient, kernels vs plain attention: loss "
               f"{rel_loss:.3e} relative (tol {TRAIN_LOSS_TOL:.0e}), gradients max "
               f"|diff| / max |plain| {rel_grad:.3e} (tol {TRAIN_GRAD_TOL:.0e})")
         check(rel_loss <= TRAIN_LOSS_TOL, "training loss cross-check disagrees")
         check(rel_grad <= TRAIN_GRAD_TOL, "training gradient cross-check disagrees")
         del state
+        torch.cuda.empty_cache()
         phase("7 training cross-check", t0)
 
+        t0 = time.perf_counter()
+        fused = SyncFusionDiffusion.from_config(fused_model_cfg(), dtype=torch.bfloat16,
+                                                device="cuda", seed=0)
+        check(fused.unet.stats_levels(LENGTH) == [True, True] + [False] * 6,
+              f"K4 levels {fused.unet.stats_levels(LENGTH)}")
+        wav_f, seconds_f, fused_launched = generate(fused, "fused UNet")
+        want = {name: 0 for name in fused_launched}
+        want.update(kernel_launches=9 * NUM_STEPS,
+                    k3_kernel_launches=K3_PER_FORWARD * NUM_STEPS,
+                    k4_kernel_launches=K4_PER_FORWARD * NUM_STEPS)
+        check(fused_launched == want, f"launch counts {fused_launched} != {want}")
+        rel_gen = ((wav_f - wav).abs().max() / wav.abs().max()).item()
+        print(f"  fused vs plain UNet, 150 steps, bf16: {seconds_f:.3f} s against "
+              f"{seconds:.3f} s ({seconds / seconds_f:.3f}x); max |diff| / max "
+              f"|plain| {rel_gen:.3e} (not gated: bf16 roundings at other places)")
+        del fused, wav_f
+        torch.cuda.empty_cache()
+        phase("8 fused generation at full width", t0)
+
+        t0 = time.perf_counter()
+        rel_fs, rel_fl, rel_fg = fused_vs_plain(attn, fr, noise, onsets, embedding, tmp)
+        print(f"  f32, same params: 2 sampler steps fused vs plain max |diff| / max "
+              f"|plain| {rel_fs:.3e} (tol {CROSS_TOL:.0e}); loss {rel_fl:.3e} "
+              f"relative (tol {TRAIN_LOSS_TOL:.0e}); gradients {rel_fg:.3e} "
+              f"(tol {TRAIN_GRAD_TOL:.0e})")
+        check(math.isfinite(rel_fs) and rel_fs <= CROSS_TOL,
+              "fused sampling cross-check disagrees")
+        check(rel_fl <= TRAIN_LOSS_TOL, "fused loss cross-check disagrees")
+        check(rel_fg <= TRAIN_GRAD_TOL, "fused gradient cross-check disagrees")
+        torch.cuda.empty_cache()
+        phase("9 fused cross-check", t0)
+
+        t0 = time.perf_counter()
+        state, fused_train, sec_f, peak_f = phase_train(attn, fr, tmp, "fused",
+                                                        fused_model_cfg())
+        print(f"  fused training, f32, B={BATCH}, L={LENGTH}: {sec_f:.4f} s per "
+              f"micro-step (plain UNet, phase 6: {sec:.4f}), peak memory "
+              f"{peak_f:.3f} GiB (phase 6: {peak:.3f})")
+        del state
+        phase("10 fused training at full width", t0)
+
     bms, by = bound_ms(total["bytes"], total["ops"], torch.bfloat16)
-    fwd_launches = launches + train_launched["kernel_launches"]
+    paths = {"generate": gen_launched, "train": train_launched,
+             "generate_fused": fused_launched, "train_fused": fused_train}
+
+    def launched_by_path(key):
+        return {p_: c_[key] for p_, c_ in paths.items()}
+
     rows = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "syncfusion_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "syncfusion_tpu/ops/attention.py:34",
-        "launches": fwd_launches,
-        "launches_by_path": {"generate": launches,
-                             "train": train_launched["kernel_launches"]},
+        "launches": sum(launched_by_path("kernel_launches").values()),
+        "launches_by_path": launched_by_path("kernel_launches"),
         "max_abs_err": total["max_abs_err"],
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
@@ -579,7 +861,8 @@ def main() -> int:
             "route": "cuda",
             "source": "syncfusion_tpu_torch/csrc/flash_bwd.cu",
             "replaces": replaces,
-            "launches": train_launched[f"{key}_launches"],
+            "launches": sum(launched_by_path(f"{key}_launches").values()),
+            "launches_by_path": launched_by_path(f"{key}_launches"),
             "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"],
             "plain_ms": tot["plain_ms"],
@@ -591,6 +874,37 @@ def main() -> int:
             "work": "the 9 attention calls of one training backward, f32, "
                     "BH=32, T=2048x2, 1024x2, 512x2, 256x3",
         })
+    for name, replaces, key, work in (
+            ("fused_resblock_k3",
+             "syncfusion_tpu/ops/fused_resblock.py:54, "
+             "syncfusion_tpu/ops/fused_resblock.py:136", "k3",
+             f"the {K3_PER_FORWARD} K3 calls of one in-band UNet forward "
+             f"(fused_resnet + fused_stats, fold_cap {FOLD_CAP}), bf16, B={ROWS}: "
+             "levels 2-3, C 64-128, L 16384 and 4096"),
+            ("fused_resblock_k4", "syncfusion_tpu/ops/fused_resblock.py:342", "k4",
+             f"the {K4_PER_FORWARD} K4 calls of one in-band UNet forward "
+             f"(same configuration), bf16, B={ROWS}: levels 0-1, C 8-64, "
+             "L 262144 and 65536")):
+        tot = fused_total[key]
+        bms, by = bound_ms(tot["bytes"], tot["ops"], torch.bfloat16)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "syncfusion_tpu_torch/csrc/fused_resblock.cu",
+            "replaces": replaces,
+            "launches": sum(launched_by_path(f"{key}_kernel_launches").values()),
+            "launches_by_path": launched_by_path(f"{key}_kernel_launches"),
+            "max_abs_err": tot["max_abs_err"],
+            "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"],
+            "bound_ms": bms,
+            "bound_by": by,
+            "library_ms": tot["library_ms"],
+            "library_note": "F.conv1d alone on the already-activated input: no "
+                            "single PyTorch call computes the fused function",
+            "work": work,
+        })
+    rows[3]["ms_fused_resnet_alone"] = k3_alone_ms
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,13 @@
 """Where one UNet forward's time goes on the card.
 
     python -m syncfusion_tpu_torch.breakdown [--batch 8] [--length 262144]
+        [--model_config model.json]
 
-Builds the full-width model of exp/model/diffusion.yaml (seeded random
-weights, bf16), computes the context once, and profiles ``--iters``
+Builds the full-width model of exp/model/diffusion.yaml, or of
+``--model_config`` (JSON of the diffusion config's model node, as in
+``generate.py``: e.g. with ``model.fused_resnet``, ``model.fused_stats``
+and ``fold_cap`` for the fused resnet chain), with seeded random weights
+in bf16, computes the context once, and profiles ``--iters``
 forwards of the UNet at ``--batch`` rows (8 = the in-band CFG batch of 4
 clips) with ``torch.profiler``.  Prints the device time per forward by
 kernel class and the top kernels, the host wall time per forward and the
@@ -23,6 +27,7 @@ from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
 
 # kernel class by substring of the kernel's full name, first match wins
 CLASSES = (("flash_fwd", ("flash_fwd",)),
+           ("fused_resblock", ("fused_resblock",)),
            ("group_norm", ("RowwiseMoments", "GroupNorm", "group_norm",
                            "ComputeFusedParams")),
            ("conv", ("convolve", "cudnn", "xmma", "nchwToNhwc", "nhwcToNchw")),
@@ -43,11 +48,18 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--length", type=int, default=2**18)
     ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--model_config", default=None,
+                    help="JSON of the diffusion config's model node "
+                         "(default: exp/model/diffusion.yaml's values)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: needs the card")
 
-    model = SyncFusionDiffusion.from_config(None, dtype=torch.bfloat16,
+    model_cfg = None
+    if args.model_config:
+        with open(args.model_config) as f:
+            model_cfg = json.load(f)
+    model = SyncFusionDiffusion.from_config(model_cfg, dtype=torch.bfloat16,
                                             device="cuda", seed=0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, length = args.batch, args.length
@@ -85,14 +97,16 @@ def main(argv=None) -> None:
         cls = classify(evt.key)
         by_class[cls] = by_class.get(cls, 0.0) + ms
     device = sum(by_class.values())
-    print(f"UNet forward, batch {b}, L {length}, bf16: host wall {wall:.3f} ms, "
+    print(f"UNet forward ({args.model_config or 'default model'}), batch {b}, "
+          f"L {length}, bf16: host wall {wall:.3f} ms, "
           f"device busy {device:.3f} ms, idle share {1 - device / wall:.3f}")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls:12s} {ms:9.3f} ms  {ms / device:6.1%}")
     print("top kernels (ms per forward, launches per forward, name):")
     for ms, count, name in sorted(kernels, reverse=True)[:20]:
         print(f"  {ms:9.3f} {count:5d}  {name[:110]}")
-    print(json.dumps({"batch": b, "length": length, "wall_ms": wall,
+    print(json.dumps({"model_config": args.model_config, "batch": b,
+                      "length": length, "wall_ms": wall,
                       "device_ms": device, "by_class_ms": by_class}))
 
 

@@ -30,6 +30,16 @@ class UNetConfig:
     modulation_features: int = 1024
     resnet_groups: int = 8
     out_channels: Optional[int] = None
+    # execution switches of the JAX UNet1d, off by default as there:
+    # fused_resnet runs the resnet chains that pass its gate through K3;
+    # fused_stats runs the levels that the folded apply folds (compute_folds
+    # at fold_cap, the diffusion config's top-level key, 256 in the yaml)
+    # through K4.  fold_cap alone changes nothing: the port keeps the plain
+    # layout, which the folded one equals.
+    fused_resnet: bool = False
+    fused_stats: bool = False
+    fused_block_l: int = 4096
+    fold_cap: int = 256
 
     @classmethod
     def from_dict(cls, node: Mapping[str, Any]) -> "UNetConfig":
@@ -66,11 +76,14 @@ def _from_dict(cls, node: Mapping[str, Any]):
 def model_configs(model_cfg: Optional[Mapping[str, Any]]
                   ) -> tuple[UNetConfig, EncoderConfig]:
     """The ``model`` node of a diffusion config (``{"model": ...,
-    "onsets_encoder": ...}``) as config objects; the defaults when None."""
+    "onsets_encoder": ..., "fold_cap": ...}``) as config objects; the
+    defaults when None.  ``fold_cap`` (0 when absent) joins the UNet's
+    config, as the JAX ``from_config`` reads it beside ``model``."""
     if model_cfg is None:
         return UNetConfig(), EncoderConfig()
-    return (UNetConfig.from_dict(model_cfg["model"]),
-            EncoderConfig.from_dict(model_cfg["onsets_encoder"]))
+    unet = UNetConfig.from_dict({**model_cfg["model"],
+                                 "fold_cap": int(model_cfg.get("fold_cap", 0))})
+    return unet, EncoderConfig.from_dict(model_cfg["onsets_encoder"])
 
 
 def from_yaml(path) -> tuple[UNetConfig, EncoderConfig]:

@@ -27,8 +27,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from syncfusion_tpu_torch.ops.attention import attention_reference, flash_attention
+from syncfusion_tpu_torch.ops.fused_resblock import (
+    fold_groupnorm_film,
+    fused_affine_silu_conv_blocked,
+    fused_affine_silu_conv_stats,
+    group_stats,
+    stats_affine,
+)
 
 GN_EPS = 1e-6  # Flax GroupNorm's epsilon (torch's default is 1e-5)
+# the JAX block's fused gate: narrower channels lost on the TPU (its
+# fused_min_ch default, which no caller changes)
+FUSED_MIN_CH = 32
 
 
 def gn_groups(channels: int, groups: int) -> int:
@@ -144,12 +154,23 @@ class FourierTimeEmbedding(nn.Module):
 
 class ResnetBlock1d(nn.Module):
     """GN -> (FiLM) -> SiLU -> conv(k3), GN -> SiLU -> conv(k3), residual
-    (plain path of the JAX block; ``time_features`` adds the FiLM
-    projection of the time embedding to ``(1 + scale, shift)``)."""
+    (``time_features`` adds the FiLM projection of the time embedding to
+    ``(1 + scale, shift)``).
+
+    ``fused=True`` runs both GN -> (FiLM) -> SiLU -> conv chains through
+    K3 (``ops/fused_resblock``) where the JAX block's gate admits it:
+    ``L % fused_block_l == 0`` and ``FUSED_MIN_CH <= in_channels, channels
+    <= 128``; elsewhere the plain path.  ``forward_stats`` is the
+    producer-side-statistics path of the JAX package's
+    ``unet1d_folded._folded_resnet_stats``: two K4 calls that emit the
+    group sums the next GroupNorm needs.  Parameters are the same on every
+    path.
+    """
 
     def __init__(self, in_channels: int, channels: int, groups: int = 8,
                  time_features: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused: bool = False,
+                 fused_block_l: int = 4096):
         super().__init__()
         self.GroupNorm_0 = GroupNorm(gn_groups(in_channels, groups), in_channels, dtype)
         self.GroupNorm_1 = GroupNorm(gn_groups(channels, groups), channels, dtype)
@@ -159,16 +180,81 @@ class ResnetBlock1d(nn.Module):
                      if time_features else None)
         self.skip_proj = (Conv1d(in_channels, channels, 1, bias=False, dtype=dtype)
                           if in_channels != channels else None)
+        self.fused, self.fused_block_l = fused, fused_block_l
+
+    def uses_fused(self, length: int) -> bool:
+        """The JAX block's gate for the fused path at sequence ``length``."""
+        in_ch, ch = self.conv1.weight.shape[1], self.conv1.weight.shape[0]
+        return (self.fused and length % self.fused_block_l == 0
+                and FUSED_MIN_CH <= in_ch <= 128 and FUSED_MIN_CH <= ch <= 128)
+
+    def _film(self, time_emb, batch: int, device):
+        """FiLM (scale, shift), each (B, in_channels) f32; zeros without."""
+        if self.film is None:
+            zero = torch.zeros(batch, self.conv1.weight.shape[1], device=device)
+            return zero, zero
+        return self.film(F.silu(time_emb)).chunk(2, dim=-1)
+
+    def _residual(self, x):
+        return x if self.skip_proj is None else self.skip_proj(x)
 
     def forward(self, x, time_emb=None):
+        if self.uses_fused(x.shape[-1]):
+            return self._fused(x, time_emb)
         h = self.GroupNorm_0(x)
         if self.film is not None:
             scale, shift = self.film(F.silu(time_emb)).chunk(2, dim=-1)
             h = h.float() * (1.0 + scale[:, :, None]) + shift[:, :, None]
         h = self.conv1(F.silu(h))
         h = self.conv2(F.silu(self.GroupNorm_1(h)))
-        residual = x if self.skip_proj is None else self.skip_proj(x)
-        return h + residual
+        return h + self._residual(x)
+
+    def _kernel_weight(self, conv):
+        """conv's weight as the ops take it: (3, C, Cout) in the compute
+        dtype (a view; rounded as the plain conv rounds it)."""
+        return conv.weight.to(self.conv1.dtype).permute(2, 1, 0)
+
+    def _fused(self, x, time_emb):
+        """The JAX block's ``_fused_path``: GN stats folded with gamma/beta
+        and FiLM into a per-(batch, channel) affine, then K3, twice."""
+        gn0, gn1 = self.GroupNorm_0, self.GroupNorm_1
+        fs, ft = self._film(time_emb, x.shape[0], x.device)
+        xt = x.transpose(1, 2)
+        scale, shift = fold_groupnorm_film(xt, gn0.weight, gn0.bias, fs, ft,
+                                           gn0.groups)
+        h = fused_affine_silu_conv_blocked(xt, scale, shift,
+                                           self._kernel_weight(self.conv1),
+                                           self.conv1.bias, self.fused_block_l)
+        zero = torch.zeros(h.shape[0], h.shape[-1], device=h.device)
+        scale, shift = fold_groupnorm_film(h, gn1.weight, gn1.bias, zero, zero,
+                                           gn1.groups)
+        h = fused_affine_silu_conv_blocked(h, scale, shift,
+                                           self._kernel_weight(self.conv2),
+                                           self.conv2.bias, self.fused_block_l)
+        return h.transpose(1, 2) + self._residual(x)
+
+    def forward_stats(self, x, time_emb=None, in_stats=None):
+        """``(out, (s, ss))``: the block through two K4 calls.  ``in_stats``:
+        the (B, G) sum and sum of squares of x from the previous block's
+        conv2, or None at a chain start, where one plain reduction makes
+        them.  The returned sums are grouped for the next block's GN_0."""
+        gn0, gn1 = self.GroupNorm_0, self.GroupNorm_1
+        length = x.shape[-1]
+        fs, ft = self._film(time_emb, x.shape[0], x.device)
+        xt = x.transpose(1, 2)
+        s, ss = group_stats(xt, gn0.groups) if in_stats is None else in_stats
+        scale, shift = stats_affine(s, ss, length * (x.shape[1] // gn0.groups),
+                                    gn0.weight, gn0.bias, gn0.groups, fs, ft)
+        h, s, ss = fused_affine_silu_conv_stats(
+            xt, scale, shift, self._kernel_weight(self.conv1), self.conv1.bias,
+            num_groups=gn1.groups)
+        channels = h.shape[-1]
+        scale, shift = stats_affine(s, ss, length * (channels // gn1.groups),
+                                    gn1.weight, gn1.bias, gn1.groups)
+        out, s, ss = fused_affine_silu_conv_stats(
+            h, scale, shift, self._kernel_weight(self.conv2), self.conv2.bias,
+            residual=self._residual(x).transpose(1, 2), num_groups=gn1.groups)
+        return out.transpose(1, 2), (s, ss)
 
 
 class SelfAttention1d(nn.Module):

@@ -5,10 +5,13 @@ The encoder's intermediate activations ``xs[2:-1]`` are the UNet's
 per-level context; they are computed once per clip, outside the sampler's
 step loop.  Parameters are f32; ``dtype`` is the compute type (bf16 for
 generation, as the JAX package's ``from_config(dtype=bfloat16)``).
+The UNet's fused configuration (``fused_resnet``, ``fused_stats`` at
+``fold_cap``) comes from the config, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -35,13 +38,21 @@ class SyncFusionDiffusion(nn.Module):
     @classmethod
     def from_config(cls, model_cfg: Optional[dict] = None,
                     dtype: torch.dtype = torch.float32, device=None,
-                    seed: int = 0) -> "SyncFusionDiffusion":
+                    seed: int = 0, fold_cap: Optional[int] = None,
+                    fused_stats: Optional[bool] = None) -> "SyncFusionDiffusion":
         """Build from an ``exp/model/diffusion.yaml``-style ``model`` node
         (the defaults when None) on ``device`` (the card when None; raises
-        without one), with parameters drawn from ``seed``."""
+        without one), with parameters drawn from ``seed``.  ``fold_cap`` and
+        ``fused_stats``, when given, override the node's top-level
+        ``fold_cap`` and ``model.fused_stats`` (the JAX ``from_config``'s
+        keywords)."""
         device = default_device(device)
+        unet_cfg, encoder_cfg = model_configs(model_cfg)
+        overrides = {k: v for k, v in (("fold_cap", fold_cap),
+                                       ("fused_stats", fused_stats)) if v is not None}
+        unet_cfg = dataclasses.replace(unet_cfg, **overrides)
         with torch.device(device):
-            model = cls(*model_configs(model_cfg), dtype=dtype)
+            model = cls(unet_cfg, encoder_cfg, dtype=dtype)
         return model.init(seed).eval()
 
     @torch.no_grad()

@@ -1,9 +1,20 @@
-"""1-D waveform diffusion UNet (port of ``syncfusion_tpu/models/unet1d.py``,
-plain layout: no fused or folded paths).
+"""1-D waveform diffusion UNet (port of ``syncfusion_tpu/models/unet1d.py``).
 
 Per-level channel concat of the onset-encoder context, self-attention at
 the deep levels, cross-attention to the CLAP token at every level, and
 classifier-free guidance through a learned fixed (unconditional) embedding.
+
+Activations stay in the plain (B, C, L) layout: the JAX package's folded
+layout (``unet1d_folded.py``) only avoids the TPU's 128-lane padding and
+is numerically the plain UNet.  What the port carries over of the fused
+and folded execution:
+  * ``fused_resnet``: each resnet block that passes the JAX block's gate
+    runs its two GN -> (FiLM) -> SiLU -> conv chains through K3;
+  * ``fused_stats`` with ``fold_cap``: the levels that the JAX folded apply
+    folds (``compute_folds``) run each resnet block as two K4 calls, the
+    group sums threaded from block to block within a level, as
+    ``unet1d_folded.folded_apply`` does.  The other levels keep their own
+    gate; the bottleneck's blocks are never fused.
 """
 
 from __future__ import annotations
@@ -25,6 +36,43 @@ from syncfusion_tpu_torch.models.blocks import (
     SelfAttention1d,
     Upsample1d,
 )
+
+
+def compute_folds(cfg: UNetConfig, fold_cap: int, length: int) -> list[int]:
+    """Per-level fold factors of the JAX package's folded apply (1 =
+    unfolded; a copy of ``unet1d_folded.compute_folds``): the deepest
+    attention-free level D whose folded widths stay within ``fold_cap``
+    lanes and whose lengths stay divisible; f_D = factors[D+1], f_i =
+    f_{i+1}·factors[i+1]."""
+    n = len(cfg.channels)
+    multi_token = cfg.embedding_max_length != 1
+    lengths = []
+    level_len = length
+    for j in range(n):
+        if level_len % cfg.factors[j]:
+            return [1] * n
+        level_len //= cfg.factors[j]
+        lengths.append(level_len)
+
+    best = [1] * n
+    for d in range(n - 1):
+        if cfg.factors[d + 1] == 1:
+            continue
+        folds = [1] * n
+        folds[d] = cfg.factors[d + 1]
+        for i in range(d - 1, -1, -1):
+            folds[i] = folds[i + 1] * cfg.factors[i + 1]
+        ok = True
+        for j in range(d + 1):
+            width = max(cfg.channels[j] + (cfg.context_channels[j] or 0),
+                        2 * cfg.channels[j]) * folds[j]
+            if (cfg.attentions[j] or (cfg.cross_attentions[j] and multi_token)
+                    or width > fold_cap or lengths[j] % folds[j] != 0):
+                ok = False
+                break
+        if ok:
+            best = folds
+    return best
 
 
 def cfg_dropout_mask(batch: int, proba: float,
@@ -62,7 +110,8 @@ class UNet1d(nn.Module):
             ch = cfg.channels[level]
             for j in range(cfg.items[level]):
                 self.add_module(f"{path}_res_{level}_{j}", ResnetBlock1d(
-                    in_ch, ch, cfg.resnet_groups, mod, dtype))
+                    in_ch, ch, cfg.resnet_groups, mod, dtype,
+                    fused=cfg.fused_resnet, fused_block_l=cfg.fused_block_l))
                 in_ch = ch
             if cfg.attentions[level]:
                 self.add_module(f"{path}_attn_{level}", self._attn(in_ch))
@@ -104,10 +153,23 @@ class UNet1d(nn.Module):
                                 c.attention_features, c.embedding_max_length,
                                 self.dtype)
 
-    def _items(self, h, level, path, time_emb, embedding):
+    def stats_levels(self, length: int) -> list[bool]:
+        """Which levels run their resnet blocks through K4 at input
+        ``length``: those the JAX folded apply folds, when ``fused_stats``."""
         c = self.cfg
+        if not c.fused_stats:
+            return [False] * len(c.channels)
+        return [f > 1 for f in compute_folds(c, c.fold_cap, length)]
+
+    def _items(self, h, level, path, time_emb, embedding, with_stats=False):
+        c = self.cfg
+        stats = None  # the group sums, threaded block to block (K4)
         for j in range(c.items[level]):
-            h = getattr(self, f"{path}_res_{level}_{j}")(h, time_emb)
+            block = getattr(self, f"{path}_res_{level}_{j}")
+            if with_stats:
+                h, stats = block.forward_stats(h, time_emb, stats)
+            else:
+                h = block(h, time_emb)
         if c.attentions[level]:
             h = getattr(self, f"{path}_attn_{level}")(h)
         if c.cross_attentions[level] and embedding is not None:
@@ -145,13 +207,14 @@ class UNet1d(nn.Module):
                     embedding = torch.where(embedding_cfg_mask.bool(), fixed,
                                             embedding)
 
+        with_stats = self.stats_levels(x.shape[1])
         h = x.to(self.dtype).transpose(1, 2)
         skips = []
         for i in range(n):
             h = getattr(self, f"down_{i}")(h)
             if self._with_context[i]:
                 h = torch.cat([h, context[i].to(h.dtype).transpose(1, 2)], 1)
-            h = self._items(h, i, "down", time_emb, embedding)
+            h = self._items(h, i, "down", time_emb, embedding, with_stats[i])
             skips.append(h)
 
         h = self.mid_res_0(h, time_emb)
@@ -162,7 +225,7 @@ class UNet1d(nn.Module):
 
         for i in reversed(range(n)):
             h = torch.cat([h, skips[i]], 1)
-            h = self._items(h, i, "up", time_emb, embedding)
+            h = self._items(h, i, "up", time_emb, embedding, with_stats[i])
             h = getattr(self, f"up_{i}")(h)
 
         out = self.head(F.silu(self.GroupNorm_0(h)))

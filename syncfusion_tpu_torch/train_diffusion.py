@@ -81,11 +81,12 @@ def make_batches(path, cfg: TrainConfig, seed: int, embedder, train: bool = True
 
 def validate(trainer: DiffusionTrainer, state: TrainState, cfg: TrainConfig,
              val_path, embedder, device) -> float:
-    """Mean loss over ``val_batches`` batches, each with sigma and noise
-    from seed 0 (the JAX script's key 0)."""
+    """Mean loss over ``val_batches`` batches of the val dataset (no shift
+    augmentation, no shard shuffle), each with sigma and noise from seed 0
+    (the JAX script's key 0)."""
     losses = []
-    for vb in itertools.islice(make_batches(val_path, cfg, 0, embedder),
-                               cfg.val_batches):
+    for vb in itertools.islice(make_batches(val_path, cfg, 0, embedder,
+                                            train=False), cfg.val_batches):
         gen = torch.Generator(device=device).manual_seed(0)
         m = trainer.eval_step(state, to_device(vb, device), gen)
         losses.append(float(m["valid_loss"]))

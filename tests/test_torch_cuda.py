@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+K1, K2a and K2b (flash attention), K3 and K4 (the fused resnet chain).
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so that it also runs where JAX is not installed:
@@ -10,10 +11,13 @@ bf16 for one bf16 ulp of an output both sides round (O below 1: 2^-8
 absolute; gradients: relative to max |plain|).
 """
 
+import math
+
 import pytest
 import torch
 
 from syncfusion_tpu_torch.ops import attention as ta
+from syncfusion_tpu_torch.ops import fused_resblock as fr
 
 pytestmark = pytest.mark.cuda
 
@@ -79,3 +83,110 @@ def test_gradient_goes_through_the_kernels_on_card(card):
     for got, want in zip(leaves, plain):
         err = (got.grad - want.grad).abs().max().item()
         assert err <= 1e-4 * want.grad.abs().max().item()
+
+
+# K3 and K4 at the shapes of the UNet's fused resnet chain (full width,
+# exp/model/diffusion.yaml): (C, Cout, L) of each conv, with or without
+# the residual for K4; plus a ragged and a wide case.
+K3_SHAPES = [(40, 32, 65536), (32, 32, 65536), (64, 32, 65536), (80, 64, 16384),
+             (64, 64, 16384), (128, 64, 16384), (128, 128, 4096), (64, 64, 1000),
+             (1024, 1024, 256)]
+K4_SHAPES = [(10, 8, 2**18, False), (8, 8, 2**18, True), (16, 8, 2**18, False),
+             (40, 32, 65536, False), (32, 32, 65536, True), (64, 32, 65536, False),
+             (32, 32, 1000, True), (1024, 1024, 256, True)]
+# y: relative to max |plain|, f32 sums in other orders, bf16 one ulp of a
+# value both round (2^-8); s and ss: relative to the bound of each sum
+# (sqrt(n·ss) and ss), both sum the same f32 values in other orders
+FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+STATS_TOL = 1e-5
+
+
+@pytest.fixture
+def no_tf32(card):
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield card
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def _fused_inputs(rows, c, cout, length, dtype, seed, residual=False):
+    """x and the residual as (B, L, C) views of (B, C, L) tensors, as the
+    UNet's blocks pass them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = randn(rows, c, length).to(dtype).transpose(1, 2)
+    scale, shift = randn(rows, c) * 0.3 + 1.0, randn(rows, c) * 0.5
+    w = (randn(3, c, cout) / math.sqrt(3 * c)).to(dtype)
+    bias = randn(cout) * 0.1
+    r = randn(rows, cout, length).to(dtype).transpose(1, 2) if residual else None
+    return x, scale, shift, w, bias, r
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype,rows", [(torch.bfloat16, 8), (torch.float32, 4)])
+@pytest.mark.parametrize("c,cout,length", K3_SHAPES)
+def test_k3_matches_plain_on_card(no_tf32, dtype, rows, c, cout, length):
+    x, scale, shift, w, bias, _ = _fused_inputs(rows, c, cout, length, dtype, c)
+    fr.reset_counts()
+    y = fr.fused_affine_silu_conv_blocked(x, scale, shift, w, bias)
+    assert fr.affine_silu_conv.kernel_launches == 1
+    want = fr._reference(x, scale, shift, w, bias)
+    assert y.dtype == dtype and y.shape == want.shape
+    assert _rel(y, want) <= FUSED_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,rows", [(torch.bfloat16, 8), (torch.float32, 4)])
+@pytest.mark.parametrize("c,cout,length,residual", K4_SHAPES)
+def test_k4_matches_plain_on_card(no_tf32, dtype, rows, c, cout, length, residual):
+    x, scale, shift, w, bias, r = _fused_inputs(rows, c, cout, length, dtype,
+                                                c + 1, residual)
+    fr.reset_counts()
+    y, s, ss = fr.fused_affine_silu_conv_stats(x, scale, shift, w, bias, r,
+                                               num_groups=8)
+    assert fr.affine_silu_conv_stats.kernel_launches == 1
+    want, want_s, want_ss = fr._stats_reference(x, scale, shift, w, bias, r, 8)
+    assert _rel(y, want) <= FUSED_TOL[dtype]
+    n = length * cout // 8
+    assert ((s - want_s).abs() / (n * want_ss).sqrt()).max().item() <= STATS_TOL
+    assert ((ss - want_ss).abs() / want_ss).max().item() <= STATS_TOL
+
+
+def test_gradient_through_the_fused_block_on_card(no_tf32):
+    """A loss through a fused ResnetBlock1d (K3 forward, plain recompute
+    backward) and through its stats path (K4) against the plain block on
+    the same parameters: the gradient of the input and of every parameter
+    within 1e-4 of max |plain|, f32."""
+    from syncfusion_tpu_torch.models.blocks import ResnetBlock1d
+
+    torch.manual_seed(0)
+    block = ResnetBlock1d(40, 32, 8, 64, fused=True, fused_block_l=4096).cuda()
+    for p in block.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.2)
+    x = torch.randn(2, 40, 8192, device="cuda")
+    temb = torch.randn(2, 64, device="cuda")
+    w = torch.randn(2, 32, 8192, device="cuda")
+
+    def grads(fn):
+        block.zero_grad()
+        xg = x.clone().requires_grad_()
+        (fn(xg) * w).sum().backward()
+        return [xg.grad] + [p.grad.clone() for p in block.parameters()]
+
+    fr.reset_counts()
+    fused = grads(lambda xg: block(xg, temb))
+    stats = grads(lambda xg: block.forward_stats(xg, temb)[0])
+    assert fr.affine_silu_conv.kernel_launches == 2
+    assert fr.affine_silu_conv_stats.kernel_launches == 2
+    assert fr.affine_silu_conv.plain_calls == fr.affine_silu_conv_stats.plain_calls == 0
+    block.fused = False
+    plain = grads(lambda xg: block(xg, temb))
+    for got_fused, got_stats, want in zip(fused, stats, plain):
+        scale = want.abs().max().item()
+        assert (got_fused - want).abs().max().item() <= 1e-4 * scale
+        assert (got_stats - want).abs().max().item() <= 1e-4 * scale

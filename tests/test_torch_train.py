@@ -12,8 +12,11 @@
   parameters agree to 1e-6 after 3 updates.
 * Checkpoints, the resume of a run, and the training command line end to
   end on the CPU at the tiny config of tests/test_trainer.py.
+* Validation reads the reference script's val stream, bit for bit.
 """
 
+import importlib
+import itertools
 import json
 import math
 from pathlib import Path
@@ -25,7 +28,7 @@ import optax
 import pytest
 import torch
 
-from syncfusion_tpu.core.config import load_config
+from syncfusion_tpu.core.config import instantiate, load_config
 from syncfusion_tpu.train.diffusion_trainer import OptimizerConfig as JaxOptimizerConfig
 from syncfusion_tpu.train.diffusion_trainer import make_optimizer
 from syncfusion_tpu_torch import train_diffusion
@@ -413,3 +416,44 @@ def test_train_cli_clap_is_not_substituted(tmp_path):
     args[args.index("--embedder") + 1] = "HTSAT-tiny"
     with pytest.raises(NotImplementedError, match="queue item 7"):
         train_diffusion.main(args)
+
+
+class _ZeroEmbedder:
+    def embed_audio(self, cond):
+        return np.zeros((len(cond), 1, 16), np.float32)
+
+
+def test_validate_reads_the_jax_val_stream(tmp_path, monkeypatch):
+    """``validate`` reads the val dataset as script/train_diffusion_model.py
+    does (no shift augmentation, no shard shuffle): the batches it hands
+    ``eval_step`` are bit-equal to the JAX ``make_batches(val_fn, seed=0)``
+    stream on one shard."""
+    monkeypatch.setattr("syncfusion_tpu.core.cache.enable_compile_cache",
+                        lambda *a, **k: None)  # leave this process's cache be
+    monkeypatch.syspath_prepend(str(ROOT / "script"))
+    jscript = importlib.import_module("train_diffusion_model")
+    shard = make_shard(tmp_path, n_tracks=4, seconds=0.05, seed=3)
+    cfg = load_config(ROOT / "config.yaml", [
+        "exp=train_diffusion_gh", f"datamodule.val_dataset.path={shard}",
+        "datamodule.batch_size=2", f"length={TRAIN_L}"])
+    val_batches = 4
+    want = list(itertools.islice(jscript.make_batches(
+        instantiate(cfg.datamodule.val_dataset), cfg, seed=0,
+        embedder=_ZeroEmbedder(), length=TRAIN_L), val_batches))
+
+    seen = []
+
+    class Recorder:
+        def eval_step(self, state, batch, gen):
+            seen.append({k: v.numpy() for k, v in batch.items()})
+            return {"valid_loss": torch.tensor(0.0)}
+
+    tcfg = TrainConfig(length=TRAIN_L, batch_size=2, val_batches=val_batches)
+    train_diffusion.validate(Recorder(), None, tcfg, shard, _ZeroEmbedder(),
+                             torch.device("cpu"))
+    assert len(seen) == len(want) == val_batches
+    for got, w in zip(seen, want):
+        assert got.keys() == w.keys()
+        for key in w:
+            assert got[key].dtype == w[key].dtype
+            np.testing.assert_array_equal(got[key], w[key])

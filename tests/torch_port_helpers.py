@@ -24,12 +24,15 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def tiny_pair(seed: int = 0, fold_cap: int = 0):
-    """(JAX model, JAX params, port model on the CPU with those params)."""
-    jm = SyncFusionDiffusion(unet=UNet1d(**UNET), onsets_encoder=Encoder1d(**ENC),
-                             fold_cap=fold_cap)
+def tiny_pair(seed: int = 0, fold_cap: int = 0, **unet_kw):
+    """(JAX model, JAX params, port model on the CPU with those params);
+    ``unet_kw`` (e.g. ``fused_stats=True``) goes to both UNets, ``fold_cap``
+    to the JAX model and the port's UNet config."""
+    jm = SyncFusionDiffusion(unet=UNet1d(**UNET, **unet_kw),
+                             onsets_encoder=Encoder1d(**ENC), fold_cap=fold_cap)
     params = jm.init(jax.random.key(seed), L, batch=2)
-    tm = TorchSyncFusion(UNetConfig(**UNET), EncoderConfig(**ENC))
+    tm = TorchSyncFusion(UNetConfig(**UNET, **unet_kw, fold_cap=fold_cap),
+                         EncoderConfig(**ENC))
     tm.load_state_dict(to_state_dict(to_numpy(params)), strict=True)
     return jm, params, tm.eval()
 
