@@ -4,7 +4,10 @@
 ``torch.autograd.Function`` on every device, the counterpart of the JAX
 package's custom VJP.  On a CUDA tensor its forward is the hand-written
 kernel of ``csrc/flash_fwd.cu`` (the port of the TPU kernel
-``_flash_kernel``, K1) and its backward the two kernels of
+``_flash_kernel``, K1: bf16 on the tensor cores, f32 on the CUDA cores,
+chosen by dtype; the bf16 kernel copies with ``cp.async`` and so takes
+16-byte aligned q, k and v with B, L and H strides in multiples of 8
+elements, see ``cp_async_misalignment``) and its backward the two kernels of
 ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``, K2a, then
 ``_flash_bwd_dkv_kernel``, K2b).  On a CPU tensor the same Function runs
 their plain versions, so the CPU tests reach the wiring the card runs.  It
@@ -105,6 +108,21 @@ def _kernels():
     return fwd, bwd.flash_bwd_dq, bwd.flash_bwd_dkv
 
 
+def cp_async_misalignment(name: str, ptr: int, shape, strides) -> str | None:
+    """Why the bf16 kernel's 16-byte ``cp.async`` copies cannot take a
+    (B, L, H, 64) bf16 operand at address ``ptr`` with these element
+    ``strides`` of B, L and H, or None if they can: the address must be a
+    multiple of 16 bytes and each stride (of a dim longer than 1) a
+    multiple of 8 elements."""
+    if ptr % 16:
+        return f"{name}: data_ptr {ptr:#x} is not 16-byte aligned"
+    for dim, size, stride in zip("BLH", shape, strides):
+        if size > 1 and stride % 8:
+            return (f"{name}: its {dim} stride {stride} is not a multiple "
+                    f"of 8 elements")
+    return None
+
+
 def _check(q, k, v):
     if q.device.type != "cuda":
         raise RuntimeError(f"the kernels run on cuda, not {q.device.type}")
@@ -123,6 +141,15 @@ def _check(q, k, v):
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
+
+
+def _check_aligned(**tensors):
+    for name, x in tensors.items():
+        why = cp_async_misalignment(name, x.data_ptr(), x.shape[:3],
+                                    x.stride()[:3])
+        if why is not None:
+            raise ValueError(f"the bf16 attention kernel copies with cp.async: "
+                             f"{why}")
 
 
 def _check_rows(q, **tensors):
@@ -151,11 +178,14 @@ def _stream(x) -> int:
 
 def flash_fwd(q, k, v, causal: bool = False):
     """K1: ``(o, lse)``, O in q's dtype, LSE (B, H, Lq) f32.  The kernel on
-    a CUDA tensor, ``attention_reference`` on a CPU tensor."""
+    a CUDA tensor (bf16: tensor cores, f32: CUDA cores),
+    ``attention_reference`` on a CPU tensor."""
     if q.device.type == "cpu":
         flash_attention.plain_calls += 1
         return attention_reference(q, k, v, causal, return_lse=True)
     _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)

@@ -4,8 +4,11 @@ On the CPU, ``flash_attention`` takes the plain version; it is held against
 the Pallas kernel run in interpret mode (``block_q = block_k = 128``, as
 tests/test_attention.py runs it) and against ``attention_reference``, O and
 the row LSE, causal and not.  Tolerance 2e-5 abs in f32, as
-tests/test_attention.py holds the Pallas kernel.  The CUDA kernel itself
-is compared with the plain version on the card by tests/test_torch_cuda.py."""
+tests/test_attention.py holds the Pallas kernel.  The arithmetic of the
+bf16 tensor-core kernel is modelled here in plain PyTorch and held to the
+card's bf16 tolerance, and so is its rule on alignment.  The CUDA kernel
+itself is compared with the plain version on the card by
+tests/test_torch_cuda.py."""
 
 import math
 
@@ -57,3 +60,122 @@ def test_cpu_tensors_take_the_plain_path():
     assert torch.equal(o, want) and torch.equal(lse, want_lse)
     assert ta.flash_attention.kernel_launches == before[0]
     assert ta.flash_attention.plain_calls == before[1] + 1
+
+
+# The bf16 tensor-core kernel's arithmetic, in plain PyTorch on the CPU: its
+# schedule of 64-query x 64-key tiles (causal tiles past the diagonal
+# skipped), S in f32 times scale·log2(e), exp2, the row max and the row sum
+# of the f32 P, P into P·V as bf16 (hi + lo, or once rounded), O rounded to
+# bf16 once, LSE = (m2 + log2 l)·ln 2.  Held to the card's bf16 tolerances
+# (tests/test_torch_cuda.py, chip_smoke.py): O 8e-3, LSE 1e-4.
+BF16_TOL = {"o": 8e-3, "lse": 1e-4}
+TILE = 64
+
+
+def _tc_schedule(q, k, v, causal, split_p=True):
+    b, lq, h, d = q.shape
+    lk = k.shape[1]
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # (B, H, L, D)
+    sl = math.log2(math.e) / math.sqrt(d)
+    o = torch.empty(b, h, lq, d)
+    lse = torch.empty(b, h, lq)
+    for q0 in range(0, lq, TILE):
+        rows = torch.arange(q0, min(q0 + TILE, lq))
+        m = torch.full((b, h, len(rows)), -math.inf)
+        l = torch.zeros(b, h, len(rows))
+        acc = torch.zeros(b, h, len(rows), d)
+        stop = min(lk, q0 + TILE) if causal else lk
+        for k0 in range(0, stop, TILE):
+            keys = torch.arange(k0, min(k0 + TILE, lk))
+            s = (qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)) * sl
+            if causal:
+                s = s.masked_fill(keys[None, :] > rows[:, None], -math.inf)
+            mx = torch.maximum(m, s.amax(-1))
+            shift = torch.where(mx == -math.inf, 0.0, mx)
+            alpha = torch.exp2(m - shift)
+            p = torch.exp2(s - shift[..., None])
+            l = l * alpha + p.sum(-1)
+            hi = p.to(torch.bfloat16).float()
+            pv = hi @ vf[:, :, keys]
+            if split_p:
+                pv = pv + (p - hi).to(torch.bfloat16).float() @ vf[:, :, keys]
+            acc = acc * alpha[..., None] + pv
+            m = mx
+        ls = l.clamp_min(1e-30)
+        o[:, :, rows] = acc / ls[..., None]
+        lse[:, :, rows] = (m + torch.log2(ls)) * math.log(2)
+    return o.transpose(1, 2).to(torch.bfloat16), lse
+
+
+def _bf16_qkv(b, l, h, seed):
+    rng = np.random.default_rng(seed)
+    return [t(rng.standard_normal((b, l, h, 64)).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,l,h,block", [(2, 256, 4, 128), (2, 1000, 4, 200),
+                                         (1, 2048, 2, 512)])
+def test_tensor_core_schedule_within_bf16_tolerance(b, l, h, block, causal):
+    """The kernel's arithmetic against ``attention_reference`` and the JAX
+    package's Pallas kernel (interpret mode) on the same bf16 inputs."""
+    q, k, v = _bf16_qkv(b, l, h, seed=l + int(causal))
+    o, lse = _tc_schedule(q, k, v, causal)
+    want, want_lse = ta.attention_reference(q, k, v, causal, return_lse=True)
+    qf, kf, vf = (ja._fold_heads(jnp.asarray(n(x.float()))) for x in (q, k, v))
+    jo, jlse = ja._flash_fwd(qf, kf, vf, causal, block, block, 1.0 / 8, True)
+    jo = n(ja._unfold_heads(jo, b, h))
+    jlse = n(jlse).reshape(b, h, l)
+    for ref_o, ref_lse in ((n(want.float()), n(want_lse)), (jo, jlse)):
+        assert np.abs(n(o.float()) - ref_o).max() <= BF16_TOL["o"]
+        assert np.abs(n(lse) - ref_lse).max() <= BF16_TOL["lse"]
+
+
+def test_p_rounded_once_breaks_the_causal_bf16_gate():
+    """Why the kernel feeds P to P·V as hi + lo bf16: P rounded to bf16 once
+    moves O by up to 2^-9 of |O|, and in a causal head's first rows (|O| of
+    2-4) that flips the bf16 O by a whole ulp, 2^-6 > 8e-3.  chip_smoke.py's
+    causal shape, BH = 64, T = 512."""
+    q, k, v = _bf16_qkv(8, 512, 8, seed=0)
+    want = ta.attention_reference(q, k, v, True).float()
+    once, _ = _tc_schedule(q, k, v, True, split_p=False)
+    split, _ = _tc_schedule(q, k, v, True)
+    assert (once.float() - want).abs().max().item() > BF16_TOL["o"]
+    assert (split.float() - want).abs().max().item() <= BF16_TOL["o"]
+
+
+def _views(b=2, l=64, h=8):
+    """q, k, v as the UNet makes them: views of one (B, L, 3, H, 64) qkv."""
+    return torch.zeros((b, l, 3, h, 64), dtype=torch.bfloat16).unbind(2)
+
+
+def test_qkv_views_are_aligned_for_cp_async():
+    for name, x in zip("qkv", _views()):
+        assert ta.cp_async_misalignment(name, x.data_ptr(), x.shape[:3],
+                                        x.stride()[:3]) is None
+    ta._check_aligned(**dict(zip("qkv", _views())))
+
+
+@pytest.mark.parametrize("ptr,shape,strides,reason", [
+    (8, (2, 64, 8), (98304, 1536, 64), "data_ptr 0x8 is not 16-byte aligned"),
+    (16, (2, 64, 8), (98304, 1537, 64), "L stride 1537 is not a multiple of 8"),
+    (16, (2, 64, 8), (98304, 1536, 66), "H stride 66 is not a multiple of 8"),
+    (16, (2, 64, 8), (98300, 1536, 64), "B stride 98300 is not a multiple of 8"),
+    (16, (1, 64, 8), (3, 1536, 64), None),  # a dim of size 1 is never strided
+])
+def test_cp_async_misalignment_names_the_reason(ptr, shape, strides, reason):
+    got = ta.cp_async_misalignment("q", ptr, shape, strides)
+    assert got == reason if reason is None else reason in got
+
+
+def test_misaligned_bf16_input_raises():
+    """A bf16 view whose L stride is not a multiple of 8 elements, and one
+    whose address is off 16 bytes, raise ValueError with the reason."""
+    base = torch.zeros((2, 64, 8 * 64 + 1), dtype=torch.bfloat16)
+    q = base[..., :512].unflatten(-1, (8, 64))
+    with pytest.raises(ValueError, match="L stride 513"):
+        ta._check_aligned(q=q)
+    flat = torch.zeros(2 * 64 * 512 + 1, dtype=torch.bfloat16)
+    q = flat[1:].view(2, 64, 8, 64)
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        ta._check_aligned(q=q)

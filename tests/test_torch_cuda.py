@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
-K1, K2a and K2b (flash attention), K3 and K4 (the fused resnet chain).
+K1 (bf16 on the tensor cores, f32 on the CUDA cores), K2a and K2b (flash
+attention), K3 and K4 (the fused resnet chain).
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so that it also runs where JAX is not installed:
@@ -48,6 +49,34 @@ def test_kernel_matches_plain_on_card(card, dtype, tol, length, causal):
     want, want_lse = ta.attention_reference(q, k, v, causal, return_lse=True)
     assert (o.float() - want.float()).abs().max().item() <= tol
     assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("length", [2048, 1024, 512, 256])
+def test_bf16_kernel_at_the_main_path_lengths_on_card(card, length):
+    """The tensor-core kernel at each length of the UNet's attention levels,
+    BH = 64 from qkv views, against its plain version."""
+    q, k, v, _ = _qkv(8, length, torch.bfloat16, length + 2)
+    ta.reset_counts()
+    o, lse = ta.flash_fwd(q, k, v)
+    assert ta.flash_attention.kernel_launches == 1
+    want, want_lse = ta.attention_reference(q, k, v, return_lse=True)
+    assert (o.float() - want.float()).abs().max().item() <= 8e-3
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+def test_misaligned_bf16_input_raises_on_card(card):
+    """cp.async takes 16-byte rows: an L stride that is not a multiple of 8
+    elements, or an address off 16 bytes, raises and launches nothing."""
+    q, k, v, _ = _qkv(2, 256, torch.bfloat16, 5)
+    odd = torch.zeros((2, 256, 8 * 64 + 1), dtype=torch.bfloat16, device="cuda")
+    flat = torch.zeros(2 * 256 * 512 + 1, dtype=torch.bfloat16, device="cuda")
+    ta.reset_counts()
+    for bad in (odd[..., :512].unflatten(-1, (8, 64)), flat[1:].view(2, 256, 8, 64)):
+        with pytest.raises(ValueError, match="cp.async"):
+            ta.flash_attention(bad, k, v)
+        with pytest.raises(ValueError, match="cp.async"):
+            ta.flash_attention(q, k, bad)
+    assert ta.flash_attention.kernel_launches == 0
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
