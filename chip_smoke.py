@@ -6,6 +6,9 @@
 Phases, each printed with its seconds; any failure exits non-zero:
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: ``nvcc`` compiles every kernel of ``syncfusion_tpu_torch/csrc``;
+     the registers, spills and static shared memory ptxas reports for K1,
+     K2a and K2b, and the dynamic shared memory each K2 launch asks for
+     (read from the built library), go into the kernels line;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes of the generation path (plus a ragged and a causal case), in
      bf16 and f32, each error against its stated tolerance, with the times of
@@ -41,9 +44,10 @@ Phases, each printed with its seconds; any failure exits non-zero:
  10. fused training: phase 6's command line with a model config that turns
      the fused configuration on; K3 and K4 launch 12 times per forward.
 Phase 3 also holds the backward kernels K2a and K2b against their plain
-versions at the training shapes, and K3 and K4 (the fused resnet chain)
-at every shape of that chain, in bf16 at B = 8 and f32 at B = 4, with a
-ragged and a wide case.  The line before the last is the kernels' JSON
+versions at the training shapes (with the time of SDPA's backward), times
+K1's f32 instantiation per forward beside SDPA's f32 forward, and holds K3
+and K4 (the fused resnet chain) at every shape of that chain, in bf16 at
+B = 8 and f32 at B = 4, with a ragged and a wide case.  The line before the last is the kernels' JSON
 record, the last line ``{"ok": true, "device": ...}``.  Needs nothing but
 this checkout: it imports no JAX and nothing of the JAX package.
 """
@@ -80,7 +84,11 @@ ROWS = 2 * BATCH  # the CFG batch inside the band
 # and up, plus the bottleneck at the level-7 length)
 ATTN_CALLS = {2048: 2, 1024: 2, 512: 2, 256: 3}
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
+# dense, per type.  f32: products as accurate as f32 FMAs run on the
+# tensor cores as 3xTF32 (three TF32 products each, K2a and K2b do), a third
+# of the 495 TFLOP/s TF32 rate; that is above the 67 TFLOP/s of f32 FMAs on
+# the CUDA cores, so the least time for f32 work is counted at it
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 # tolerances, max abs error against the plain version on the same inputs:
 # f32: both sum in f32, in other orders, over up to 2048 keys;
 # bf16: O is rounded to bf16 by both, so one bf16 ulp of |O| < 1 (2^-8) may
@@ -289,14 +297,16 @@ def phase_bwd_kernels(attn):
 
 def phase_kernels(attn):
     """Phase 3: flash attention against its plain version; returns the
-    per-forward totals of the main path's bf16 shapes."""
+    per-forward totals of the main path's shapes, by dtype (bf16: the
+    generation path; f32: the same shapes in the training recipe's type)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(t, False) for t in ATTN_CALLS] + [(1000, False), (512, True)]
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
-    max_err = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
+    total = {dtype: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+                     "ops": 0, "max_abs_err": 0.0}
+             for dtype in (torch.bfloat16, torch.float32)}
+    for dtype in total:
         for t, causal in cases:
             # q, k, v as the UNet makes them: views of one qkv projection
             qkv = torch.randn((ROWS, t, 3, HEADS, HEAD_DIM), generator=gen,
@@ -323,15 +333,21 @@ def phase_kernels(attn):
                   f"({by}) {'ok' if ok else 'MISMATCH'}", flush=True)
             check(ok, f"flash_fwd {dtype} T={t} causal={causal} disagrees "
                       f"with its plain version")
-            if dtype == torch.bfloat16 and not causal and t in ATTN_CALLS:
+            if not causal and t in ATTN_CALLS:
                 n = ATTN_CALLS[t]
-                max_err = max(max_err, err_o)
-                total["ms"] += n * ms
-                total["plain_ms"] += n * plain
-                total["library_ms"] += n * lib
-                total["bytes"] += n * nbytes
-                total["ops"] += n * ops
-    total["max_abs_err"] = max_err
+                tot = total[dtype]
+                tot["max_abs_err"] = max(tot["max_abs_err"], err_o)
+                tot["ms"] += n * ms
+                tot["plain_ms"] += n * plain
+                tot["library_ms"] += n * lib
+                tot["bytes"] += n * nbytes
+                tot["ops"] += n * ops
+    for dtype, tot in total.items():
+        tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"], dtype)
+        print(f"  flash_fwd {str(dtype)[6:]} per forward (9 calls, BH={ROWS * HEADS}): "
+              f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa "
+              f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+              f"({tot['bound_by']})", flush=True)
     return total
 
 
@@ -359,17 +375,24 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def k1_ptxas(log: str) -> dict:
-    """K1's two instantiations in flash_fwd.cu's compiler report: bf16
-    (tensor cores) and f32 (CUDA cores)."""
+def pick_ptxas(log: str, picks: dict) -> dict:
+    """``{key: report}`` of the kernels in a compiler report whose mangled
+    names contain the tags of ``picks`` (``{key: tag}``), one each."""
     kernels = ptxas_report(log)
-    picks = {"bfloat16": "flash_fwd_tc_kernel", "float32": "flash_fwd_kernelIfE"}
     out = {}
     for key, tag in picks.items():
         found = [v for n_, v in kernels.items() if tag in n_]
         check(len(found) == 1, f"ptxas report has {len(found)} kernels named {tag}")
         out[key] = found[0]
     return out
+
+
+# K1's two instantiations in flash_fwd.cu (bf16 on the tensor cores, f32 on
+# the CUDA cores) and K2a's and K2b's in flash_bwd.cu, by input type
+K1_KERNELS = {"bfloat16": "flash_fwd_tc_kernel", "float32": "flash_fwd_kernelIfE"}
+K2_KERNELS = {key: {"float32": f"{name}IfE", "bfloat16": f"{name}I13__nv_bfloat16E"}
+              for key, name in (("dq", "flash_bwd_dq_kernel"),
+                                ("dkv", "flash_bwd_dkv_kernel"))}
 
 
 def fused_work(b, c, cout, length, dtype, residual):
@@ -819,8 +842,20 @@ def main() -> int:
         log = path.with_suffix(".so.log")
         if log.exists():
             print("   ", log.read_text().strip().replace("\n", "\n    "))
-    k1_regs = k1_ptxas(libs["flash_fwd"].with_suffix(".so.log").read_text())
+    k1_regs = pick_ptxas(libs["flash_fwd"].with_suffix(".so.log").read_text(),
+                         K1_KERNELS)
     print(f"  K1 registers and spills: {k1_regs}")
+    bwd_log = libs["flash_bwd"].with_suffix(".so.log").read_text()
+    k2_regs = {key: pick_ptxas(bwd_log, picks) for key, picks in K2_KERNELS.items()}
+    # ptxas reports static shared memory only: the library gives the
+    # dynamic shared memory each K2 launch asks for
+    smem = _build.library("flash_bwd").flash_bwd_smem
+    for key, by_type in k2_regs.items():
+        for dtype, report in by_type.items():
+            report["dynamic_smem_bytes"] = smem(int(key == "dkv"),
+                                                int(dtype == "bfloat16"))
+            check(report["dynamic_smem_bytes"] > 0, f"no shared memory for K2 {key}")
+    print(f"  K2a and K2b registers and spills: {k2_regs}")
     phase("2 build", t0)
 
     t0 = time.perf_counter()
@@ -949,7 +984,7 @@ def main() -> int:
         del state
         phase("10 fused training at full width", t0)
 
-    bms, by = bound_ms(total["bytes"], total["ops"], torch.bfloat16)
+    fwd16, fwd32 = total[torch.bfloat16], total[torch.float32]
     paths = {"generate": gen_launched, "train": train_launched,
              "generate_fused": fused_launched, "train_fused": fused_train}
 
@@ -963,14 +998,17 @@ def main() -> int:
         "replaces": "syncfusion_tpu/ops/attention.py:34",
         "launches": sum(launched_by_path("kernel_launches").values()),
         "launches_by_path": launched_by_path("kernel_launches"),
-        "max_abs_err": total["max_abs_err"],
-        "ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": bms,
-        "bound_by": by,
-        "library_ms": total["library_ms"],
+        "max_abs_err": fwd16["max_abs_err"],
+        "ms": fwd16["ms"],
+        "plain_ms": fwd16["plain_ms"],
+        "bound_ms": fwd16["bound_ms"],
+        "bound_by": fwd16["bound_by"],
+        "library_ms": fwd16["library_ms"],
         "work": "the 9 attention calls of one in-band UNet forward, bf16, "
                 "BH=64, T=2048x2, 1024x2, 512x2, 256x3",
+        "float32": {key: fwd32[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "float32_work": "the same 9 calls in f32 (the training forward's type)",
         "design": {"bfloat16": "tensor cores: mma.sync m16n8k16 (P as hi + lo "
                                "bf16), cp.async K/V ring of 2 stages, 4 warps "
                                "of 32 query rows a block",
@@ -1001,6 +1039,10 @@ def main() -> int:
                             "together",
             "work": "the 9 attention calls of one training backward, f32, "
                     "BH=32, T=2048x2, 1024x2, 512x2, 256x3",
+            "design": "tensor cores: mma.sync m16n8k8 tf32, f32 operands as "
+                      "3xTF32 (bf16 q, k, v, dO unsplit), cp.async ring of 2 "
+                      "stages, 4 warps of 16 rows a block",
+            "ptxas": k2_regs[key],
         })
     for name, replaces, key, work in (
             ("fused_resblock_k3",

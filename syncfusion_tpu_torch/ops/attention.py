@@ -5,13 +5,14 @@
 package's custom VJP.  On a CUDA tensor its forward is the hand-written
 kernel of ``csrc/flash_fwd.cu`` (the port of the TPU kernel
 ``_flash_kernel``, K1: bf16 on the tensor cores, f32 on the CUDA cores,
-chosen by dtype; the bf16 kernel copies with ``cp.async`` and so takes
-16-byte aligned q, k and v with B, L and H strides in multiples of 8
-elements, see ``cp_async_misalignment``) and its backward the two kernels of
-``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``, K2a, then
-``_flash_bwd_dkv_kernel``, K2b).  On a CPU tensor the same Function runs
-their plain versions, so the CPU tests reach the wiring the card runs.  It
-never falls back from a kernel to a plain version on the card.
+chosen by dtype) and its backward the two kernels of ``csrc/flash_bwd.cu``
+(``_flash_bwd_dq_kernel``, K2a, then ``_flash_bwd_dkv_kernel``, K2b; both
+on the tensor cores, f32 as 3xTF32).  The bf16 forward and both backward
+kernels copy with ``cp.async`` and so take 16-byte aligned operands with B,
+L and H strides in multiples of 16 bytes, see ``cp_async_misalignment``.
+On a CPU tensor the same Function runs their plain versions, so the CPU
+tests reach the wiring the card runs.  It never falls back from a kernel to
+a plain version on the card.
 
 Each wrapper (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``) launches
 its kernel on a CUDA tensor and takes its plain version on a CPU tensor, and
@@ -108,18 +109,21 @@ def _kernels():
     return fwd, bwd.flash_bwd_dq, bwd.flash_bwd_dkv
 
 
-def cp_async_misalignment(name: str, ptr: int, shape, strides) -> str | None:
-    """Why the bf16 kernel's 16-byte ``cp.async`` copies cannot take a
-    (B, L, H, 64) bf16 operand at address ``ptr`` with these element
-    ``strides`` of B, L and H, or None if they can: the address must be a
-    multiple of 16 bytes and each stride (of a dim longer than 1) a
-    multiple of 8 elements."""
+def cp_async_misalignment(name: str, ptr: int, shape, strides,
+                          esize: int = 2) -> str | None:
+    """Why the kernels' 16-byte ``cp.async`` copies cannot take a (B, L, H,
+    64) operand of ``esize``-byte elements (bf16 by default) at address
+    ``ptr`` with these element ``strides`` of B, L and H, or None if they
+    can: the address must be a multiple of 16 bytes and each stride (of a
+    dim longer than 1) a multiple of 16 bytes, i.e. of ``16 // esize``
+    elements."""
     if ptr % 16:
         return f"{name}: data_ptr {ptr:#x} is not 16-byte aligned"
+    per = 16 // esize
     for dim, size, stride in zip("BLH", shape, strides):
-        if size > 1 and stride % 8:
+        if size > 1 and stride % per:
             return (f"{name}: its {dim} stride {stride} is not a multiple "
-                    f"of 8 elements")
+                    f"of {per} elements")
     return None
 
 
@@ -146,10 +150,17 @@ def _check(q, k, v):
 def _check_aligned(**tensors):
     for name, x in tensors.items():
         why = cp_async_misalignment(name, x.data_ptr(), x.shape[:3],
-                                    x.stride()[:3])
+                                    x.stride()[:3], x.element_size())
         if why is not None:
-            raise ValueError(f"the bf16 attention kernel copies with cp.async: "
-                             f"{why}")
+            raise ValueError(f"the attention kernels copy with cp.async: {why}")
+
+
+def _for_cp_async(x):
+    """``x`` if the kernels' ``cp.async`` copies can take it, else a
+    contiguous copy of it (freshly allocated, so 16-byte aligned)."""
+    why = cp_async_misalignment("x", x.data_ptr(), x.shape[:3], x.stride()[:3],
+                                x.element_size())
+    return x if why is None else x.clone(memory_format=torch.contiguous_format)
 
 
 def _check_rows(q, **tensors):
@@ -206,12 +217,14 @@ def _stride_array(*tensors):
 
 def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False):
     """K2a: ``(dq, delta)`` as ``flash_bwd_dq_reference``.  The kernel on a
-    CUDA tensor, that plain version on a CPU tensor."""
+    CUDA tensor (raises ``ValueError`` for an operand ``cp.async`` cannot
+    take), that plain version on a CPU tensor."""
     if q.device.type == "cpu":
         flash_attention.plain_bwd_calls += 1
         return flash_bwd_dq_reference(q, k, v, o, lse, do, causal)
     _check(q, k, v)
     _check_rows(q, o=o, do=do, lse=lse)
+    _check_aligned(q=q, k=k, v=v, o=o, do=do)
     b, lq, h, d = q.shape
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -226,12 +239,14 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False):
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     """K2b: ``(dk, dv)`` as ``flash_bwd_dkv_reference``.  The kernel on a
-    CUDA tensor, that plain version on a CPU tensor."""
+    CUDA tensor (raises ``ValueError`` as K2a), that plain version on a CPU
+    tensor."""
     if q.device.type == "cpu":
         flash_attention.plain_bwd_calls += 1
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
     _check(q, k, v)
     _check_rows(q, do=do, lse=lse, delta=delta)
+    _check_aligned(q=q, k=k, v=v, do=do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     b, lq, h, d = q.shape
@@ -261,6 +276,11 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         if do.stride(-1) != 1:
             do = do.contiguous()
+        if q.device.type == "cuda":
+            # the f32 forward takes views cp.async cannot (an odd stride, an
+            # address off 16 bytes), and autograd may hand over such a dO
+            # (a slice of a cat's gradient): K2a and K2b get copies of those
+            q, k, v, o, do = map(_for_cp_async, (q, k, v, o, do))
         dq, delta = flash_bwd_dq(q, k, v, o, lse, do, ctx.causal)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
         return dq, dk, dv, None

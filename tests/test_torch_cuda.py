@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
 K1 (bf16 on the tensor cores, f32 on the CUDA cores), K2a and K2b (flash
-attention), K3 and K4 (the fused resnet chain).
+attention backward, on the tensor cores), K3 and K4 (the fused resnet
+chain).
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so that it also runs where JAX is not installed:
@@ -79,21 +80,64 @@ def test_misaligned_bf16_input_raises_on_card(card):
     assert ta.flash_attention.kernel_launches == 0
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
-@pytest.mark.parametrize("length,causal", CASES)
-def test_backward_kernels_match_plain_on_card(card, dtype, tol, length, causal):
-    """K2a (dq and delta) and K2b (dk, dv) against their plain versions,
-    relative to max |plain|."""
-    q, k, v, do = _qkv(4, length, dtype, length + 1)
+def _backward(q, k, v, do, causal=False):
     o, lse = ta.flash_fwd(q, k, v, causal)
+    ta.reset_counts()
     dq, delta = ta.flash_bwd_dq(q, k, v, o, lse, do, causal)
     dk, dv = ta.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    return o, lse, (dq, delta, dk, dv)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("length,causal", CASES + [(1024, False), (512, False)])
+def test_backward_kernels_match_plain_on_card(card, dtype, tol, length, causal):
+    """K2a (dq and delta) and K2b (dk, dv) on the tensor cores (f32 as
+    3xTF32), one launch each, against their plain versions relative to max
+    |plain|: BH = 32 from qkv views as training makes them, at each length
+    of the UNet's attention levels, ragged and causal."""
+    q, k, v, do = _qkv(4, length, dtype, length + 1)
+    o, lse, got = _backward(q, k, v, do, causal)
+    assert (ta.flash_attention.dq_launches, ta.flash_attention.dkv_launches) == (1, 1)
     want_dq, want_delta = ta.flash_bwd_dq_reference(q, k, v, o, lse, do, causal)
-    want_dk, want_dv = ta.flash_bwd_dkv_reference(q, k, v, do, lse, want_delta, causal)
-    for got, want in ((dq, want_dq), (delta, want_delta), (dk, want_dk), (dv, want_dv)):
-        assert got.dtype == want.dtype and got.shape == want.shape
-        err = (got.float() - want.float()).abs().max().item()
-        assert err <= tol * want.float().abs().max().item()
+    want = (want_dq, want_delta,
+            *ta.flash_bwd_dkv_reference(q, k, v, do, lse, want_delta, causal))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * w.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_are_deterministic_on_card(card, dtype):
+    """Each block owns its output rows and nothing is added atomically, so
+    two calls on the same inputs give bitwise equal dq, delta, dk and dv
+    (ragged and causal)."""
+    q, k, v, do = _qkv(4, 1000, dtype, 11)
+    _, _, first = _backward(q, k, v, do, causal=True)
+    _, _, second = _backward(q, k, v, do, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_backward_operand_raises_on_card(card, dtype):
+    """cp.async takes 16-byte rows: a q, O or dO whose L stride is not a
+    multiple of 16 bytes, or whose address is off 16 bytes, raises in K2a
+    and K2b and launches nothing."""
+    q, k, v, do = _qkv(2, 256, dtype, 13)
+    o, lse = ta.flash_fwd(q, k, v)
+    delta = torch.zeros_like(lse)
+    odd = torch.zeros((2, 256, 8 * 64 + 1), dtype=dtype, device="cuda")
+    flat = torch.zeros(2 * 256 * 512 + 1, dtype=dtype, device="cuda")
+    ta.reset_counts()
+    for bad in (odd[..., :512].unflatten(-1, (8, 64)), flat[1:].view(2, 256, 8, 64)):
+        with pytest.raises(ValueError, match="cp.async"):
+            ta.flash_bwd_dq(bad, k, v, o, lse, do)
+        with pytest.raises(ValueError, match="cp.async"):
+            ta.flash_bwd_dq(q, k, v, bad, lse, do)
+        with pytest.raises(ValueError, match="cp.async"):
+            ta.flash_bwd_dkv(q, k, v, bad, lse, delta)
+    assert ta.flash_attention.dq_launches == ta.flash_attention.dkv_launches == 0
 
 
 def test_gradient_goes_through_the_kernels_on_card(card):
@@ -112,6 +156,42 @@ def test_gradient_goes_through_the_kernels_on_card(card):
     for got, want in zip(leaves, plain):
         err = (got.grad - want.grad).abs().max().item()
         assert err <= 1e-4 * want.grad.abs().max().item()
+
+
+def test_gradient_of_views_cp_async_cannot_take_on_card(card):
+    """An f32 q, k, v with an odd L stride and one off 16 bytes (the f32
+    forward takes both), and a dO sliced out of a cat's gradient (H stride
+    65): the backward copies them for K2a and K2b, which launch once each,
+    and the gradients equal autograd through the plain attention within the
+    f32 tolerance."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    odd = torch.randn((2, 256, 8 * 64 + 1), generator=gen, device="cuda")
+    flat = torch.randn(2 * 256 * 512 + 1, generator=gen, device="cuda")
+    k = torch.randn((2, 256, 8, 64), generator=gen, device="cuda")
+    pad = torch.randn((2, 256, 8, 1), generator=gen, device="cuda")
+    w = torch.randn((2, 256, 8, 65), generator=gen, device="cuda")
+    seen = []
+
+    def grads(attend):
+        leaves = [x.detach().clone().requires_grad_() for x in (odd, flat, k)]
+        q = leaves[0][..., :512].unflatten(-1, (8, 64))
+        v = leaves[1][1:].view(2, 256, 8, 64)
+        o = attend(q, leaves[2], v)
+        o.register_hook(seen.append)
+        (torch.cat([o, pad], dim=-1) * w).sum().backward()
+        return [x.grad for x in leaves]
+
+    ta.reset_counts()
+    got = grads(ta.flash_attention)
+    for name, x in (("q", got[0][..., :512].unflatten(-1, (8, 64))),
+                    ("dO", seen[0])):
+        assert ta.cp_async_misalignment(name, x.data_ptr(), x.shape[:3],
+                                        x.stride()[:3], 4) is not None
+    assert (ta.flash_attention.kernel_launches, ta.flash_attention.dq_launches,
+            ta.flash_attention.dkv_launches) == (1, 1, 1)
+    assert ta.flash_attention.plain_calls == ta.flash_attention.plain_bwd_calls == 0
+    for g, want in zip(got, grads(ta.attention_reference)):
+        assert (g - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
 # K3 and K4 at the shapes of the UNet's fused resnet chain (full width,
