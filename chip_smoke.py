@@ -7,8 +7,8 @@ Phases, each printed with its seconds; any failure exits non-zero:
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: ``nvcc`` compiles every kernel of ``syncfusion_tpu_torch/csrc``;
      the registers, spills and static shared memory ptxas reports for K1,
-     K2a and K2b, and the dynamic shared memory each K2 launch asks for
-     (read from the built library), go into the kernels line;
+     K2a and K2b, and the dynamic shared memory each launch asks for (read
+     from the built library), go into the kernels line;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes of the generation path (plus a ragged and a causal case), in
      bf16 and f32, each error against its stated tolerance, with the times of
@@ -45,9 +45,10 @@ Phases, each printed with its seconds; any failure exits non-zero:
      the fused configuration on; K3 and K4 launch 12 times per forward.
 Phase 3 also holds the backward kernels K2a and K2b against their plain
 versions at the training shapes (with the time of SDPA's backward), times
-K1's f32 instantiation per forward beside SDPA's f32 forward, and holds K3
-and K4 (the fused resnet chain) at every shape of that chain, in bf16 at
-B = 8 and f32 at B = 4, with a ragged and a wide case.  The line before the last is the kernels' JSON
+K1's f32 kernel per forward beside SDPA's f32 forward, and holds K3 and K4
+(the fused resnet chain) at every shape of that chain, in bf16 at B = 8
+(with their device time from the profiler) and f32 at B = 4, with a ragged
+and a wide case.  The line before the last is the kernels' JSON
 record, the last line ``{"ok": true, "device": ...}``.  Needs nothing but
 this checkout: it imports no JAX and nothing of the JAX package.
 """
@@ -387,12 +388,30 @@ def pick_ptxas(log: str, picks: dict) -> dict:
     return out
 
 
-# K1's two instantiations in flash_fwd.cu (bf16 on the tensor cores, f32 on
-# the CUDA cores) and K2a's and K2b's in flash_bwd.cu, by input type
-K1_KERNELS = {"bfloat16": "flash_fwd_tc_kernel", "float32": "flash_fwd_kernelIfE"}
+# K1's two kernels in flash_fwd.cu (bf16: mma.sync m16n8k16; f32: 3xTF32 on
+# mma.sync m16n8k8) and K2a's and K2b's in flash_bwd.cu, by input type
+K1_KERNELS = {"bfloat16": "flash_fwd_tc_kernel", "float32": "flash_fwd_3xtf32_kernel"}
 K2_KERNELS = {key: {"float32": f"{name}IfE", "bfloat16": f"{name}I13__nv_bfloat16E"}
               for key, name in (("dq", "flash_bwd_dq_kernel"),
                                 ("dkv", "flash_bwd_dkv_kernel"))}
+
+
+# the fused kernel's two bodies in fused_resblock.cu (bf16: mma.sync
+# m16n8k16; f32: FMAs), one instantiation per (TCO, RESIDUAL, STATS)
+FUSED_KERNELS = {"bfloat16": "fused_resblock_tc_kernel",
+                 "float32": "fused_resblock_kernelIf"}
+
+
+def fused_ptxas(log: str, tag: str) -> dict:
+    """The compiler report of each instantiation of one body of the fused
+    kernel, by ``tco<N>_res<0|1>_stats<0|1>``."""
+    out = {}
+    for name, report in ptxas_report(log).items():
+        hit = re.search(r"Li(\d+)ELb([01])ELb([01])E", name)
+        if tag in name and hit:
+            out[f"tco{hit.group(1)}_res{hit.group(2)}_stats{hit.group(3)}"] = report
+    check(len(out) == 12, f"ptxas report has {len(out)} instantiations of {tag}")
+    return out
 
 
 def fused_work(b, c, cout, length, dtype, residual):
@@ -404,14 +423,38 @@ def fused_work(b, c, cout, length, dtype, residual):
     return rows * esize + 4 * (2 * b * c + 3 * c * cout + cout), 6 * b * length * c * cout
 
 
-def phase_fused_kernels(fr):
+def device_ms(fn, tag: str, calls: int = 10) -> tuple:
+    """Device time per call of ``fn`` from torch.profiler's trace: of the
+    kernels whose name holds ``tag``, and of every kernel the call runs.
+    Unlike CUDA events around eager calls, it leaves out the time the card
+    waits for the host between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    tagged = every = 0.0
+    for event in prof.key_averages():
+        ms = event.self_device_time_total / 1e3 / calls
+        every += ms
+        if tag in event.key:
+            tagged += ms
+    return tagged, every
+
+
+def phase_fused_kernels(fr, dtypes=(torch.bfloat16, torch.float32)):
     """Phase 3, the fused resnet chain: K3 and K4 against their plain
     versions at every shape of the chain, bf16 at B = 8 (the generation
     batch) and f32 at B = 4 (training), with a ragged (L = 1000) and a wide
     (C = 1024) case; x and the residual as the blocks pass them, (B, L, C)
     views of (B, C, L) tensors.  Returns the per-forward totals of the
     main path's bf16 shapes and K3's per-forward time with fused_resnet
-    alone."""
+    alone.  Besides the time of eager calls (CUDA events, the wrapper's
+    host time included where the card waits for it), the bf16 shapes get
+    their device time from the profiler (``device_ms``)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -425,9 +468,12 @@ def phase_fused_kernels(fr):
              + [("k4", 32, 32, 1000, True, 0), ("k4", 1024, 1024, 256, True, 0)])
     alone = {(c, co, n): a for c, co, n, _, a in K3_SHAPES}
     total = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-                 "ops": 0, "max_abs_err": 0.0} for k in ("k3", "k4")}
+                 "ops": 0, "max_abs_err": 0.0, "device_ms": 0.0,
+                 "device_ms_all": 0.0, "library_device_ms": 0.0} for k in ("k3", "k4")}
     k3_alone_ms = 0.0
-    for dtype, rows in ((torch.bfloat16, ROWS), (torch.float32, TRAIN_ROWS)):
+    rows_of = {torch.bfloat16: ROWS, torch.float32: TRAIN_ROWS}
+    for dtype in dtypes:
+        rows = rows_of[dtype]
         for kind, c, cout, length, residual, per in cases:
             x = randn(rows, c, length).to(dtype).transpose(1, 2)
             scale, shift = randn(rows, c) * 0.3 + 1.0, randn(rows, c) * 0.5
@@ -469,32 +515,58 @@ def phase_fused_kernels(fr):
             h = h.to(dtype).transpose(1, 2).contiguous()
             wt, bt = w.permute(2, 1, 0).contiguous(), bias.to(dtype)
             lib = time_ms(lambda: F.conv1d(h, wt, bt, padding=1), 20)
+            lib_dev = (device_ms(lambda: F.conv1d(h, wt, bt, padding=1), "")[1]
+                       if dtype == torch.bfloat16 else math.nan)
             nbytes, ops = fused_work(rows, c, cout, length, dtype, residual)
             bms, by = bound_ms(nbytes, ops, dtype)
+            dev = (device_ms(run, "fused_resblock") if dtype == torch.bfloat16
+                   else (math.nan, math.nan))
             print(f"  {kind} {str(dtype)[6:]:8s} B={rows} C={c:4d} Cout={cout:4d} "
                   f"L={length:6d} res={int(residual)}: err y {err:.3e} (rel "
                   f"{rel:.2e}, tol {FUSED_TOL[dtype]:.0e}) sums rel {rel_s:.2e} "
-                  f"(tol {STATS_TOL:.0e}) | kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, conv alone {lib:.4f} ms, bound {bms:.4f} ms "
-                  f"({by}) {'ok' if ok else 'MISMATCH'}", flush=True)
+                  f"(tol {STATS_TOL:.0e}) | kernel {ms:.4f} ms (device {dev[0]:.4f}, "
+                  f"with the wrapper's other kernels {dev[1]:.4f}), plain "
+                  f"{plain_ms:.4f} ms, conv alone {lib:.4f} ms (device {lib_dev:.4f}), "
+                  f"bound {bms:.4f} ms ({by}) {'ok' if ok else 'MISMATCH'}", flush=True)
             check(ok, f"{kind} {dtype} C={c} Cout={cout} L={length} disagrees "
                       f"with its plain version")
             if dtype == torch.bfloat16 and per:
                 tot = total[kind]
                 tot["ms"] += per * ms
+                tot["device_ms"] += per * dev[0]
+                tot["device_ms_all"] += per * dev[1]
                 tot["plain_ms"] += per * plain_ms
                 tot["library_ms"] += per * lib
+                tot["library_device_ms"] += per * lib_dev
                 tot["bytes"] += per * nbytes
                 tot["ops"] += per * ops
                 tot["max_abs_err"] = max(tot["max_abs_err"], err)
             if dtype == torch.bfloat16 and kind == "k3":
                 k3_alone_ms += alone.get((c, cout, length), 0) * ms
             del x, r, h, got, want
-    print(f"  per in-band forward (bf16, B={ROWS}): K3 {total['k3']['ms']:.4f} ms "
-          f"x {K3_PER_FORWARD} calls, K4 {total['k4']['ms']:.4f} ms x "
-          f"{K4_PER_FORWARD}; K3 with fused_resnet alone (20 calls) "
-          f"{k3_alone_ms:.4f} ms")
+    for key, calls in (("k3", K3_PER_FORWARD), ("k4", K4_PER_FORWARD)):
+        tot = total[key]
+        print(f"  {key.upper()} per in-band forward (bf16, B={ROWS}, {calls} calls): "
+              f"kernel {tot['ms']:.4f} ms (device {tot['device_ms']:.4f}, with the "
+              f"wrapper's other kernels {tot['device_ms_all']:.4f}), plain "
+              f"{tot['plain_ms']:.4f} ms, conv alone {tot['library_ms']:.4f} ms "
+              f"(device {tot['library_device_ms']:.4f})")
+    print(f"  K3 with fused_resnet alone (20 calls) {k3_alone_ms:.4f} ms")
     return total, k3_alone_ms
+
+
+def fused_times_of(root: str) -> dict:
+    """Phase 3's bf16 K3/K4 timings (eager, device, the conv alone; per
+    forward) for the ``syncfusion_tpu_torch`` of another checkout at
+    ``root``, e.g. a parent, measured by this script:
+    ``python3 -c "import chip_smoke as c; print(c.fused_times_of('<root>'))"``.
+    Call it in a fresh process, before anything imports the package."""
+    sys.path.insert(0, os.path.abspath(root))
+    from syncfusion_tpu_torch.ops import fused_resblock as fr
+
+    torch.backends.cudnn.allow_tf32 = False
+    total, _ = phase_fused_kernels(fr, dtypes=(torch.bfloat16,))
+    return total
 
 
 def fused_model_cfg() -> dict:
@@ -844,11 +916,15 @@ def main() -> int:
             print("   ", log.read_text().strip().replace("\n", "\n    "))
     k1_regs = pick_ptxas(libs["flash_fwd"].with_suffix(".so.log").read_text(),
                          K1_KERNELS)
+    # ptxas reports static shared memory only: each library gives the
+    # dynamic shared memory its launches ask for
+    k1_smem = _build.library("flash_fwd").flash_fwd_smem
+    for dtype, report in k1_regs.items():
+        report["dynamic_smem_bytes"] = k1_smem(int(dtype == "bfloat16"))
+    check(k1_regs["float32"]["dynamic_smem_bytes"] > 0, "no shared memory for K1 f32")
     print(f"  K1 registers and spills: {k1_regs}")
     bwd_log = libs["flash_bwd"].with_suffix(".so.log").read_text()
     k2_regs = {key: pick_ptxas(bwd_log, picks) for key, picks in K2_KERNELS.items()}
-    # ptxas reports static shared memory only: the library gives the
-    # dynamic shared memory each K2 launch asks for
     smem = _build.library("flash_bwd").flash_bwd_smem
     for key, by_type in k2_regs.items():
         for dtype, report in by_type.items():
@@ -856,6 +932,15 @@ def main() -> int:
                                                 int(dtype == "bfloat16"))
             check(report["dynamic_smem_bytes"] > 0, f"no shared memory for K2 {key}")
     print(f"  K2a and K2b registers and spills: {k2_regs}")
+    fused_log = libs["fused_resblock"].with_suffix(".so.log").read_text()
+    fused_smem = _build.library("fused_resblock").fused_resblock_smem
+    fused_regs = {dtype: fused_ptxas(fused_log, tag)
+                  for dtype, tag in FUSED_KERNELS.items()}
+    for dtype, reports in fused_regs.items():
+        for key, report in reports.items():
+            tco, res = int(key[3:key.index("_")]), int(key[key.index("res") + 3])
+            report["dynamic_smem_bytes"] = fused_smem(int(dtype == "bfloat16"), tco, res)
+    print(f"  K3/K4 registers and spills: {fused_regs}")
     phase("2 build", t0)
 
     t0 = time.perf_counter()
@@ -1012,8 +1097,10 @@ def main() -> int:
         "design": {"bfloat16": "tensor cores: mma.sync m16n8k16 (P as hi + lo "
                                "bf16), cp.async K/V ring of 2 stages, 4 warps "
                                "of 32 query rows a block",
-                   "float32": "CUDA cores: f32 FMAs, 64-key tiles staged in "
-                              "shared memory as f32"},
+                   "float32": "tensor cores: mma.sync m16n8k8 tf32, q, K, V "
+                              "and P as 3xTF32, per-tile partial sums of P·V "
+                              "added in f32, cp.async K/V ring of 2 stages, 4 "
+                              "warps of 16 query rows a block"},
         "ptxas": k1_regs,
     }]
     for name, replaces, key in (("flash_bwd_dq", "syncfusion_tpu/ops/attention.py:137",
@@ -1070,9 +1157,22 @@ def main() -> int:
             "bound_ms": bms,
             "bound_by": by,
             "library_ms": tot["library_ms"],
-            "library_note": "F.conv1d alone on the already-activated input: no "
-                            "single PyTorch call computes the fused function",
+            "device_ms": tot["device_ms"],
+            "device_ms_with_wrapper": tot["device_ms_all"],
+            "library_device_ms": tot["library_device_ms"],
+            "library_note": "F.conv1d alone on the already-activated input, a "
+                            "partial yardstick: no single PyTorch call computes "
+                            "GroupNorm-affine + SiLU + conv k3 (+ residual, + "
+                            "group sums)",
             "work": work,
+            "design": {"bfloat16": "tensor cores: mma.sync m16n8k16, activation "
+                                   "as hi + lo bf16, 8 warps of 16 positions, "
+                                   "chunks of 32 channels (16 at Cout 8) in a "
+                                   "ring of 2 stages, f32 epilogue tile",
+                       "float32": "CUDA cores: f32 FMAs, chunks of 16 channels"},
+            "ptxas": {dtype: {k_: r_ for k_, r_ in reports.items()
+                              if k_.endswith("stats" + str(int(key == "k4")))}
+                      for dtype, reports in fused_regs.items()},
         })
     rows[3]["ms_fused_resnet_alone"] = k3_alone_ms
     print(card)

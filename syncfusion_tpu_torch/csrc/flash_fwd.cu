@@ -37,16 +37,24 @@
 //   reads of the fragments.  The inputs must be 16-byte aligned, with B, L
 //   and H strides that are multiples of 8 elements (cp.async); the wrapper
 //   checks this.
-// * f32 (`flash_fwd_kernel<float>`, training's recipe has no TF32): plain
-//   f32 FMAs on the CUDA cores.  One block of 128 threads owns a 64-row Q
-//   tile; it walks over 64-key K/V tiles staged in shared memory and keeps
-//   the running max, the row sum and the 64-wide f32 accumulator in
-//   registers.  Two threads share a Q row and split each K tile's keys
-//   between them (even and odd keys); the pair exchanges its tile max with
-//   one shuffle and adds its two partial sums and accumulators at the end.
-//   It runs at the f32 FMA rate, far below the tensor-core bound.
+// * f32 (`flash_fwd_3xtf32_kernel`, the training recipe's type, which has
+//   no TF32): the same forward on the tensor cores with f32-accurate
+//   products, mma.sync.m16n8k8 tf32 in 3xTF32 (tf32_mma.cuh, shared with
+//   K2a/K2b): q, K, V and P each enter as big + small tf32 parts, and each
+//   product as small·big + big·small + big·big.  One block of 4 warps owns
+//   64 query rows, 16 (one m16 tile) a warp.  Q is copied once and K/V in
+//   a ring of two stages of 64 keys, all by 16-byte cp.async into tiles of
+//   pitch 72 (conflict-free fragment loads); the k order of every mma is
+//   permuted so that P goes from the C registers of S = q·Kᵀ into P·V with
+//   no shuffle.  Each K/V tile's P·V terms go to a partial sum added to O
+//   in f32 (the tensor cores truncate what they accumulate).  Online
+//   softmax as in the bf16 kernel.  In f32 the function needs 4·T²·D
+//   operations against 16·T·D bytes, T/4 a byte, above the 3xTF32 ridge of
+//   49 at every T the UNet has: bound by operations, at a third of the
+//   TF32 rate (165 TFLOP/s).  The same cp.async contract as bf16: 16-byte
+//   aligned inputs, B, L and H strides in multiples of 4 elements.
 //
-// Layout: q, k, v, o are (B, L, H, 64) with any element strides for B, L
+// Layout: q, k, v, o are (B, L, H, 64) with such element strides for B, L
 // and H and a contiguous head dim (so q, k, v may be views of one qkv
 // projection); lse is a contiguous (B, H, Lq) f32 array.  A ragged sequence
 // tail is masked in the kernel.
@@ -57,227 +65,171 @@
 
 #include <cstdint>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kD = 64;         // head dim
-constexpr int kBlockQ = 64;    // q rows per block (f32 kernel)
-constexpr int kBlockK = 64;    // keys per shared-memory tile
-constexpr int kThreads = 128;  // two threads per q row (f32 kernel)
-constexpr int kKeys = kBlockK / 2;  // keys of a tile each thread scores
-// Row padding of the shared tiles: the two threads of a pair read rows
-// 2j and 2j+1 at once, 68 words apart, so their 16-byte reads fall in
-// different banks.
-constexpr int kPad = 4;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-struct Strides {
-  long long b, l, h;  // element strides; the head dim is contiguous
-};
-
 // ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs
+// f32: tensor cores, mma.sync m16n8k8 tf32 in 3xTF32 (tf32_mma.cuh)
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int heads, int lq, int lk,
-                 Strides sq, Strides sk, Strides sv, Strides so, int causal,
-                 float scale) {
-  __shared__ __align__(16) float ks[kBlockK][kD + kPad];
-  __shared__ __align__(16) float vs[kBlockK][kD + kPad];
+// Shared memory of flash_fwd_3xtf32_kernel: the q tile, then the ring of K/V
+// tiles (two stages of K and V), f32 at pitch kP.
+constexpr size_t f32_smem() { return 5 * kTileElems * sizeof(float); }
+
+// One block: one 64-row q tile of one (batch, head), 16 rows a warp; loops
+// over the 64-key K/V tiles.
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_3xtf32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int heads, int lq, int lk,
+                        Strides sq, Strides sk, Strides sv, Strides so,
+                        int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ring = qs + kTileElems;  // stage s: K at ring + 2s·kTileElems, then V
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh % heads;
   const int tid = threadIdx.x;
-  const int row = tid >> 1;
-  const int half = tid & 1;  // this thread scores keys 2j + half of a tile
-  const int qi = blockIdx.x * kBlockQ + row;
-  const bool valid = qi < lq;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // accumulator rows g and g + 8 of the m16 tile
+  const int t = lane & 3;   // accumulator columns 2t, 2t + 1 of an n-tile
+  const int r0 = 16 * (tid >> 5);  // the warp's first row in the tile
+  const int q0 = blockIdx.x * kTile;
 
-  const T* qp = q + b * sq.b + h * sq.h + (long long)qi * sq.l;
-  const T* kp = k + b * sk.b + h * sk.h;
-  const T* vp = v + b * sv.b + h * sv.h;
+  const float* kp = k + b * sk.b + h * sk.h;
+  const float* vp = v + b * sv.b + h * sv.h;
+  int tiles = (lk + kTile - 1) / kTile;
+  // keys after the tile's last q row are masked for every row of it
+  if (causal) tiles = min(tiles, (int)blockIdx.x + 1);
 
-  float qr[kD];
-#pragma unroll
-  for (int d = 0; d < kD; ++d) qr[d] = valid ? to_float(qp[d]) * scale : 0.f;
-
-  float acc[kD];
-#pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d] = 0.f;
-  float m = -CUDART_INF_F;  // running max of this row (shared by the pair)
-  float l = 0.f;            // this thread's part of the row sum
-
-  int tiles = (lk + kBlockK - 1) / kBlockK;
-  if (causal) {
-    // keys beyond the tile's last row contribute nothing
-    tiles = min(tiles, ((blockIdx.x + 1) * kBlockQ + kBlockK - 1) / kBlockK);
+  // q and the first K/V tile, one group
+  cp_tile(qs, q + b * sq.b + h * sq.h, sq.l, q0, lq, tid);
+  if (tiles > 0) {
+    cp_tile(ring, kp, sk.l, 0, lk, tid);
+    cp_tile(ring + kTileElems, vp, sv.l, 0, lk, tid);
   }
+  cp_async_commit();
 
-  for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kBlockK;
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = tid; i < kBlockK * kD; i += kThreads) {
-      const int r = i / kD;
-      const int c = i % kD;
-      const int key = k0 + r;
-      const bool in = key < lk;
-      ks[r][c] = in ? to_float(kp[(long long)key * sk.l + c]) : 0.f;
-      vs[r][c] = in ? to_float(vp[(long long)key * sv.l + c]) : 0.f;
-    }
+  const float sl = scale * kLog2e;
+  float acc[8][4];  // O: 8 n-tiles of 8 columns
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // rows g and g + 8: the row max of S·sl (log2 domain) and this thread's
+  // part of the row sum
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * kTile;
+    // tile it has landed, and every warp is done with tile it - 1, whose
+    // stage the next load overwrites
+    cp_async_wait_all();
     __syncthreads();
+    if (it + 1 < tiles) {
+      float* next = ring + ((it + 1) & 1) * 2 * kTileElems;
+      cp_tile(next, kp, sk.l, k0 + kTile, lk, tid);
+      cp_tile(next + kTileElems, vp, sv.l, k0 + kTile, lk, tid);
+      cp_async_commit();
+    }
+    const float* ks = ring + (it & 1) * 2 * kTileElems;
+    const float* vs = ks + kTileElems;
 
-    float s[kKeys];
+    // S = q Kᵀ: 8 k-steps over D, 8 n-tiles of 8 keys, q and K split
+    float s[1][8][4];
+    scores<1, true, float>(s, {qs}, {ks}, r0, g, t);
+
+    // online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3), in the log2
+    // domain: p = 2^(S·sl - max), sl = scale·log2(e) > 0, so the max of
+    // S·sl is sl times the max of S
+    const bool edge = k0 + kTile > lk || (causal && k0 + kTile - 1 > q0 + r0);
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) s[j] = 0.f;
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int d = 0; d < kD; d += 4) {
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = q0 + r0 + g + 8 * (e >> 1);
+          if (key >= lk || (causal && key > row)) s[0][j][e] = -CUDART_INF_F;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[0][j][e]);
+      }
+    }
+    float alpha[2], shift[2];
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float4 kv = *reinterpret_cast<const float4*>(&ks[2 * j + half][d]);
-        s[j] = fmaf(qr[d], kv.x, s[j]);
-        s[j] = fmaf(qr[d + 1], kv.y, s[j]);
-        s[j] = fmaf(qr[d + 2], kv.z, s[j]);
-        s[j] = fmaf(qr[d + 3], kv.w, s[j]);
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * sl);
+      // While every key so far is masked, m_new is -inf: shift by 0
+      // instead, which leaves every p (and alpha) at exactly 0.
+      shift[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[r] = ex2(m[r] - shift[r]);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(s[0][j][e], sl, -shift[e >> 1]));
+        s[0][j][e] = p;
+        l[e >> 1] += p;
+        acc[j][e] *= alpha[e >> 1];
       }
     }
 
-    float tile_max = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const int key = k0 + 2 * j + half;
-      if (key >= lk || (causal && key > qi)) s[j] = -CUDART_INF_F;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    const float m_new = fmaxf(m, tile_max);
-    // While every key so far is masked, m_new is -inf: shift by 0 instead,
-    // which leaves every p (and alpha) at exactly 0.
-    const float shift = m_new == -CUDART_INF_F ? 0.f : m_new;
-    const float alpha = expf(m - shift);
-
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      s[j] = expf(s[j] - shift);
-      psum += s[j];
-    }
-    l = l * alpha + psum;
-#pragma unroll
-    for (int d = 0; d < kD; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const float p = s[j];
-#pragma unroll
-      for (int d = 0; d < kD; d += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(&vs[2 * j + half][d]);
-        acc[d] = fmaf(p, vv.x, acc[d]);
-        acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-        acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-        acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
-      }
-    }
-    m = m_new;
+    // O += P V: P from the C registers, split like V; this tile's terms in
+    // a partial sum added to O in f32
+    product_cb<true>(acc, s[0], vs, g, t);
   }
+  cp_async_wait_all();  // nothing in flight (q and K/V only if tiles == 0)
 
-  // The pair holds one row between them: add the two halves.
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  float* op = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], 1);
-
-  if (!valid) return;
-  const float l_safe = fmaxf(l, 1e-30f);
-  const float inv = 1.f / l_safe;
-  T* op = o + b * so.b + h * so.h + (long long)qi * so.l;
-  // each thread of the pair writes half of the row (constant indices keep
-  // acc in registers)
-  if (half == 0) {
+  for (int r = 0; r < 2; ++r) {
+    // the quad holding a row adds its four partial sums
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float l_safe = fmaxf(sum, 1e-30f);
+    const float inv = 1.f / l_safe;
+    const int qi = q0 + r0 + g + 8 * r;
+    if (qi >= lq) continue;
 #pragma unroll
-    for (int d = 0; d < kD / 2; ++d) store(op + d, acc[d] * inv);
-    lse[(long long)bh * lq + qi] = m + logf(l_safe);
-  } else {
-#pragma unroll
-    for (int d = kD / 2; d < kD; ++d) store(op + d, acc[d] * inv);
+    for (int n = 0; n < 8; ++n)
+      store2(op + qi * so.l + 8 * n + 2 * t, acc[n][2 * r] * inv,
+             acc[n][2 * r + 1] * inv);
+    // LSE = (m2 + log2 l)·ln 2, the natural log of the scaled logits
+    if (t == 0)
+      lse[(long long)bh * lq + qi] = (m[r] + log2f(l_safe)) * 0.6931471805599453f;
   }
 }
 
-template <typename T>
-void launch(const void* q, const void* k, const void* v, void* o, float* lse,
-            int batch, int heads, int lq, int lk, Strides sq, Strides sk,
-            Strides sv, Strides so, int causal, float scale,
-            cudaStream_t stream) {
-  const dim3 grid((lq + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, heads, lq, lk, sq,
-      sk, sv, so, causal, scale);
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int batch, int heads, int lq, int lk,
+                       Strides sq, Strides sk, Strides sv, Strides so,
+                       int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = f32_smem();
+  cudaError_t err = set_smem(flash_fwd_3xtf32_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((lq + kTile - 1) / kTile, batch * heads);
+  flash_fwd_3xtf32_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, heads, lq, lk,
+      sq, sk, sv, so, causal, scale);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores.  Each PTX instruction sits in its own small function.
+// bf16: tensor cores, mma.sync m16n8k16
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !valid (the
-// source is then not read).
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
-// and lane l receives row l/4, columns 2(l%4) and 2(l%4)+1 of each.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// The same, transposed: lane l receives rows 2(l%4) and 2(l%4)+1 of
-// column l/4 of each matrix.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a·b, a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the special-function unit; 2^-inf = 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
@@ -335,7 +287,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     int heads, int lq, int lk, Strides sq, Strides sk,
                     Strides sv, Strides so, int causal, float scale) {
   __shared__ __align__(128) __nv_bfloat16 qs[kRowsQ * kD];
-  __shared__ __align__(128) __nv_bfloat16 kvs[2][2][kBlockK * kD];  // stage, k|v
+  __shared__ __align__(128) __nv_bfloat16 kvs[2][2][kTile * kD];  // stage, k|v
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
@@ -352,14 +304,14 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kp = k + b * sk.b + h * sk.h;
   const __nv_bfloat16* vp = v + b * sv.b + h * sv.h;
 
-  int tiles = (lk + kBlockK - 1) / kBlockK;
-  if (causal) tiles = min(tiles, (q0 + kRowsQ + kBlockK - 1) / kBlockK);
+  int tiles = (lk + kTile - 1) / kTile;
+  if (causal) tiles = min(tiles, (q0 + kRowsQ + kTile - 1) / kTile);
 
   // Q and the first K/V tile, one group
   if (tiles > 0) {
     load_tile<kRowsQ>(qs, qp, sq.l, q0, lq, tid);
-    load_tile<kBlockK>(kvs[0][0], kp, sk.l, 0, lk, tid);
-    load_tile<kBlockK>(kvs[0][1], vp, sv.l, 0, lk, tid);
+    load_tile<kTile>(kvs[0][0], kp, sk.l, 0, lk, tid);
+    load_tile<kTile>(kvs[0][1], vp, sv.l, 0, lk, tid);
     cp_async_commit();
   }
 
@@ -383,14 +335,14 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
   for (int t = 0; t < tiles; ++t) {
-    const int k0 = t * kBlockK;
+    const int k0 = t * kTile;
     // tile t has landed, and every warp is done with tile t - 1, whose
     // stage the next load overwrites
     cp_async_wait_all();
     __syncthreads();
     if (t + 1 < tiles) {
-      load_tile<kBlockK>(kvs[(t + 1) & 1][0], kp, sk.l, k0 + kBlockK, lk, tid);
-      load_tile<kBlockK>(kvs[(t + 1) & 1][1], vp, sv.l, k0 + kBlockK, lk, tid);
+      load_tile<kTile>(kvs[(t + 1) & 1][0], kp, sk.l, k0 + kTile, lk, tid);
+      load_tile<kTile>(kvs[(t + 1) & 1][1], vp, sv.l, k0 + kTile, lk, tid);
       cp_async_commit();
     }
     // causal: a warp whose rows all precede the tile's keys skips it
@@ -431,7 +383,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     // tile, in the log2 domain: p = 2^(S·sl - max), sl = scale·log2(e) > 0,
     // so the max of S·sl is sl times the max of S
     const bool edge =
-        k0 + kBlockK > lk || (causal && k0 + kBlockK - 1 > qw);
+        k0 + kTile > lk || (causal && k0 + kTile - 1 > qw);
 #pragma unroll
     for (int mt = 0; mt < kMt; ++mt) {
       float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
@@ -553,9 +505,9 @@ void launch_tc(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  Strides
-// are in elements.  Returns the launch's cudaError_t (0 on success); the
-// caller raises on anything else.
+// dtype: 0 = float32 (tensor cores, 3xTF32), 1 = bfloat16 (tensor cores).
+// Strides are in elements.  Returns the launch's cudaError_t (0 on
+// success); the caller raises on anything else.
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                          const void* v, void* o, float* lse, int batch,
                          int heads, int lq, int lk, long long q_sb,
@@ -568,13 +520,21 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
       sv{v_sb, v_sl, v_sh}, so{o_sb, o_sl, o_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    launch<float>(q, k, v, o, lse, batch, heads, lq, lk, sq, sk, sv, so,
-                  causal, scale, s);
-  } else if (dtype == 1) {
+    return static_cast<int>(launch_f32(q, k, v, o, lse, batch, heads, lq, lk,
+                                       sq, sk, sv, so, causal, scale, s));
+  }
+  if (dtype == 1) {
     launch_tc(q, k, v, o, lse, batch, heads, lq, lk, sq, sk, sv, so, causal,
               scale, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory in bytes that each launch of flash_fwd asks for,
+// dtype as above (the bf16 kernel's is static: 0); -1 for an unknown dtype.
+extern "C" int flash_fwd_smem(int dtype) {
+  if (dtype == 0) return static_cast<int>(f32_smem());
+  if (dtype == 1) return 0;
+  return -1;
 }

@@ -1,0 +1,102 @@
+// The PTX instructions the port's tensor-core kernels use, each in its own
+// small function, shared by flash_fwd.cu, flash_bwd.cu and fused_resblock.cu.
+// Nothing else lives here, so that a CPU model of a kernel can stand in
+// lane-exact versions of exactly these functions.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid (the
+// source is then not read).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared; zero-filled when !valid.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
+// and lane l receives row l/4, columns 2(l%4) and 2(l%4)+1 of each.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// Two such matrices, row addresses from lanes 0-15.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// As ldsm_x4, transposed: lane l receives rows 2(l%4) and 2(l%4)+1 of
+// column l/4 of each matrix.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a·b, a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate.  Lane
+// (g, t) = (lane / 4, lane % 4) holds a at (g, 2t..2t+1), (g + 8, 2t..),
+// (g, 2t + 8..), (g + 8, 2t + 8..); b at (2t..2t+1, g), (2t + 8.., g); d at
+// (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a·b, a 16x8 (row), b 8x8 (col), tf32 in, f32 accumulate.  Lane
+// (g, t) holds a at (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b at
+// (t, g), (t + 4, g); d as mma_16816.
+__device__ __forceinline__ void mma_1688_tf32(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit; 2^-inf = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+}  // namespace

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source becomes its own shared library with a plain C
 interface, compiled for ``sm_90a`` into ``syncfusion_tpu_torch/_build/`` at
 first use (a git-ignored directory).  The library's name carries a hash of
-its source and flags, so an edited source is rebuilt and a stale library is
+its source, of every ``csrc/*.cuh`` header (the sources share them) and of
+the flags, so an edited source or header is rebuilt and a stale library is
 never loaded.  All sources compile at once, one ``nvcc`` each.
 """
 
@@ -38,7 +39,9 @@ def nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 

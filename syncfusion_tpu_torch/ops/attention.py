@@ -4,12 +4,11 @@
 ``torch.autograd.Function`` on every device, the counterpart of the JAX
 package's custom VJP.  On a CUDA tensor its forward is the hand-written
 kernel of ``csrc/flash_fwd.cu`` (the port of the TPU kernel
-``_flash_kernel``, K1: bf16 on the tensor cores, f32 on the CUDA cores,
-chosen by dtype) and its backward the two kernels of ``csrc/flash_bwd.cu``
-(``_flash_bwd_dq_kernel``, K2a, then ``_flash_bwd_dkv_kernel``, K2b; both
-on the tensor cores, f32 as 3xTF32).  The bf16 forward and both backward
-kernels copy with ``cp.async`` and so take 16-byte aligned operands with B,
-L and H strides in multiples of 16 bytes, see ``cp_async_misalignment``.
+``_flash_kernel``, K1, on the tensor cores, f32 as 3xTF32) and its backward
+the two kernels of ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``, K2a,
+then ``_flash_bwd_dkv_kernel``, K2b; on the tensor cores likewise).  All
+three copy with ``cp.async`` and so take 16-byte aligned operands with B, L
+and H strides in multiples of 16 bytes, see ``cp_async_misalignment``.
 On a CPU tensor the same Function runs their plain versions, so the CPU
 tests reach the wiring the card runs.  It never falls back from a kernel to
 a plain version on the card.
@@ -189,14 +188,13 @@ def _stream(x) -> int:
 
 def flash_fwd(q, k, v, causal: bool = False):
     """K1: ``(o, lse)``, O in q's dtype, LSE (B, H, Lq) f32.  The kernel on
-    a CUDA tensor (bf16: tensor cores, f32: CUDA cores),
-    ``attention_reference`` on a CPU tensor."""
+    a CUDA tensor (raises ``ValueError`` for a q, k or v ``cp.async`` cannot
+    take), ``attention_reference`` on a CPU tensor."""
     if q.device.type == "cpu":
         flash_attention.plain_calls += 1
         return attention_reference(q, k, v, causal, return_lse=True)
     _check(q, k, v)
-    if q.dtype == torch.bfloat16:
-        _check_aligned(q=q, k=k, v=v)
+    _check_aligned(q=q, k=k, v=v)
     b, lq, h, d = q.shape
     lk = k.shape[1]
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
@@ -265,6 +263,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
+        if q.device.type == "cuda" and q.dtype == torch.float32:
+            # training's f32 path takes any strides (autograd may hand over
+            # a view cp.async cannot take): K1 gets copies of those, and
+            # K2a and K2b the same tensors; bf16 views that do not fit raise
+            q, k, v = map(_for_cp_async, (q, k, v))
         o, lse = flash_fwd(q, k, v, causal)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, o, lse)
@@ -277,9 +280,8 @@ class _FlashAttention(torch.autograd.Function):
         if do.stride(-1) != 1:
             do = do.contiguous()
         if q.device.type == "cuda":
-            # the f32 forward takes views cp.async cannot (an odd stride, an
-            # address off 16 bytes), and autograd may hand over such a dO
-            # (a slice of a cat's gradient): K2a and K2b get copies of those
+            # autograd may hand over a dO that cp.async cannot take (a slice
+            # of a cat's gradient, an odd stride): K2a and K2b get a copy
             q, k, v, o, do = map(_for_cp_async, (q, k, v, o, do))
         dq, delta = flash_bwd_dq(q, k, v, o, lse, do, ctx.causal)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)

@@ -9,7 +9,9 @@ reaches device memory.  Public functions keep the JAX package's signatures
 and layout: x (B, L, C), weight (3, C, Cout), scale and shift (B, C) f32,
 bias (Cout,) f32; any strides, so the port's blocks pass (B, L, C) views of
 their (B, C, L) tensors and no copy is made.  The weight arrives rounded to
-the compute dtype; all arithmetic is f32; y is in x's dtype.
+the compute dtype; sums are f32; y is in x's dtype.  On the card the bf16
+kernel runs on the tensor cores (bf16 weight, the activation as hi + lo
+bf16), the f32 one on the CUDA cores.
 
 * ``fused_affine_silu_conv`` and ``fused_affine_silu_conv_blocked`` (the
   entries of the TPU kernels K3a and K3b, one function) run
@@ -113,9 +115,16 @@ def stats_affine(s, ss, count, gamma, beta, num_groups, film_scale=None,
 def _kernel():
     fn = _build.library("fused_resblock").fused_resblock
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, i, i, i, *([p] * 9), i, i, i, i, p, i, p]
+    fn.argtypes = [i, i, i, i, *([p] * 9), i, i, i, i, i, p, i, p]
     fn.restype = i
     return fn
+
+
+@functools.cache
+def _chunk(dtype_code: int, tco: int) -> int:
+    """Input channels of one staged chunk of the kernel: the bf16 weight's
+    channels are zero-padded to a multiple of it."""
+    return _build.library("fused_resblock").fused_resblock_chunk(dtype_code, tco)
 
 
 def _check(x, scale, shift, weight, bias, residual):
@@ -142,6 +151,9 @@ def _check(x, scale, shift, weight, bias, residual):
         raise ValueError("all tensors must lie on x's device")
     if any(s_ < 0 for t in (x,) + tensors for s_ in t.stride()):
         raise ValueError("negative strides are not taken")
+    if x.dtype == torch.bfloat16 and weight.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 kernel's products take a bf16 weight (the "
+                        f"blocks pass it rounded to bf16); got {weight.dtype}")
 
 
 def _out_tensor(x, cout):
@@ -170,10 +182,21 @@ def _launch(x, scale, shift, weight, bias, residual=None, num_groups=0):
     seg = math.gcd(cout // num_groups, tco) if stats else 1
     f32 = dict(dtype=torch.float32)
     scale, shift = scale.to(**f32).contiguous(), shift.to(**f32).contiguous()
-    weight, bias = weight.to(**f32).contiguous(), bias.to(**f32).contiguous()
+    bias = bias.to(**f32).contiguous()
+    if x.dtype == torch.bfloat16:
+        # (3, Cout, Cp) bf16, input channels zero-padded to whole chunks:
+        # the layout the kernel stages for its B fragments
+        chunk = _chunk(_DTYPE_CODE[x.dtype], tco)
+        cp = -(-c // chunk) * chunk
+        weight = F.pad(weight.permute(0, 2, 1), (0, cp - c)).contiguous()
+    else:
+        cp = c
+        weight = weight.to(**f32).contiguous()
     y = _out_tensor(x, cout)
     n_tiles = -(-length // TILE_L)
-    part = (torch.empty((2, b, n_tiles, cout // seg), device=x.device, **f32)
+    # per-(tile, segment) partial sums, tiles last: their sum is one
+    # reduction over contiguous rows
+    part = (torch.empty((2, b, cout // seg, n_tiles), device=x.device, **f32)
             if stats else None)
     r = residual if residual is not None else y
     strides = (ctypes.c_longlong * 9)(*x.stride(), *y.stride(), *r.stride())
@@ -183,13 +206,13 @@ def _launch(x, scale, shift, weight, bias, residual=None, num_groups=0):
         bias.data_ptr(), r.data_ptr(), y.data_ptr(),
         part[0].data_ptr() if stats else None,
         part[1].data_ptr() if stats else None,
-        b, length, c, cout, strides, seg,
+        b, length, c, cout, cp, strides, seg,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_resblock kernel launch failed: error {err}")
     if not stats:
         return y
-    s, ss = part.sum(2).view(2, b, num_groups, -1).sum(-1)
+    s, ss = part.sum(-1).view(2, b, num_groups, -1).sum(-1)
     return y, s, ss
 
 

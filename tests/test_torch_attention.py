@@ -6,8 +6,9 @@ tests/test_attention.py runs it) and against ``attention_reference``, O and
 the row LSE, causal and not.  Tolerance 2e-5 abs in f32, as
 tests/test_attention.py holds the Pallas kernel.  The arithmetic of the
 bf16 tensor-core kernel is modelled here in plain PyTorch and held to the
-card's bf16 tolerance, and so is its rule on alignment.  The CUDA kernel
-itself is compared with the plain version on the card by
+card's bf16 tolerance, and so is its rule on alignment; the f32 kernel's
+(3xTF32 products over 64-key tiles) is held to the card's f32 tolerance.
+The CUDA kernel itself is compared with the plain version on the card by
 tests/test_torch_cuda.py."""
 
 import math
@@ -16,10 +17,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from syncfusion_tpu.ops import attention as ja
 from syncfusion_tpu_torch.ops import attention as ta
-from torch_port_helpers import n, t
+from torch_port_helpers import THREE_TF32, mm_tf32, n, t
 
 TOL = dict(rtol=0, atol=2e-5)
 
@@ -179,3 +181,69 @@ def test_misaligned_bf16_input_raises():
     q = flat[1:].view(2, 64, 8, 64)
     with pytest.raises(ValueError, match="not 16-byte aligned"):
         ta._check_aligned(q=q)
+
+
+# The f32 kernel's arithmetic, in plain PyTorch on the CPU: S = q Kᵀ and
+# P·V through ``mm_tf32`` (3xTF32, or one TF32 product as a control) over
+# 64-key tiles; the online softmax in the log2 domain with the running max
+# carried from tile to tile; each tile's P·V terms in a partial sum that
+# starts at 0 and is added to O in f32; LSE = (m2 + log2 l)·ln 2.  Causal
+# tiles past the diagonal, which the kernel skips, add exact zeros here.
+# Held to the card's f32 gate (chip_smoke.TOL, tests/test_torch_cuda.py):
+# max |error| <= 1e-4 for O and for the LSE.
+F32_TOL = {"o": 1e-4, "lse": 1e-4}
+
+
+def _tf32_schedule(q, k, v, causal, passes=THREE_TF32):
+    lq, lk, d = q.shape[1], k.shape[1], q.shape[-1]
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # (B, H, L, D)
+    tiles = -(-lk // TILE)
+    kf, vf = (F.pad(x, (0, 0, 0, tiles * TILE - lk)) for x in (kf, vf))
+    keys = torch.arange(tiles * TILE)
+    masked = (keys >= lk)[None, :].expand(lq, -1)
+    if causal:
+        masked = masked | (keys[None, :] > torch.arange(lq)[:, None])
+    s = mm_tf32(qf, kf.transpose(-1, -2), passes).masked_fill(masked, -math.inf)
+    s = s.unflatten(-1, (tiles, TILE)).movedim(-2, 2)  # (B, H, tiles, Lq, 64)
+    sl = math.log2(math.e) / math.sqrt(d)
+    m = torch.cummax(s.amax(-1) * sl, dim=2).values  # running max after a tile
+    shift = torch.where(m == -math.inf, 0.0, m)
+    p = torch.exp2(s * sl - shift[..., None])
+    parts = mm_tf32(p, vf.unflatten(2, (tiles, TILE)), passes)
+    acc = torch.zeros_like(parts[:, :, 0])
+    l = torch.zeros_like(p[:, :, 0, :, 0])
+    m_prev = torch.full_like(l, -math.inf)
+    for i in range(tiles):
+        alpha = torch.exp2(m_prev - shift[:, :, i])
+        acc = acc * alpha[..., None] + parts[:, :, i]
+        l = l * alpha + p[:, :, i].sum(-1)
+        m_prev = m[:, :, i]
+    ls = l.clamp_min(1e-30)
+    return (acc / ls[..., None]).transpose(1, 2), (m_prev + torch.log2(ls)) * math.log(2)
+
+
+def _f32_errors(heads, causal, seed, passes=THREE_TF32):
+    """max |model - plain| of O and of the LSE at T = 2048, inputs of unit
+    variance as chip_smoke.py draws them."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (t(rng.standard_normal((1, 2048, heads, 64)).astype(np.float32))
+               for _ in range(3))
+    o, lse = _tf32_schedule(q, k, v, causal, passes)
+    want, want_lse = ta.attention_reference(q, k, v, causal, return_lse=True)
+    return (o - want).abs().max().item(), (lse - want_lse).abs().max().item()
+
+
+@pytest.mark.parametrize("heads,causal", [(2, False), (1, True)])
+def test_three_tf32_forward_holds_the_f32_gate(heads, causal):
+    """The f32 kernel's arithmetic at the UNet's longest attention level
+    (T = 2048, D = 64) stays within the card's f32 gate of the plain
+    version, O and LSE."""
+    err_o, err_lse = _f32_errors(heads, causal, seed=heads)
+    assert err_o <= F32_TOL["o"] and err_lse <= F32_TOL["lse"], (err_o, err_lse)
+
+
+def test_one_tf32_product_breaks_the_f32_forward_gate():
+    """Why the f32 kernel splits its operands: S and P·V on plain TF32 (big
+    parts only) miss the f32 gate."""
+    err_o, err_lse = _f32_errors(1, False, seed=3, passes=("big_big",))
+    assert max(err_o / F32_TOL["o"], err_lse / F32_TOL["lse"]) > 1, (err_o, err_lse)

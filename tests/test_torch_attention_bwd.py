@@ -24,7 +24,7 @@ import torch
 
 from syncfusion_tpu.ops import attention as ja
 from syncfusion_tpu_torch.ops import attention as ta
-from torch_port_helpers import n, t
+from torch_port_helpers import THREE_TF32, mm_tf32, n, t
 
 TOL = dict(rtol=1e-3, atol=2e-4)
 
@@ -128,61 +128,28 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
 
 
 # The arithmetic of the tensor-core kernels K2a and K2b, in plain PyTorch on
-# the CPU: each of the five products (S, dP, dQ, dK, dV) on mma.sync
-# m16n8k8 with tf32 operands, in k-steps of 8 added to one f32 accumulator;
-# an f32 operand x as big = x rounded to tf32 (to nearest, ties away from
-# zero, as cvt.rna.tf32.f32 rounds) and small = x - big, which the tensor
-# cores read truncated to tf32; the product as small·big + big·small +
-# big·big (3xTF32).  Held to the card's f32 gate
-# (chip_smoke.BWD_TOL, tests/test_torch_cuda.py): max |error| / max |plain|
-# <= 1e-4 for each of dq, dk and dv.
+# the CPU: each of the five products (S, dP, dQ, dK, dV) through
+# ``mm_tf32`` (tests/torch_port_helpers.py), in 3xTF32 or, as a control, on
+# plain TF32.  Held to the card's f32 gate (chip_smoke.BWD_TOL,
+# tests/test_torch_cuda.py): max |error| / max |plain| <= 1e-4 for each of
+# dq, dk and dv.
 BWD_TOL_F32 = 1e-4
-THREE_TF32 = ("small_big", "big_small", "big_big")
-
-
-def _tf32(x):
-    """x rounded to tf32 (10 mantissa bits) as cvt.rna.tf32.f32 does it:
-    add half of the dropped 13 bits' range to the int32 view and clear
-    them."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_read(x):
-    """x as the tensor cores read a tf32 operand: its low 13 bits dropped."""
-    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def _mm_tf32(a, b, passes):
-    """a @ b, f32, as the kernels take it: per k-step of 8, the products of
-    the tf32 parts named in ``passes`` (small terms first), each added to
-    one f32 accumulator."""
-    a_big, b_big = _tf32(a), _tf32(b)
-    terms = {"small_big": (_tf32_read(a - a_big), b_big),
-             "big_small": (a_big, _tf32_read(b - b_big)),
-             "big_big": (a_big, b_big)}
-    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
-    for k0 in range(0, a.shape[-1], 8):
-        for name in passes:
-            x, y = terms[name]
-            acc = acc + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :]
-    return acc
 
 
 def _tc_backward(q, k, v, o, lse, do, causal, passes):
     """(dq, dk, dv) by the kernels' arithmetic: the products through
-    ``_mm_tf32``, P and dS in f32 between them."""
+    ``mm_tf32``, P and dS in f32 between them."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qh, kh, vh, oh, doh = (x.float().transpose(1, 2) for x in (q, k, v, o, do))
-    s = _mm_tf32(qh, kh.transpose(-1, -2), passes) * scale
+    s = mm_tf32(qh, kh.transpose(-1, -2), passes) * scale
     if causal:
         s = s.masked_fill(~ta._causal_keep(s), float("-inf"))
     p = torch.exp(s - lse[..., None])
-    dp = _mm_tf32(doh, vh.transpose(-1, -2), passes)
+    dp = mm_tf32(doh, vh.transpose(-1, -2), passes)
     ds = p * (dp - (doh * oh).sum(-1)[..., None])
-    dq = _mm_tf32(ds, kh, passes) * scale
-    dk = _mm_tf32(ds.transpose(-1, -2), qh, passes) * scale
-    dv = _mm_tf32(p.transpose(-1, -2), doh, passes)
+    dq = mm_tf32(ds, kh, passes) * scale
+    dk = mm_tf32(ds.transpose(-1, -2), qh, passes) * scale
+    dv = mm_tf32(p.transpose(-1, -2), doh, passes)
     return [x.transpose(1, 2) for x in (dq, dk, dv)]
 
 

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
-K1 (bf16 on the tensor cores, f32 on the CUDA cores), K2a and K2b (flash
-attention backward, on the tensor cores), K3 and K4 (the fused resnet
-chain).
+K1 (the flash-attention forward), K2a and K2b (its backward), all on the
+tensor cores with f32 as 3xTF32, and K3 and K4 (the fused resnet chain; bf16
+on the tensor cores, f32 on the CUDA cores).
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so that it also runs where JAX is not installed:
@@ -77,6 +77,52 @@ def test_misaligned_bf16_input_raises_on_card(card):
             ta.flash_attention(bad, k, v)
         with pytest.raises(ValueError, match="cp.async"):
             ta.flash_attention(q, k, bad)
+    assert ta.flash_attention.kernel_launches == 0
+
+
+@pytest.mark.parametrize("lq,lk,causal", [(300, 1000, False), (1000, 300, True),
+                                           (2048, 2048, True)])
+def test_f32_kernel_with_other_key_length_on_card(card, lq, lk, causal):
+    """The 3xTF32 kernel with Lq != Lk (ragged both ways, causal and not)
+    and at the longest causal level, q, k, v as views of projections, one
+    launch, against its plain version within the f32 tolerance."""
+    gen = torch.Generator(device="cuda").manual_seed(lq + lk)
+    q = torch.randn((4, lq, 2, 8, 64), generator=gen, device="cuda")[:, :, 0]
+    kv = torch.randn((4, lk, 2, 8, 64), generator=gen, device="cuda")
+    k, v = kv.unbind(2)
+    ta.reset_counts()
+    o, lse = ta.flash_fwd(q, k, v, causal)
+    assert ta.flash_attention.kernel_launches == 1
+    want, want_lse = ta.attention_reference(q, k, v, causal, return_lse=True)
+    assert (o - want).abs().max().item() <= 1e-4
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_kernel_is_deterministic_on_card(card, dtype):
+    """Each block owns its rows and adds in a fixed order: two calls on the
+    same inputs give bitwise equal O and LSE (ragged and causal)."""
+    q, k, v, _ = _qkv(4, 1000, dtype, 19)
+    first = ta.flash_fwd(q, k, v, True)
+    second = ta.flash_fwd(q, k, v, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_misaligned_f32_input_raises_on_card(card):
+    """The f32 kernel copies with cp.async too: an L stride that is not a
+    multiple of 4 elements, or an address off 16 bytes, raises in
+    ``flash_fwd`` and launches nothing (the autograd forward copies such
+    views instead, see the gradient test of views below)."""
+    q, k, v, _ = _qkv(2, 256, torch.float32, 5)
+    odd = torch.zeros((2, 256, 8 * 64 + 2), device="cuda")
+    flat = torch.zeros(2 * 256 * 512 + 1, device="cuda")
+    ta.reset_counts()
+    for bad in (odd[..., :512].unflatten(-1, (8, 64)), flat[1:].view(2, 256, 8, 64)):
+        with pytest.raises(ValueError, match="cp.async"):
+            ta.flash_fwd(bad, k, v)
+        with pytest.raises(ValueError, match="cp.async"):
+            ta.flash_fwd(q, bad, v)
     assert ta.flash_attention.kernel_launches == 0
 
 
@@ -159,11 +205,11 @@ def test_gradient_goes_through_the_kernels_on_card(card):
 
 
 def test_gradient_of_views_cp_async_cannot_take_on_card(card):
-    """An f32 q, k, v with an odd L stride and one off 16 bytes (the f32
-    forward takes both), and a dO sliced out of a cat's gradient (H stride
-    65): the backward copies them for K2a and K2b, which launch once each,
-    and the gradients equal autograd through the plain attention within the
-    f32 tolerance."""
+    """An f32 q, k, v with an odd L stride and one off 16 bytes, and a dO
+    sliced out of a cat's gradient (H stride 65): the autograd forward
+    copies the views for K1, the backward copies dO for K2a and K2b, each
+    launches once, and the gradients equal autograd through the plain
+    attention within the f32 tolerance."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     odd = torch.randn((2, 256, 8 * 64 + 1), generator=gen, device="cuda")
     flat = torch.randn(2 * 256 * 512 + 1, generator=gen, device="cuda")
@@ -264,6 +310,48 @@ def test_k4_matches_plain_on_card(no_tf32, dtype, rows, c, cout, length, residua
     n = length * cout // 8
     assert ((s - want_s).abs() / (n * want_ss).sqrt()).max().item() <= STATS_TOL
     assert ((ss - want_ss).abs() / want_ss).max().item() <= STATS_TOL
+
+
+@pytest.mark.parametrize("kind,c,cout,length,residual",
+                         [("k3", c, co, n, False) for c, co, n in K3_SHAPES]
+                         + [("k4", c, co, n, r) for c, co, n, r in K4_SHAPES]
+                         + [("k4", 40, 32, 1001, True), ("k3", 10, 8, 1001, False)])
+def test_bf16_kernel_in_the_channel_last_layout_on_card(no_tf32, kind, c, cout,
+                                                         length, residual):
+    """The tensor-core body with x, the residual and y as contiguous
+    (B, L, C) tensors (the other stride layout: no 16-byte rows along L),
+    at every shape of the chain and at an L that is no multiple of 8,
+    against its plain version."""
+    x, scale, shift, w, bias, r = _fused_inputs(8, c, cout, length, torch.bfloat16,
+                                                c + 2, residual)
+    x = x.contiguous()
+    r = r.contiguous() if r is not None else None
+    fr.reset_counts()
+    if kind == "k3":
+        y = fr.affine_silu_conv(x, scale, shift, w, bias)
+        want = fr._reference(x, scale, shift, w, bias)
+    else:
+        y, s, ss = fr.affine_silu_conv_stats(x, scale, shift, w, bias, r, 8)
+        want, want_s, want_ss = fr._stats_reference(x, scale, shift, w, bias, r, 8)
+        n = length * cout // 8
+        assert ((s - want_s).abs() / (n * want_ss).sqrt()).max().item() <= STATS_TOL
+        assert ((ss - want_ss).abs() / want_ss).max().item() <= STATS_TOL
+    assert fr.affine_silu_conv.kernel_launches + fr.affine_silu_conv_stats.kernel_launches == 1
+    assert y.is_contiguous() and _rel(y, want) <= FUSED_TOL[torch.bfloat16]
+
+
+def test_bf16_kernel_is_deterministic_and_takes_a_bf16_weight_on_card(no_tf32):
+    """The group sums are per-tile partials added in a fixed order (no
+    atomics): two calls give bitwise equal y, s and ss.  An f32 weight with
+    a bf16 x raises instead of being rounded behind the caller's back."""
+    x, scale, shift, w, bias, r = _fused_inputs(8, 40, 32, 65536, torch.bfloat16,
+                                                3, True)
+    first = fr.affine_silu_conv_stats(x, scale, shift, w, bias, r, 8)
+    second = fr.affine_silu_conv_stats(x, scale, shift, w, bias, r, 8)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    with pytest.raises(TypeError, match="bf16 weight"):
+        fr.affine_silu_conv(x, scale, shift, w.float(), bias)
 
 
 def test_gradient_through_the_fused_block_on_card(no_tf32):

@@ -12,7 +12,9 @@ the sum of squares sums 10^3 terms of size 1); the UNet 2e-4 (tests/test_unet_fo
 tolerance for the fused-stats path).  The UNet is that test's
 ``small_unet`` at L = 4096 with ``fused_block_l`` = 64, whose levels of 32
 to 128 channels pass the fused gate (the tiny UNet of
-tests/test_diffusion_stack.py has none).
+tests/test_diffusion_stack.py has none).  The bf16 tensor-core kernel's
+arithmetic (the activation as hi + lo bf16 operands, per-chunk f32 partial
+sums) is modelled here and held to the card's gates.
 """
 
 import dataclasses
@@ -404,3 +406,84 @@ def test_launch_wrapper_refuses_cpu_and_lays_out_y_as_x():
     assert tfr._out_tensor(x.contiguous(), 24).is_contiguous()
     assert [tfr._channel_tile(c) for c in (1, 8, 9, 16, 24, 32, 33, 1024)] == [
         8, 8, 16, 16, 32, 32, 64, 64]
+
+
+# The bf16 kernel's arithmetic, in plain PyTorch on the CPU: the activation
+# h = silu(x·scale + shift) in f32 enters the products as two bf16 operands,
+# hi = h rounded and lo = (h - hi) rounded (or, as a control, as hi alone);
+# the bf16 weight is exact; the products of each chunk of input channels (16
+# for the 8- and 16-channel tiles, 32 above) are summed in f32 and added to
+# the running sum in f32; bias and residual are added in f32; y is rounded to
+# bf16 once and the group sums are taken of the f32 y.  Held to the card's
+# gates (chip_smoke.FUSED_TOL, STATS_TOL; tests/test_torch_cuda.py): y within
+# 8e-3 of max |plain|, the sums within 1e-5 of their bounds.  Inputs drawn as
+# chip_smoke.py draws them, at the main path's (C, Cout) pairs, L cut to 2048.
+FUSED_TOL_BF16, STATS_TOL = 8e-3, 1e-5
+MAIN_PAIRS = [(40, 32), (32, 32), (64, 32), (80, 64), (64, 64), (128, 64),
+              (128, 128), (10, 8), (8, 8), (16, 8)]
+
+
+def _bf16_inputs(c, cout, length, residual, seed, rows=2):
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    x = randn(rows, c, length).to(torch.bfloat16).transpose(1, 2)
+    scale, shift = randn(rows, c) * 0.3 + 1.0, randn(rows, c) * 0.5
+    w = (randn(3, c, cout) / np.sqrt(3 * c)).to(torch.bfloat16)
+    bias = randn(cout) * 0.1
+    r = (randn(rows, cout, length).to(torch.bfloat16).transpose(1, 2)
+         if residual else None)
+    return x, scale, shift, w, bias, r
+
+
+def _tc_model(x, scale, shift, w, bias, residual, num_groups, split=True):
+    """``(y, s, ss)`` by the kernel's arithmetic (see above)."""
+    c, cout = w.shape[1:]
+    chunk = 16 if cout <= 16 else 32
+    h = torch.nn.functional.silu(x.float() * scale[:, None, :] + shift[:, None, :])
+    hi = h.to(torch.bfloat16).float()
+    parts = [hi, (h - hi).to(torch.bfloat16).float()] if split else [hi]
+    acc = 0.0
+    for c0 in range(0, c, chunk):
+        wk = w.float()[:, c0:c0 + chunk].permute(2, 1, 0)
+        part = sum(torch.nn.functional.conv1d(a[..., c0:c0 + chunk].transpose(1, 2), wk,
+                                              padding=1) for a in parts)
+        acc = acc + part
+    y = acc + bias.float()[None, :, None]
+    if residual is not None:
+        y = y + residual.float().transpose(1, 2)
+    yg = y.reshape(y.shape[0], num_groups, -1)
+    return y.to(x.dtype).transpose(1, 2), yg.sum(-1), (yg * yg).sum(-1)
+
+
+def _gaps(c, cout, residual, seed, split=True):
+    """(y error / max |plain|, worst sum error against its bound)."""
+    x, scale, shift, w, bias, r = _bf16_inputs(c, cout, 2048, residual, seed)
+    y, s, ss = _tc_model(x, scale, shift, w, bias, r, 8, split)
+    want, want_s, want_ss = tfr._stats_reference(x, scale, shift, w, bias, r, 8)
+    if r is None:
+        assert torch.equal(want, tfr._reference(x, scale, shift, w, bias))
+    rel = ((y.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    n_ = 2048 * cout // 8
+    rel_s = max(((s - want_s).abs() / (n_ * want_ss).sqrt()).max().item(),
+                ((ss - want_ss).abs() / want_ss).max().item())
+    return rel, rel_s
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("c,cout", MAIN_PAIRS)
+def test_bf16_operand_scheme_holds_the_card_gates(c, cout, residual):
+    """The chosen scheme (hi + lo bf16 activation, f32 sums) keeps y within
+    FUSED_TOL[bf16] of ``_reference``/``_stats_reference`` and the group
+    sums within STATS_TOL, at every (C, Cout) of the main path."""
+    rel, rel_s = _gaps(c, cout, residual, seed=c + cout + residual)
+    assert rel <= FUSED_TOL_BF16 and rel_s <= STATS_TOL, (rel, rel_s)
+
+
+def test_activation_rounded_once_breaks_the_sums_gate():
+    """Why the kernel carries the activation as hi + lo: rounded to bf16
+    once, the group sums miss STATS_TOL."""
+    _, rel_s = _gaps(32, 32, True, seed=5, split=False)
+    assert rel_s > STATS_TOL, rel_s

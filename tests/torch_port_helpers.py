@@ -1,7 +1,8 @@
 """Shared set-up of the port's parity tests: the tiny JAX SyncFusion of
 tests/test_diffusion_stack.py and its PyTorch port with the same
 parameters, carried over by ``syncfusion_tpu_torch.convert``; a webdataset
-shard written by the JAX package's shard writer."""
+shard written by the JAX package's shard writer; a model of the tensor
+cores' TF32 products, for the CPU models of the kernels' arithmetic."""
 
 from pathlib import Path
 
@@ -68,3 +69,42 @@ def make_shard(root: Path, n_tracks: int = 3, seconds: float = 0.1,
     split = root / "split.txt"
     split.write_text("\n".join(names) + "\n")
     return write_shards(root / "raw", split, str(root / "shard_%d.tar"))[0]
+
+
+# The tensor cores' tf32 products, in plain PyTorch on the CPU, as the
+# kernels of csrc/tf32_mma.cuh take them (mma.sync m16n8k8): an f32 operand
+# x as big = x rounded to tf32 (to nearest, ties away from zero, as
+# cvt.rna.tf32.f32 rounds) and small = x - big, which the tensor cores read
+# truncated to tf32; the product as small·big + big·small + big·big
+# (3xTF32), in k-steps of 8 added to one f32 accumulator.
+THREE_TF32 = ("small_big", "big_small", "big_big")
+
+
+def tf32(x):
+    """x rounded to tf32 (10 mantissa bits) as cvt.rna.tf32.f32 does it:
+    add half of the dropped 13 bits' range to the int32 view and clear
+    them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_read(x):
+    """x as the tensor cores read a tf32 operand: its low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm_tf32(a, b, passes=THREE_TF32):
+    """a @ b, f32, as the kernels take it: per k-step of 8, the products of
+    the tf32 parts named in ``passes`` (small terms first), each added to
+    one f32 accumulator."""
+    a_big, b_big = tf32(a), tf32(b)
+    terms = {"small_big": (tf32_read(a - a_big), b_big),
+             "big_small": (a_big, tf32_read(b - b_big)),
+             "big_big": (a_big, b_big)}
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+                      + a.shape[-2:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
+        for name in passes:
+            x, y = terms[name]
+            acc = acc + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :]
+    return acc
