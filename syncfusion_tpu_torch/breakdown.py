@@ -1,7 +1,7 @@
 """Where one UNet forward's time goes on the card.
 
     python -m syncfusion_tpu_torch.breakdown [--batch 8] [--length 262144]
-        [--model_config model.json]
+        [--model_config model.json] [--deep_split S]
 
 Builds the full-width model of exp/model/diffusion.yaml, or of
 ``--model_config`` (JSON of the diffusion config's model node, as in
@@ -9,10 +9,11 @@ Builds the full-width model of exp/model/diffusion.yaml, or of
 and ``fold_cap`` for the fused resnet chain), with seeded random weights
 in bf16, computes the context once, and profiles ``--iters``
 forwards of the UNet at ``--batch`` rows (8 = the in-band CFG batch of 4
-clips) with ``torch.profiler``.  Prints the device time per forward by
-kernel class and the top kernels, the host wall time per forward and the
-device's idle share, and a last JSON line with the same numbers.  Needs
-the card.
+clips) with ``torch.profiler``; with ``--deep_split S``, the DeepCache
+forward on a deep feature taken once from a whole forward.  Prints the
+device time per forward by kernel class and the top kernels, the host wall
+time per forward and the device's idle share, and a last JSON line with the
+same numbers.  Needs the card.
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ def main(argv=None) -> None:
     ap.add_argument("--model_config", default=None,
                     help="JSON of the diffusion config's model node "
                          "(default: exp/model/diffusion.yaml's values)")
+    ap.add_argument("--deep_split", type=int, default=0,
+                    help="profile the cached forward at this split (0: whole)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: needs the card")
@@ -68,11 +71,16 @@ def main(argv=None) -> None:
     onsets[:, ::9600, 0] = 1.0
     emb = torch.randn((b, 1, 512), generator=gen, device="cuda")
     sigma = torch.full((b,), 0.5, device="cuda")
-    context = model.encode_context(onsets)
+    kw = {"context": model.encode_context(onsets), "embedding": emb}
+    if args.deep_split:
+        with torch.no_grad():
+            _, deep = model.unet(x, sigma, deep_split=args.deep_split,
+                                 return_deep=True, **kw)
+        kw.update(deep_split=args.deep_split, deep_cache=deep)
 
     @torch.no_grad()
     def forward():
-        return model.unet(x, sigma, context=context, embedding=emb)
+        return model.unet(x, sigma, **kw)
 
     for _ in range(2):
         forward()
@@ -97,7 +105,8 @@ def main(argv=None) -> None:
         cls = classify(evt.key)
         by_class[cls] = by_class.get(cls, 0.0) + ms
     device = sum(by_class.values())
-    print(f"UNet forward ({args.model_config or 'default model'}), batch {b}, "
+    cached = f", cached at split {args.deep_split}" if args.deep_split else ""
+    print(f"UNet forward ({args.model_config or 'default model'}{cached}), batch {b}, "
           f"L {length}, bf16: host wall {wall:.3f} ms, "
           f"device busy {device:.3f} ms, idle share {1 - device / wall:.3f}")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
@@ -105,7 +114,8 @@ def main(argv=None) -> None:
     print("top kernels (ms per forward, launches per forward, name):")
     for ms, count, name in sorted(kernels, reverse=True)[:20]:
         print(f"  {ms:9.3f} {count:5d}  {name[:110]}")
-    print(json.dumps({"model_config": args.model_config, "batch": b,
+    print(json.dumps({"model_config": args.model_config,
+                      "deep_split": args.deep_split, "batch": b,
                       "length": length, "wall_ms": wall,
                       "device_ms": device, "by_class_ms": by_class}))
 

@@ -1,16 +1,16 @@
 """Embedders of the conditioning audio (port of
 ``syncfusion_tpu/models/embedder.py``).
 
-Only ``ZeroEmbedder`` is ported; CLAP is ROADMAP queue item 7 and raises
-rather than being replaced by zeros.
+Only ``ZeroEmbedder`` is ported; CLAP is ROADMAP's port queue item 'CLAP'
+and raises rather than being replaced by zeros.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-CLAP_TODO = ("the CLAP embedder is not ported yet (ROADMAP.md, port queue "
-             "item 7: 'CLAP'); pass embedder 'none' for zero embeddings")
+CLAP_TODO = ("the CLAP embedder is not ported yet (ROADMAP.md, port queue: "
+             "'CLAP'); pass embedder 'none' for zero embeddings")
 
 
 class ZeroEmbedder:

@@ -21,7 +21,7 @@ from torch import nn
 from syncfusion_tpu_torch.core.config import EncoderConfig, UNetConfig, model_configs
 from syncfusion_tpu_torch.device import default_device
 from syncfusion_tpu_torch.models import blocks
-from syncfusion_tpu_torch.models.diffusion import DPM_TODO, v_diffusion_loss, v_sample
+from syncfusion_tpu_torch.models.diffusion import dpm_sample, v_diffusion_loss, v_sample
 from syncfusion_tpu_torch.models.encoder1d import Encoder1d
 from syncfusion_tpu_torch.models.unet1d import UNet1d
 
@@ -104,18 +104,27 @@ class SyncFusionDiffusion(nn.Module):
     def sample(self, noise, onsets, embedding, num_steps: int = 150,
                embedding_scale: float = 1.0,
                guidance_interval: Optional[tuple[float, float]] = None,
-               sampler: str = "ddim", deep_cache_interval: int = 0):
+               sampler: str = "ddim", deep_cache_interval: int = 0,
+               deep_split: int = 4, deep_cache_pow: float = 1.0):
         """Waveforms (B, L, 1) f32 from ``noise`` (B, L, 1), conditioned on
-        the onset track (B, L, 1) and the embedding (B, 1, features)."""
-        if sampler == "dpm":
-            raise NotImplementedError(DPM_TODO)
-        if sampler != "ddim":
-            raise ValueError(f"unknown sampler {sampler!r}")
+        the onset track (B, L, 1) and the embedding (B, 1, features).
+
+        ``sampler``: "ddim" (``v_sample``, the reference's) or "dpm"
+        (DPM-Solver++(2M), ``dpm_sample``).  ``deep_cache_interval=K > 1``:
+        DeepCache, the UNet's levels >= ``deep_split`` rerun every K-th step
+        (``deep_cache_pow != 1``: the same count, spaced by a power curve).
+        The JAX package needs its folded apply for the cache; the plain UNet
+        here carries it in its own layout.
+        """
+        samplers = {"ddim": v_sample, "dpm": dpm_sample}
+        if sampler not in samplers:
+            raise ValueError(f"unknown sampler {sampler!r}, not one of {sorted(samplers)}")
         context = self.encode_context(onsets)
-        return v_sample(self.unet, noise, num_steps, context=context,
-                        embedding=embedding, embedding_scale=embedding_scale,
-                        guidance_interval=guidance_interval,
-                        deep_cache_interval=deep_cache_interval)
+        return samplers[sampler](
+            self.unet, noise, num_steps, context=context, embedding=embedding,
+            embedding_scale=embedding_scale, guidance_interval=guidance_interval,
+            deep_cache_interval=deep_cache_interval, deep_split=deep_split,
+            deep_cache_pow=deep_cache_pow)
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -15,6 +15,8 @@ and folded execution:
     group sums threaded from block to block within a level, as
     ``unet1d_folded.folded_apply`` does.  The other levels keep their own
     gate; the bottleneck's blocks are never fused.
+  * the DeepCache split of ``unet1d_folded.folded_apply`` (``deep_split``,
+    ``deep_cache``, ``return_deep``), its feature in the (B, C, L) layout.
 """
 
 from __future__ import annotations
@@ -179,16 +181,34 @@ class UNet1d(nn.Module):
     def forward(self, x, sigma, *, context: Optional[Sequence] = None,
                 embedding=None, embedding_cfg_mask=None,
                 embedding_mask_proba: float = 0.0,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                deep_split: int = 0, deep_cache: Optional[torch.Tensor] = None,
+                return_deep: bool = False):
         """x (B, L, in_channels), sigma (B,), context: the encoder's
         ``xs[2:-1]`` (each (B, length, channels)), embedding (B, tokens,
         features) or None.  ``embedding_cfg_mask`` (B, 1, 1): rows where it
         is 1 use the fixed (unconditional) embedding.  Without a mask,
         ``embedding_mask_proba > 0`` is the training-time CFG dropout: each
         row takes the fixed embedding with that probability, drawn from
-        ``generator``.  Returns (B, L, out) in f32."""
+        ``generator``.  Returns (B, L, out) in f32.
+
+        DeepCache (Ma et al. 2023, arXiv:2312.00858): ``deep_split=S`` in
+        [1, n-1] splits the net at level S.  Without ``deep_cache`` the whole
+        net runs, and ``return_deep`` also returns the deep feature: the
+        output of ``up_S``, which enters level S-1's concat, (B, channels[S-1],
+        length at level S-1).  With ``deep_cache`` (that feature from an
+        earlier call) levels S..n-1, the bottleneck and their up path are
+        skipped: the down path runs levels 0..S-1, the cache takes the place
+        of ``up_S``'s output, and the up path runs S-1..0 and the head.
+        """
         c = self.cfg
         n = len(c.channels)
+        if deep_split and not 1 <= deep_split <= n - 1:
+            raise ValueError(f"deep_split must be in [1, {n - 1}], got {deep_split}")
+        if (deep_cache is not None or return_deep) and not deep_split:
+            raise ValueError("deep_cache and return_deep require deep_split")
+        cached = deep_cache is not None
+        n_down = deep_split if cached else n
         context = list(context) if context is not None else []
         if len(context) != self.context_levels:
             raise ValueError(f"built for {self.context_levels} context maps, "
@@ -210,23 +230,30 @@ class UNet1d(nn.Module):
         with_stats = self.stats_levels(x.shape[1])
         h = x.to(self.dtype).transpose(1, 2)
         skips = []
-        for i in range(n):
+        for i in range(n_down):
             h = getattr(self, f"down_{i}")(h)
             if self._with_context[i]:
                 h = torch.cat([h, context[i].to(h.dtype).transpose(1, 2)], 1)
             h = self._items(h, i, "down", time_emb, embedding, with_stats[i])
             skips.append(h)
 
-        h = self.mid_res_0(h, time_emb)
-        h = self.mid_attn(h)
-        if embedding is not None:
-            h = self.mid_xattn(h, embedding)
-        h = self.mid_res_1(h, time_emb)
+        deep = deep_cache
+        if cached:
+            h = deep_cache.to(self.dtype)
+        else:
+            h = self.mid_res_0(h, time_emb)
+            h = self.mid_attn(h)
+            if embedding is not None:
+                h = self.mid_xattn(h, embedding)
+            h = self.mid_res_1(h, time_emb)
 
-        for i in reversed(range(n)):
+        for i in reversed(range(n_down)):
             h = torch.cat([h, skips[i]], 1)
             h = self._items(h, i, "up", time_emb, embedding, with_stats[i])
             h = getattr(self, f"up_{i}")(h)
+            if deep_split and i == deep_split and deep is None:
+                deep = h
 
         out = self.head(F.silu(self.GroupNorm_0(h)))
-        return out.transpose(1, 2).float()
+        out = out.transpose(1, 2).float()
+        return (out, deep) if return_deep else out

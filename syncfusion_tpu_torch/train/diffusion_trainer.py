@@ -9,7 +9,8 @@ package's ``make_optimizer`` (optax ``clip_by_global_norm`` + ``adamw``
 under ``MultiSteps``) update for update.
 
 One device.  Data parallelism across cards, ``fsdp`` and ``model_parallel``
-are ROADMAP queue item 3 and raise here.
+are ROADMAP's port queue item 'Multi-device sampling and training'
+and raise here.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from torch import nn
 
 MULTI_DEVICE_TODO = ("multi-device training (data parallel, fsdp, "
                      "model_parallel) is not ported yet (ROADMAP.md, port "
-                     "queue item 3: 'Multi-device sampling and training')")
+                     "queue: 'Multi-device sampling and training')")
 
 
 @dataclasses.dataclass

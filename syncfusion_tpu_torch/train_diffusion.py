@@ -53,7 +53,7 @@ from syncfusion_tpu_torch.train.diffusion_trainer import (
 log = logging.getLogger("syncfusion_tpu_torch.train_diffusion")
 
 MEL_TODO = ("sample logger: mel panels wait for ops/mel (ROADMAP.md, port "
-            "queue item 7: 'CLAP'); writing the wavs only")
+            "queue: 'CLAP'); writing the wavs only")
 PRECISIONS = {"32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -104,6 +104,14 @@ class SampleLogger:
         self._told = False
 
     def __call__(self, model, metrics_logger: MetricLogger, step: int) -> None:
+        """Samples and writes them; a failure is logged as a warning, as the
+        reference's ``_log_samples`` does."""
+        try:
+            self._log(model, metrics_logger, step)
+        except Exception as e:  # sampling must never end training
+            log.warning("sample logging failed at step %d: %r", step, e)
+
+    def _log(self, model, metrics_logger: MetricLogger, step: int) -> None:
         cfg = self.cfg
         items = list(itertools.islice(dataset(self.val_path, cfg, 0, False),
                                       cfg.num_items))

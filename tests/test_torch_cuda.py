@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
 K1 (the flash-attention forward), K2a and K2b (its backward), all on the
 tensor cores with f32 as 3xTF32, and K3 and K4 (the fused resnet chain; bf16
-on the tensor cores, f32 on the CUDA cores).
+on the tensor cores, f32 on the CUDA cores); and the DeepCache samplers
+through K1 against the plain attention.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so that it also runs where JAX is not installed:
@@ -18,6 +19,8 @@ import math
 import pytest
 import torch
 
+from syncfusion_tpu_torch.models.blocks import SelfAttention1d
+from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
 from syncfusion_tpu_torch.ops import attention as ta
 from syncfusion_tpu_torch.ops import fused_resblock as fr
 
@@ -52,11 +55,13 @@ def test_kernel_matches_plain_on_card(card, dtype, tol, length, causal):
     assert (lse - want_lse).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("rows", [8, 16])
 @pytest.mark.parametrize("length", [2048, 1024, 512, 256])
-def test_bf16_kernel_at_the_main_path_lengths_on_card(card, length):
+def test_bf16_kernel_at_the_main_path_lengths_on_card(card, length, rows):
     """The tensor-core kernel at each length of the UNet's attention levels,
-    BH = 64 from qkv views, against its plain version."""
-    q, k, v, _ = _qkv(8, length, torch.bfloat16, length + 2)
+    BH = 64 and 128 from qkv views (the in-band CFG batch of 4 clips, and of
+    the 8 clips of the serving configuration), against its plain version."""
+    q, k, v, _ = _qkv(rows, length, torch.bfloat16, length + rows // 4)
     ta.reset_counts()
     o, lse = ta.flash_fwd(q, k, v)
     assert ta.flash_attention.kernel_launches == 1
@@ -387,3 +392,43 @@ def test_gradient_through_the_fused_block_on_card(no_tf32):
         scale = want.abs().max().item()
         assert (got_fused - want).abs().max().item() <= 1e-4 * scale
         assert (got_stats - want).abs().max().item() <= 1e-4 * scale
+
+
+# a small SyncFusion whose attention takes K1's head dim (64): the tiny
+# config of tests/test_diffusion_stack.py with 2 heads of 64 features
+SMALL_MODEL = {
+    "model": dict(in_channels=1, channels=(4, 8, 16, 16), factors=(1, 4, 4, 2),
+                  items=(1, 1, 1, 2), attentions=(0, 0, 1, 1),
+                  cross_attentions=(1, 1, 1, 1), context_channels=(2, 8, 16, 16),
+                  attention_heads=2, attention_features=64, embedding_features=16,
+                  modulation_features=32, resnet_groups=2),
+    "onsets_encoder": dict(in_channels=1, channels=2, multipliers=(1, 1, 4, 8, 8),
+                           factors=(1, 4, 4, 2), num_blocks=(1, 1, 1, 1),
+                           resnet_groups=2)}
+
+
+@pytest.mark.parametrize("sampler", ["ddim", "dpm"])
+def test_cached_sampling_through_the_kernel_on_card(no_tf32, sampler):
+    """DeepCache sampling (K = 2, split 2, 4 steps, CFG 2.0 in the band
+    (0.2, 0.8)) through K1 against the plain attention on the same weights,
+    f32: within 1e-3 of max |plain| (chip_smoke.py's CROSS_TOL).  The band's
+    segments of 1 and 3 steps refresh at 0 and at 0, 2: 3 full forwards of
+    5 attention calls each; the cached forwards launch none."""
+    model = SyncFusionDiffusion.from_config(SMALL_MODEL, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    noise = torch.randn((2, 2048, 1), generator=gen, device="cuda")
+    onsets = torch.zeros((2, 2048, 1), device="cuda")
+    onsets[:, [100, 900], 0] = 1.0
+    emb = torch.randn((2, 1, 16), generator=gen, device="cuda")
+    kw = dict(num_steps=4, embedding_scale=2.0, guidance_interval=(0.2, 0.8),
+              sampler=sampler, deep_cache_interval=2, deep_split=2)
+    ta.reset_counts()
+    got = model.sample(noise, onsets, emb, **kw)
+    assert ta.flash_attention.kernel_launches == 3 * 5
+    assert ta.flash_attention.plain_calls == 0
+    for m in model.modules():
+        if isinstance(m, SelfAttention1d):
+            m.attend = ta.attention_reference
+    want = model.sample(noise, onsets, emb, **kw)
+    assert torch.isfinite(got).all() and got.shape == (2, 2048, 1)
+    assert _rel(got, want) <= 1e-3

@@ -11,9 +11,7 @@ import torch
 
 from syncfusion_tpu.models import diffusion as jd
 from syncfusion_tpu_torch.models import diffusion as td
-from syncfusion_tpu_torch.core.config import EncoderConfig, UNetConfig
-from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion as TorchSyncFusion
-from torch_port_helpers import ENC, UNET, L, n, t, tiny_pair
+from torch_port_helpers import L, n, t, tiny_pair
 
 
 @pytest.mark.parametrize("steps", [1, 6, 32, 150])
@@ -39,12 +37,3 @@ def test_banded_cfg_ddim_equals_jax(fold_cap):
     assert got.shape == (2, L, 1) and got.dtype == torch.float32
     np.testing.assert_allclose(n(got), n(want), rtol=0, atol=2e-4)
 
-
-def test_unported_options_raise():
-    tm = TorchSyncFusion(UNetConfig(**UNET), EncoderConfig(**ENC))
-    x = torch.zeros((1, L, 1))
-    emb = torch.zeros((1, 1, 16))
-    with pytest.raises(NotImplementedError, match="DeepCache"):
-        tm.sample(x, x, emb, num_steps=2, embedding_scale=2.0, deep_cache_interval=4)
-    with pytest.raises(NotImplementedError, match="DPM"):
-        tm.sample(x, x, emb, num_steps=2, sampler="dpm")

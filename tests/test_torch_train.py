@@ -18,6 +18,7 @@
 import importlib
 import itertools
 import json
+import logging
 import math
 from pathlib import Path
 
@@ -29,9 +30,10 @@ import pytest
 import torch
 
 from syncfusion_tpu.core.config import instantiate, load_config
+from syncfusion_tpu.ops.wav import read_wav
 from syncfusion_tpu.train.diffusion_trainer import OptimizerConfig as JaxOptimizerConfig
 from syncfusion_tpu.train.diffusion_trainer import make_optimizer
-from syncfusion_tpu_torch import train_diffusion
+from syncfusion_tpu_torch import generate, train_diffusion
 from syncfusion_tpu_torch.convert import to_state_dict
 from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
 from syncfusion_tpu_torch.core.config import TrainConfig
@@ -271,7 +273,7 @@ def test_wire_formats_are_dequantized():
 def test_multi_device_training_raises(kw):
     model = SyncFusionDiffusion.from_config(
         {"model": TRAIN_UNET, "onsets_encoder": TRAIN_ENC}, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue item 3"):
+    with pytest.raises(NotImplementedError, match="port queue: 'Multi-device sampling and training'"):
         DiffusionTrainer(model, **kw)
 
 
@@ -405,6 +407,62 @@ def test_train_cli_end_to_end_and_resume(tmp_path):
     assert [r["step"] for r in _records(second) if "train_loss" in r] == [5, 6]
 
 
+def test_sampling_failure_does_not_end_training(tmp_path, monkeypatch, caplog):
+    """Fault 5: an exception in the sample logger's sampling is logged as a
+    warning, as script/train_diffusion_model.py's ``_log_samples`` does; the
+    run goes on past the validation and that step's checkpoint is saved."""
+    shard = make_shard(tmp_path, n_tracks=3, seconds=0.02)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("the sampler broke")
+
+    monkeypatch.setattr(SyncFusionDiffusion, "sample", broken)
+    with caplog.at_level(logging.WARNING, logger=train_diffusion.log.name):
+        state = train_diffusion.main(_cli_args(tmp_path, shard, "--max_steps", "5",
+                                               "--device", "cpu"))
+    assert state.step == 5
+    (run,) = (tmp_path / "logs" / "runs").iterdir()
+    assert Checkpointer(CheckpointConfig(run / "ckpts")).all_steps() == [4]
+    assert [r.levelno for r in caplog.records
+            if "sample logging failed at step 4" in r.getMessage()] == [logging.WARNING]
+    assert "the sampler broke" in caplog.text
+
+
+def test_generate_from_a_training_checkpoint(tmp_path):
+    """4 tiny micro-steps through the training command line, then
+    generate.py --ckpt with DPM++(2M) and DeepCache: the wav is, bitwise on
+    the CPU, ``model.sample`` of the trained model held in memory."""
+    shard = make_shard(tmp_path, n_tracks=3, seconds=0.02)
+    state = train_diffusion.main(_cli_args(tmp_path, shard, "--max_steps", "4",
+                                           "--device", "cpu"))
+    (run,) = (tmp_path / "logs" / "runs").iterdir()
+    times = tmp_path / "times.txt"
+    times.write_text("0.001\n0.003\n")
+    out = tmp_path / "foley.wav"
+    generate.main(["--onset_times", str(times), "--model_config",
+                   str(tmp_path / "tiny.json"), "--length", str(TRAIN_L),
+                   "--ckpt", str(run / "ckpts"), "--sampler", "dpm",
+                   "--deep_cache_interval", "2", "--deep_split", "2",
+                   "--num_steps", "4", "--device", "cpu", "--output", str(out)])
+    got, sr = read_wav(out)
+
+    model = SyncFusionDiffusion.from_config(
+        {"model": TRAIN_UNET, "onsets_encoder": TRAIN_ENC}, dtype=torch.bfloat16,
+        device="cpu", seed=9)
+    model.load_state_dict(state.model.state_dict(), strict=True)
+    noise = torch.randn((1, TRAIN_L, 1), generator=torch.Generator().manual_seed(0))
+    onsets = torch.from_numpy(generate.onset_track(np.loadtxt(times), TRAIN_L))
+    want = model.sample(noise, onsets, torch.zeros((1, 1, 8)), num_steps=4,
+                        embedding_scale=2.0, guidance_interval=(0.2, 0.8),
+                        sampler="dpm", deep_cache_interval=2, deep_split=2)
+    assert sr == generate.SR and got.shape == (1, TRAIN_L)
+    assert np.isfinite(got).all() and np.abs(got).max() > 0
+    np.testing.assert_array_equal(got[0], n(want)[0, :, 0])
+    with pytest.raises(SystemExit):  # one source of parameters
+        generate.main(["--onset_times", str(times), "--ckpt", str(run / "ckpts"),
+                       "--params_npz", "params.npz"])
+
+
 def test_train_cli_needs_a_card_unless_told(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -414,7 +472,7 @@ def test_train_cli_needs_a_card_unless_told(tmp_path, monkeypatch):
 def test_train_cli_clap_is_not_substituted(tmp_path):
     args = _cli_args(tmp_path, "unused.tar", "--device", "cpu")
     args[args.index("--embedder") + 1] = "HTSAT-tiny"
-    with pytest.raises(NotImplementedError, match="queue item 7"):
+    with pytest.raises(NotImplementedError, match="port queue: 'CLAP'"):
         train_diffusion.main(args)
 
 
