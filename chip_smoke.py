@@ -435,9 +435,10 @@ K2_KERNELS = {key: {"float32": f"{name}IfE", "bfloat16": f"{name}I13__nv_bfloat1
 
 
 # the fused kernel's two bodies in fused_resblock.cu (bf16: mma.sync
-# m16n8k16; f32: FMAs), one instantiation per (TCO, RESIDUAL, STATS)
+# m16n8k16; f32: mma.sync m16n8k8 tf32 as 3xTF32), one instantiation per
+# (TCO, RESIDUAL, STATS)
 FUSED_KERNELS = {"bfloat16": "fused_resblock_tc_kernel",
-                 "float32": "fused_resblock_kernelIf"}
+                 "float32": "fused_resblock_3xtf32_kernel"}
 
 
 def fused_ptxas(log: str, tag: str) -> dict:
@@ -597,9 +598,9 @@ def phase_fused_kernels(fr, dtypes=(torch.bfloat16, torch.float32)):
     return total, k3_alone_ms
 
 
-def fused_times_of(root: str) -> dict:
-    """Phase 3's bf16 K3/K4 timings (eager, device, the conv alone; per
-    forward) for the ``syncfusion_tpu_torch`` of another checkout at
+def fused_times_of(root: str, dtypes=(torch.bfloat16,)) -> dict:
+    """Phase 3's K3/K4 timings (eager, device, the conv alone; per forward),
+    by dtype name, for the ``syncfusion_tpu_torch`` of another checkout at
     ``root``, e.g. a parent, measured by this script:
     ``python3 -c "import chip_smoke as c; print(c.fused_times_of('<root>'))"``.
     Call it in a fresh process, before anything imports the package."""
@@ -607,8 +608,42 @@ def fused_times_of(root: str) -> dict:
     from syncfusion_tpu_torch.ops import fused_resblock as fr
 
     torch.backends.cudnn.allow_tf32 = False
-    total, _ = phase_fused_kernels(fr, dtypes=(torch.bfloat16,))
-    return total[torch.bfloat16]
+    total, _ = phase_fused_kernels(fr, dtypes=tuple(dtypes))
+    return {str(dtype)[6:]: total[dtype] for dtype in dtypes}
+
+
+def compare_fused_times(roots, dtypes=("float32",)) -> dict:
+    """``fused_times_of`` for each checkout of ``roots``, each in a fresh
+    process, in the order given (e.g. parent, tree, tree, parent, so that
+    the card's drift falls on both sides); prints each run's per-call lines,
+    then the per-forward device ms of K3 and K4 side by side, and returns
+    ``{root: [times, ...]}``:
+    ``python3 -c "import chip_smoke as c; c.compare_fused_times(['<parent>',
+    '.', '.', '<parent>'])"``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys, torch, chip_smoke as c; t = c.fused_times_of(sys.argv[1], "
+            "[getattr(torch, d) for d in sys.argv[2:]]); "
+            "print('FUSED_TIMES ' + json.dumps(t))")
+    out = {}
+    for root in roots:
+        proc = subprocess.run([sys.executable, "-c", code, os.path.abspath(root),
+                               *dtypes], cwd=here, capture_output=True, text=True)
+        check(proc.returncode == 0, f"fused times of {root}:\n{proc.stdout[-3000:]}"
+                                    f"\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        print(f"  {root}:\n" + "\n".join(ln for ln in lines if ln.startswith("  k")),
+              flush=True)
+        line = [ln for ln in lines if ln.startswith("FUSED_TIMES ")]
+        out.setdefault(root, []).append(json.loads(line[-1][len("FUSED_TIMES "):]))
+    for dtype in dtypes:
+        for key in ("k3", "k4"):
+            print(f"  {key.upper()} {dtype} per forward, device ms (with the wrapper's "
+                  f"other kernels; eager ms), by checkout: " + "; ".join(
+                      f"{root}: " + ", ".join(
+                          f"{t[dtype][key]['device_ms']:.4f} ({t[dtype][key]['device_ms_all']:.4f}; "
+                          f"{t[dtype][key]['ms']:.4f})" for t in runs)
+                      for root, runs in out.items()), flush=True)
+    return out
 
 
 def fused_model_cfg() -> dict:
@@ -1315,6 +1350,7 @@ def main() -> int:
              f"(same configuration), bf16, B={ROWS}: levels 0-1, C 8-64, "
              "L 262144 and 65536")):
         tot = fused_total[torch.bfloat16][key]
+        tot32 = fused_total[torch.float32][key]
         rows.append({
             "name": name,
             "route": "cuda",
@@ -1331,6 +1367,13 @@ def main() -> int:
             "device_ms": tot["device_ms"],
             "device_ms_with_wrapper": tot["device_ms_all"],
             "library_device_ms": tot["library_device_ms"],
+            "float32": {k_: tot32[k_] for k_ in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "library_device_ms")}
+            | {"device_ms_with_wrapper": tot32["device_ms_all"]},
+            "float32_work": f"the same {K3_PER_FORWARD if key == 'k3' else K4_PER_FORWARD} "
+                            f"calls in f32 at B={TRAIN_ROWS}, the fused training "
+                            "forward",
             "library_note": "F.conv1d alone on the already-activated input, a "
                             "partial yardstick: no single PyTorch call computes "
                             "GroupNorm-affine + SiLU + conv k3 (+ residual, + "
@@ -1340,7 +1383,13 @@ def main() -> int:
                                    "as hi + lo bf16, 8 warps of 16 positions, "
                                    "chunks of 32 channels (16 at Cout 8) in a "
                                    "ring of 2 stages, f32 epilogue tile",
-                       "float32": "CUDA cores: f32 FMAs, chunks of 16 channels"},
+                       "float32": "tensor cores: mma.sync m16n8k8 tf32, x "
+                                  "and the weights as 3xTF32 split once when "
+                                  "staged, 8 warps of 16 positions (4 of 32 "
+                                  "at Cout <= 16), chunks of 16 channels, "
+                                  "per-chunk partial sums in f32, x by "
+                                  "cp.async in a 3-stage ring, f32 epilogue "
+                                  "tile"},
             "ptxas": {dtype: {k_: r_ for k_, r_ in reports.items()
                               if k_.endswith("stats" + str(int(key == "k4")))}
                       for dtype, reports in fused_regs.items()},

@@ -11,11 +11,13 @@
 //     group sums of the f32 output, so the next GroupNorm never re-reads it
 //     (STATS = true, RESIDUAL either way).
 //
-// What bounds it: bytes, as a function.  x is read once (plus 2 halo rows
-// per 128-position tile, and once per 64-channel output tile), y written
-// once; the normalised and activated input never reaches device memory.
-// A conv of 3·C·Cout multiply-adds per position on bf16 data is far below
-// the tensor cores' rate for its 2·(C + Cout) bytes.
+// What bounds it: bytes, as a function, at the UNet's widths.  x is read
+// once (plus 2 halo rows per 128-position tile, and once per 64-channel
+// output tile), y written once; the normalised and activated input never
+// reaches device memory.  A conv of 3·C·Cout multiply-adds per position is
+// below the tensor cores' rate for its 2·(C + Cout) values in bf16; in f32
+// as 3xTF32 (three tf32 products a multiply-add) K3's calls with C >= 80
+// and Cout >= 64 are bound by their products instead.
 //
 // Both bodies share the function's contract:
 //   * a block owns one batch row, TL = 128 positions and TCO (8-64)
@@ -64,173 +66,48 @@
 //   stores (each removed in turn moved its time by under 15%), nor deeper
 //   prefetch or longer tiles, set its time; what does is not measured
 //   (PERF.md §6).
-// * f32 (`fused_resblock_kernel<float, ...>`, fused training): f32 FMAs,
-//   256 threads = 32 position lanes x 8 channel groups, each thread a
-//   4-position x TCO/8-channel register tile (positions lane + 32 i, so a
-//   warp reads consecutive shared-memory words); chunks of CK = 16 input
-//   channels staged in f32 beside their (3, CK, TCO) weights.  It is
-//   bounded by f32 FMAs and shared-memory loads; 3xTF32 products are its
-//   next step.
+// * f32 (`fused_resblock_3xtf32_kernel`, fused training): the same GEMM
+//   and the same scheme (blocks walking tiles, the next chunk in flight
+//   during this one's products, an f32 epilogue tile) on mma.sync.m16n8k8
+//   tf32 in 3xTF32, with csrc/tf32_mma.cuh's split: an f32 operand enters
+//   as big = x rounded to tf32 and small = x - big (read truncated), a
+//   product as small·big + big·small + big·big, small terms first (plain
+//   TF32 misses y's 1e-5 gate by ~30x, the CPU model in
+//   tests/test_torch_fused_resblock.py).  Chunks are 16 input channels for
+//   every tile, each chunk's products in a partial sum added in f32.  Both
+//   operands are split once, when staged: a weight is read by every warp of
+//   the block, an activation by three taps, so splitting at the fragment
+//   load would cost two integer operations and a subtract per value per
+//   reader.  A staged row holds (big, small) of its 16 channels interleaved
+//   by channel pairs (big c, small c, big c + 1, small c + 1), so lane
+//   (g, t) of an mma takes channels 2t and 2t + 1 of its k8 step (as k = t
+//   and t + 4, the k order of tf32_mma.cuh) in one 16-byte load; odd rows
+//   swap their halves, which keeps the loads and stores free of bank
+//   conflicts without padding.  x comes by cp.async into each thread's own
+//   slots of a 3-stage ring, the weights (3, Cout, Cp) f32, scale and shift
+//   into registers one step ahead; the residual is read in the epilogue.
+//   On an H100 neither the products (a third of them, or none, moved K3 by
+//   under 25%), the loads in flight (2 or 3 stages alike), nor the
+//   activations set its time alone: at 64 output channels an SM holds one
+//   block, whose staging, products and epilogue follow one another
+//   (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "ptx.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int TL = 128;          // positions per block
-constexpr int CK = 16;           // input channels per staged chunk (f32)
-constexpr int THREADS = 256;     // 32 position lanes x 8 channel groups (f32)
-constexpr int PL = TL / 32;      // positions per thread
 
-struct Strides {
+struct ConvStrides {
   long long xb, xl, xc, yb, yl, yc, rb, rl, rc;
 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-
-// ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs
-// ---------------------------------------------------------------------------
-
-template <typename T, int TCO, bool RESIDUAL, bool STATS>
-__global__ void __launch_bounds__(THREADS)
-fused_resblock_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                      const float* __restrict__ shift, const float* __restrict__ w,
-                      const float* __restrict__ bias, const T* __restrict__ r,
-                      T* __restrict__ y, float* __restrict__ part_s,
-                      float* __restrict__ part_ss, int L, int C, int Cout,
-                      Strides st, int seg) {
-  constexpr int PC = TCO / 8;  // output channels per thread
-  __shared__ float hs[CK][TL + 2];
-  __shared__ __align__(16) float ws[3][CK][TCO];
-  __shared__ float red_s[TCO];
-  __shared__ float red_ss[TCO];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, grp = tid >> 5;
-  const int tile = blockIdx.x, b = blockIdx.z;
-  const int l0 = tile * TL, co0 = blockIdx.y * TCO;
-  const T* xb = x + b * st.xb;
-  const float* scb = scale + (long long)b * C;
-  const float* shb = shift + (long long)b * C;
-  const bool c_fast = st.xc == 1 && st.xl != 1;
-
-  float acc[PL][PC];
-#pragma unroll
-  for (int i = 0; i < PL; ++i)
-#pragma unroll
-    for (int j = 0; j < PC; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += CK) {
-    for (int i = tid; i < CK * (TL + 2); i += THREADS) {
-      int ci, p;
-      if (c_fast) {
-        ci = i % CK;
-        p = i / CK;
-      } else {
-        ci = i / (TL + 2);
-        p = i % (TL + 2);
-      }
-      const int c = c0 + ci, pos = l0 - 1 + p;
-      float v = 0.f;
-      if (c < C && pos >= 0 && pos < L) {
-        const float u = to_f32(xb[pos * st.xl + c * st.xc]) * scb[c] + shb[c];
-        v = u / (1.f + expf(-u));
-      }
-      hs[ci][p] = v;
-    }
-    for (int i = tid; i < 3 * CK * TCO; i += THREADS) {
-      const int k = i / (CK * TCO), ci = (i / TCO) % CK, co = i % TCO;
-      const int c = c0 + ci, o = co0 + co;
-      ws[k][ci][co] = (c < C && o < Cout) ? w[((long long)k * C + c) * Cout + o] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int ci = 0; ci < CK; ++ci) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        float a[PL], wv[PC];
-#pragma unroll
-        for (int i = 0; i < PL; ++i) a[i] = hs[ci][lane + 32 * i + k];
-#pragma unroll
-        for (int j = 0; j < PC; ++j) wv[j] = ws[k][ci][grp * PC + j];
-#pragma unroll
-        for (int i = 0; i < PL; ++i)
-#pragma unroll
-          for (int j = 0; j < PC; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float psum[PC], psq[PC];
-#pragma unroll
-  for (int j = 0; j < PC; ++j) psum[j] = psq[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < PL; ++i) {
-    const int l = l0 + lane + 32 * i;
-    if (l >= L) continue;
-#pragma unroll
-    for (int j = 0; j < PC; ++j) {
-      const int o = co0 + grp * PC + j;
-      if (o >= Cout) continue;
-      float v = acc[i][j] + bias[o];
-      if constexpr (RESIDUAL) v += to_f32(r[b * st.rb + l * st.rl + o * st.rc]);
-      put(y + b * st.yb + l * st.yl + o * st.yc, v);
-      if constexpr (STATS) {
-        psum[j] += v;
-        psq[j] += v * v;
-      }
-    }
-  }
-  if constexpr (STATS) {
-#pragma unroll
-    for (int j = 0; j < PC; ++j) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        psum[j] += __shfl_xor_sync(0xffffffffu, psum[j], off);
-        psq[j] += __shfl_xor_sync(0xffffffffu, psq[j], off);
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int j = 0; j < PC; ++j) {
-        red_s[grp * PC + j] = psum[j];
-        red_ss[grp * PC + j] = psq[j];
-      }
-    }
-    __syncthreads();
-    if (tid < TCO / seg) {
-      const int o = co0 + tid * seg;
-      if (o < Cout) {  // seg divides Cout: the whole segment lies inside
-        float s = 0.f, q = 0.f;
-        for (int k = 0; k < seg; ++k) {
-          s += red_s[tid * seg + k];
-          q += red_ss[tid * seg + k];
-        }
-        const long long at = ((long long)b * (Cout / seg) + o / seg) * gridDim.x + tile;
-        part_s[at] = s;
-        part_ss[at] = q;
-      }
-    }
-  }
-}
-
-template <typename T, int TCO, bool RESIDUAL, bool STATS>
-void launch(const void* x, const float* scale, const float* shift, const float* w,
-            const float* bias, const void* r, void* y, float* part_s,
-            float* part_ss, int B, int L, int C, int Cout, Strides st, int seg,
-            cudaStream_t stream) {
-  const dim3 grid((L + TL - 1) / TL, (Cout + TCO - 1) / TCO, B);
-  fused_resblock_kernel<T, TCO, RESIDUAL, STATS><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), scale, shift, w, bias, static_cast<const T*>(r),
-      static_cast<T*>(y), part_s, part_ss, L, C, Cout, st, seg);
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores, mma.sync m16n8k16
@@ -306,7 +183,7 @@ fused_resblock_tc_kernel(const __nv_bfloat16* __restrict__ x,
                          const __nv_bfloat16* __restrict__ r,
                          __nv_bfloat16* __restrict__ y, float* __restrict__ part_s,
                          float* __restrict__ part_ss, int L, int C, int Cout,
-                         int Cp, Strides st, int seg, int vec) {
+                         int Cp, ConvStrides st, int seg, int vec) {
   constexpr int CK = tc_chunk<TCO>(), PH = tc_pitch<TCO>(), NT = TCO / 8;
   constexpr int THREADS_T = tc_threads<TCO>(), MT = 8 / tc_warps<TCO>();
   constexpr int PAIRS = CK / 2;        // channel pairs of a chunk
@@ -665,13 +542,488 @@ fused_resblock_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32: tensor cores, mma.sync m16n8k8 tf32, 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int FK = 16;  // input channels a chunk, every tile
+// Words of a staged row: (big, small) of FK channels, no padding.  Odd rows
+// keep the two 16-word halves of a row swapped (`swz`), so that the two
+// rows of one 16-byte load phase (8 lanes, rows r and r + 1) fall in
+// distinct banks.
+constexpr int FP = 2 * FK;
+__device__ __forceinline__ int swz(int row) { return (row & 1) << 4; }
+// Stages of the x ring: a thread's copies of x run FD - 1 steps ahead of
+// their use.
+constexpr int FD = 3;
+// Floats of one stage of the operand ring: the activations (ROWS rows),
+// then the weights (3 taps x TCO rows).
+template <int TCO>
+__host__ __device__ constexpr int f32_stage() { return (ROWS + 3 * TCO) * FP; }
+// Floats of one stage of the x ring: 8 positions and a halo value of each
+// channel of the block's staging items.
+constexpr int F32_RING = 9 * FK * VECS;
+// Dynamic shared memory: the two-stage operand ring, the f32 tile of y
+// (TCO x YP), the bias and the per-channel sums of the epilogue, the x ring.
+template <int TCO>
+__host__ __device__ constexpr size_t f32_smem() {
+  return (2 * f32_stage<TCO>() + TCO * YP + 3 * TCO + FD * F32_RING) * sizeof(float);
+}
+// Blocks an SM holds by shared memory (228 KB an SM, 1 KB of it reserved a
+// block), at most 2048 threads: the launch bound lets each block take all
+// the registers its share of the SM leaves it.
+template <int TCO>
+__host__ __device__ constexpr int f32_blocks() {
+  const int by_smem = static_cast<int>(233472 / (f32_smem<TCO>() + 1024));
+  const int by_threads = 2048 / tc_threads<TCO>();
+  return by_smem < by_threads ? (by_smem > 0 ? by_smem : 1) : by_threads;
+}
+
+// (big, small) of f32 values, as tf32_mma.cuh splits them, in the order a
+// staged row keeps them
+__device__ __forceinline__ float2 split2(float v) {
+  uint32_t big, small;
+  split(v, big, small);
+  return make_float2(__uint_as_float(big), __uint_as_float(small));
+}
+__device__ __forceinline__ float4 split4(float a, float b) {
+  const float2 u = split2(a), w = split2(b);
+  return make_float4(u.x, u.y, w.x, w.y);
+}
+
+// vec bits as the bf16 body's, for f32: L contiguous, a 16-byte aligned
+// address, batch and channel strides in multiples of 4, so 4-position rows
+// move as 16-byte copies and stores.
+//
+// The step loop is the bf16 body's: a block walks the tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ... of one batch row and one channel tile in
+// steps of one chunk.  A thread stages CPI channels of 8 positions (CPI = 1
+// with 8 warps, 2 with 4) and up to WP 4-channel pieces of the weights.  Its
+// x comes by cp.async into its own slots of the x ring, FD - 1 steps ahead,
+// so its own wait_group makes them visible and no barrier is needed; the
+// weights, scale and shift (L2-resident) come into registers one step
+// ahead.
 template <int TCO, bool RESIDUAL, bool STATS>
-int launch_tc(const void* x, const float* scale, const float* shift, const void* w,
-              const float* bias, const void* r, void* y, float* part_s,
-              float* part_ss, int B, int L, int C, int Cout, int Cp, Strides st,
-              int seg, int vec, cudaStream_t stream) {
-  auto kernel = fused_resblock_tc_kernel<TCO, RESIDUAL, STATS>;
-  constexpr size_t smem = tc_smem<TCO, RESIDUAL>();
+__global__ void __launch_bounds__(tc_threads<TCO>(), f32_blocks<TCO>())
+fused_resblock_3xtf32_kernel(const float* __restrict__ x,
+                             const float* __restrict__ scale,
+                             const float* __restrict__ shift,
+                             const float* __restrict__ w,
+                             const float* __restrict__ bias,
+                             const float* __restrict__ r, float* __restrict__ y,
+                             float* __restrict__ part_s, float* __restrict__ part_ss,
+                             int L, int C, int Cout, int Cp, ConvStrides st, int seg,
+                             int vec) {
+  constexpr int NT = TCO / 8, THREADS_T = tc_threads<TCO>(), MT = 8 / tc_warps<TCO>();
+  constexpr int CPI = FK * VECS / THREADS_T;  // channels a staging item
+  constexpr int GROUPS = FK / CPI;            // staging items along C
+  constexpr int PIECES = 3 * TCO * (FK / 4);  // 4-channel pieces of the weights
+  constexpr int WP = (PIECES + THREADS_T - 1) / THREADS_T;
+  constexpr int JG = NT < 4 ? NT : 4;         // n-tiles a group of products
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  float* ys = ring + 2 * f32_stage<TCO>();
+  float* bias_s = ys + TCO * YP;
+  float* red_s = bias_s + TCO;
+  float* red_ss = red_s + TCO;
+  // x ring, stage d: float4 k·2 + h (channel k, positions 4h .. 4h + 3) of
+  // thread i at xq[(d·2·CPI + 2k + h)·THREADS + i], its halo value of
+  // channel k at xh[(d·CPI + k)·THREADS + i]: a phase's lanes hit
+  // consecutive words
+  float4* xq = reinterpret_cast<float4*>(red_ss + TCO);
+  float* xh = reinterpret_cast<float*>(xq + FD * 2 * CPI * THREADS_T);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, co0 = blockIdx.y * TCO;
+  const int n_tiles = (L + TL - 1) / TL;
+  const float* xb = x + b * st.xb;
+  const float* scb = scale + (long long)b * C;
+  const float* shb = shift + (long long)b * C;
+
+  // This thread's staging item: channels c0 + CPI·grp .. + CPI - 1 at
+  // positions l0 + 8v .. l0 + 8v + 7 (rows 8v + 1 .. 8v + 8 of the stage);
+  // the first and last v also stage the halo row (0 or TL + 1).
+  const int grp = tid % GROUPS, v = tid / GROUPS;
+  const bool halo = v == 0 || v == VECS - 1;
+  float sc[CPI], sh[CPI];
+  float4 wr[WP];
+
+  // chunk c0 of tile l0 of x into stage d of the x ring, as one cp.async
+  // group: 16-byte copies where vec allows and the 4 positions lie in
+  // [0, L), else 4-byte ones; positions outside [0, L) and channels past C
+  // are left out (stage masks them)
+  auto copy_x = [&](int l0, int c0, int d) {
+#pragma unroll
+    for (int k = 0; k < CPI; ++k) {
+      const int c = c0 + CPI * grp + k;
+      if (c >= C) continue;
+      const float* xc = xb + c * st.xc;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int l = l0 + 8 * v + 4 * h;
+        float* dst = reinterpret_cast<float*>(xq + (d * 2 * CPI + 2 * k + h) * THREADS_T + tid);
+        if ((vec & 1) && l + 4 <= L) {
+          cp_async_16(dst, xc + l, true);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (l + e < L) cp_async_4(dst + e, xc + (l + e) * st.xl, true);
+        }
+      }
+      const int halo_pos = v == 0 ? l0 - 1 : l0 + TL;
+      if (halo && halo_pos >= 0 && halo_pos < L)
+        cp_async_4(xh + (d * CPI + k) * THREADS_T + tid, xc + halo_pos * st.xl, true);
+    }
+    cp_async_commit();
+  };
+
+  // chunk c0's scale and shift (0 past C) and weights into registers:
+  // piece i of the weights is row i / 4 (tap·TCO + co) and channels
+  // c0 + 4(i % 4) .. + 3; rows past Cout are zeros
+  auto load_regs = [&](int c0) {
+#pragma unroll
+    for (int k = 0; k < CPI; ++k) {
+      const int c = c0 + CPI * grp + k;
+      sc[k] = c < C ? scb[c] : 0.f;
+      sh[k] = c < C ? shb[c] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < WP; ++k) {
+      const int i = tid + k * THREADS_T;
+      const int row = i / 4, tap = row / TCO, co = row % TCO;
+      wr[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < PIECES && co0 + co < Cout)
+        wr[k] = *reinterpret_cast<const float4*>(
+            w + ((long long)tap * Cout + co0 + co) * Cp + c0 + 4 * (i % 4));
+    }
+  };
+
+  // the activated value (0 past C and outside [0, L))
+  auto act = [&](int k, float xv, bool in) {
+    return in ? silu(fmaf(xv, sc[k], sh[k])) : 0.f;
+  };
+
+  // stage d of the x ring and the registers -> normalised, FiLM-ed,
+  // SiLU-ed, split, stored into stage s of the operand ring
+  auto stage = [&](int l0, int c0, int s, int d) {
+    float* a = ring + s * f32_stage<TCO>();
+    float xv[CPI][8], xhalo[CPI];
+    bool cin[CPI];
+#pragma unroll
+    for (int k = 0; k < CPI; ++k) {
+      cin[k] = c0 + CPI * grp + k < C;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 q = xq[(d * 2 * CPI + 2 * k + h) * THREADS_T + tid];
+        xv[k][4 * h] = q.x;
+        xv[k][4 * h + 1] = q.y;
+        xv[k][4 * h + 2] = q.z;
+        xv[k][4 * h + 3] = q.w;
+      }
+      xhalo[k] = xh[(d * CPI + k) * THREADS_T + tid];
+    }
+    // channel CPI·grp + k of a row sits at word 4·(its pair) + 2·(its
+    // parity), swizzled
+    const int at = 2 * CPI * grp;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool in = l0 + 8 * v + e < L;
+      const int row = 8 * v + e + 1;
+      float* dst = a + row * FP + (at ^ swz(row));
+      if constexpr (CPI == 2) {
+        *reinterpret_cast<float4*>(dst) =
+            split4(act(0, xv[0][e], cin[0] && in), act(1, xv[1][e], cin[1] && in));
+      } else {
+        *reinterpret_cast<float2*>(dst) = split2(act(0, xv[0][e], cin[0] && in));
+      }
+    }
+    if (halo) {
+      const int halo_pos = v == 0 ? l0 - 1 : l0 + TL;
+      const bool in = halo_pos >= 0 && halo_pos < L;
+      const int row = v == 0 ? 0 : TL + 1;
+      float* dst = a + row * FP + (at ^ swz(row));
+      if constexpr (CPI == 2) {
+        *reinterpret_cast<float4*>(dst) =
+            split4(act(0, xhalo[0], cin[0] && in), act(1, xhalo[1], cin[1] && in));
+      } else {
+        *reinterpret_cast<float2*>(dst) = split2(act(0, xhalo[0], cin[0] && in));
+      }
+    }
+    // the weights: piece i's 4 channels are words 8(i % 4) .. + 7 of row
+    // i / 4; odd rows store their two halves in the other order, so that
+    // the rows of a store phase fall in distinct banks
+    float* ws = a + ROWS * FP;
+#pragma unroll
+    for (int k = 0; k < WP; ++k) {
+      const int i = tid + k * THREADS_T;
+      if (i >= PIECES) continue;
+      const int row = i / 4, odd = row & 1;
+      float* dst = ws + row * FP;
+      const float4 lo = split4(wr[k].x, wr[k].y), hi = split4(wr[k].z, wr[k].w);
+      *reinterpret_cast<float4*>(dst + ((8 * (i % 4) + 4 * odd) ^ swz(row))) = odd ? hi : lo;
+      *reinterpret_cast<float4*>(dst + ((8 * (i % 4) + 4 - 4 * odd) ^ swz(row))) =
+          odd ? lo : hi;
+    }
+  };
+
+  // The tile at l0 from its f32 sums acc: bias, residual, y, and with
+  // STATS the partial sums of its (tile, segment) cells (the bf16 body's
+  // epilogue, with f32 rows and the residual read here).
+  auto epilogue = [&](int tile, int l0, const float (&acc)[MT][NT][4]) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ys[(8 * j + 2 * t + (e & 1)) * YP + 16 * (MT * warp + m) + g + 8 * (e >> 1)] =
+              acc[m][j][e];
+    __syncthreads();
+    for (int i = tid; i < TCO * VECS; i += THREADS_T) {
+      const int o = i / VECS, vv = i % VECS;
+      const int co = co0 + o, l = l0 + 8 * vv;
+      const bool live = co < Cout;
+      const bool full = l + 8 <= L;
+      const float4 y0 = *reinterpret_cast<const float4*>(ys + o * YP + 8 * vv);
+      const float4 y1 = *reinterpret_cast<const float4*>(ys + o * YP + 8 * vv + 4);
+      const float bi = bias_s[o];
+      float val[8] = {y0.x + bi, y0.y + bi, y0.z + bi, y0.w + bi,
+                      y1.x + bi, y1.y + bi, y1.z + bi, y1.w + bi};
+      if constexpr (RESIDUAL) {
+        if (live) {
+          const float* rp = r + b * st.rb + co * st.rc;
+          if ((vec & 4) && full) {
+            const float4 r0 = *reinterpret_cast<const float4*>(rp + l);
+            const float4 r1 = *reinterpret_cast<const float4*>(rp + l + 4);
+            val[0] += r0.x;
+            val[1] += r0.y;
+            val[2] += r0.z;
+            val[3] += r0.w;
+            val[4] += r1.x;
+            val[5] += r1.y;
+            val[6] += r1.z;
+            val[7] += r1.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (l + e < L) val[e] += rp[(l + e) * st.rl];
+          }
+        }
+      }
+      if (live) {
+        float* yp = y + b * st.yb + co * st.yc;
+        if ((vec & 2) && full) {
+          *reinterpret_cast<float4*>(yp + l) = make_float4(val[0], val[1], val[2], val[3]);
+          *reinterpret_cast<float4*>(yp + l + 4) =
+              make_float4(val[4], val[5], val[6], val[7]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (l + e < L) yp[(l + e) * st.yl] = val[e];
+        }
+      }
+      if constexpr (STATS) {
+        float ps = 0.f, pq = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (live && l + e < L) {
+            ps += val[e];
+            pq += val[e] * val[e];
+          }
+        }
+#pragma unroll
+        for (int off = VECS / 2; off > 0; off >>= 1) {
+          ps += __shfl_xor_sync(0xffffffffu, ps, off);
+          pq += __shfl_xor_sync(0xffffffffu, pq, off);
+        }
+        if (vv == 0) {
+          red_s[o] = ps;
+          red_ss[o] = pq;
+        }
+      }
+    }
+    if constexpr (STATS) {
+      __syncthreads();
+      if (tid < TCO / seg) {
+        const int o = co0 + tid * seg;
+        if (o < Cout) {  // seg divides Cout: the whole segment lies inside
+          float s = 0.f, q = 0.f;
+          for (int k = 0; k < seg; ++k) {
+            s += red_s[tid * seg + k];
+            q += red_ss[tid * seg + k];
+          }
+          const long long at = ((long long)b * (Cout / seg) + o / seg) * n_tiles + tile;
+          part_s[at] = s;
+          part_ss[at] = q;
+        }
+      }
+    }
+  };
+
+  float acc[MT][NT][4];  // the warp's MT m16 tiles x NT n8 tiles
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+
+  if (tid < TCO) bias_s[tid] = co0 + tid < Cout ? bias[co0 + tid] : 0.f;
+  const int chunks = Cp / FK;
+  // the step: tile, chunk, operand stage s, x stage d; the step whose x is
+  // copied next: tile ni, chunk nc (FD - 1 steps ahead)
+  int tile = blockIdx.x, c = 0, s = 0, d = 0;
+  int ni = tile, nc = 0;
+  auto advance = [&](int& tl, int& ch) {
+    if (++ch == chunks) {
+      ch = 0;
+      tl += gridDim.x;
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < FD - 1; ++k) {
+    if (ni < n_tiles) copy_x(ni * TL, nc * FK, k);
+    else cp_async_commit();  // one group a step, so the waits count right
+    advance(ni, nc);
+  }
+  load_regs(0);
+  for (;;) {
+    const int l0 = tile * TL;
+    cp_async_wait<FD - 2>();  // this step's x has landed
+    stage(l0, c * FK, s, d);
+    // every thread has staged its part of this step; every warp is done
+    // with the previous step, whose operand stage the next one overwrites
+    __syncthreads();
+    // x FD - 1 steps ahead into the x stage this thread read last step
+    const int dn = d == 0 ? FD - 1 : d - 1;
+    if (ni < n_tiles) copy_x(ni * TL, nc * FK, dn);
+    else cp_async_commit();
+    advance(ni, nc);
+    const bool last = c + 1 == chunks;
+    const int next_tile = last ? tile + gridDim.x : tile;
+    const int next_c = last ? 0 : c + 1;
+    const bool more = next_tile < n_tiles;
+    if (more) load_regs(next_c * FK);
+    const float* a = ring + s * f32_stage<TCO>();
+    const float* ws = a + ROWS * FP;
+    // this chunk's products go to a partial sum added to acc in f32
+    float part[MT][NT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[m][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < FK / 8; ++kk) {
+#pragma unroll
+      for (int tap = 0; tap < 3; ++tap) {
+        // A: rows 16·(MT·warp + m) + tap + g and + 8 (positions shifted by
+        // the tap, one parity), channels 8kk + 2t and + 1 as k = t and t + 4
+        uint32_t ab[MT][4], am[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const int row = 16 * (MT * warp + m) + tap + g;
+          const float* p = a + row * FP + ((16 * kk + 4 * t) ^ swz(row));
+          const float4 u0 = *reinterpret_cast<const float4*>(p);
+          const float4 u1 = *reinterpret_cast<const float4*>(p + 8 * FP);
+          ab[m][0] = __float_as_uint(u0.x);
+          ab[m][1] = __float_as_uint(u1.x);
+          ab[m][2] = __float_as_uint(u0.z);
+          ab[m][3] = __float_as_uint(u1.z);
+          am[m][0] = __float_as_uint(u0.y);
+          am[m][1] = __float_as_uint(u1.y);
+          am[m][2] = __float_as_uint(u0.w);
+          am[m][3] = __float_as_uint(u1.w);
+        }
+#pragma unroll
+        for (int jp = 0; jp < NT; jp += JG) {
+          // B: rows tap·TCO + 8j + g (parity that of g), the same channels
+          uint32_t bb[JG][2], bm[JG][2];
+#pragma unroll
+          for (int u = 0; u < JG; ++u) {
+            const float4 q = *reinterpret_cast<const float4*>(
+                ws + (tap * TCO + 8 * (jp + u) + g) * FP + ((16 * kk + 4 * t) ^ swz(g)));
+            bb[u][0] = __float_as_uint(q.x);
+            bb[u][1] = __float_as_uint(q.z);
+            bm[u][0] = __float_as_uint(q.y);
+            bm[u][1] = __float_as_uint(q.w);
+          }
+          // small·big, big·small, big·big, pass by pass over MT·JG
+          // independent accumulators
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int u = 0; u < JG; ++u)
+              mma_1688_tf32(part[m][jp + u], am[m], bb[u][0], bb[u][1]);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int u = 0; u < JG; ++u)
+              mma_1688_tf32(part[m][jp + u], ab[m], bm[u][0], bm[u][1]);
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int u = 0; u < JG; ++u)
+              mma_1688_tf32(part[m][jp + u], ab[m], bb[u][0], bb[u][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][j][e] += part[m][j][e];
+    if (last) {
+      epilogue(tile, l0, acc);
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+    }
+    if (!more) break;
+    tile = next_tile;
+    c = next_c;
+    s ^= 1;
+    d = d == FD - 1 ? 0 : d + 1;
+  }
+  cp_async_wait_all();  // nothing in flight at exit
+}
+
+// ---------------------------------------------------------------------------
+// launch, and dispatch on the type, the output-channel tile and the mode
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *x;
+  const float *scale, *shift;
+  const void* w;
+  const float* bias;
+  const void* r;
+  void* y;
+  float *part_s, *part_ss;
+  int B, L, C, Cout, Cp;
+  ConvStrides st;
+  int seg, vec;
+  cudaStream_t stream;
+};
+
+// T: float (the 3xTF32 body) or __nv_bfloat16 (the bf16 body)
+template <typename T, int TCO, bool RESIDUAL, bool STATS>
+int launch(const Args& a) {
+  constexpr bool F32 = std::is_same_v<T, float>;
+  auto kernel = [] {
+    if constexpr (F32)
+      return fused_resblock_3xtf32_kernel<TCO, RESIDUAL, STATS>;
+    else
+      return fused_resblock_tc_kernel<TCO, RESIDUAL, STATS>;
+  }();
+  constexpr size_t smem = F32 ? f32_smem<TCO>() : tc_smem<TCO, RESIDUAL>();
   // as many blocks as the card runs at once (asked once per instantiation)
   static const int resident = [&] {
     int device = 0, sms = 0, per_sm = 0;
@@ -686,95 +1038,65 @@ int launch_tc(const void* x, const float* scale, const float* shift, const void*
     return sms * per_sm;
   }();
   if (resident <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = (L + TL - 1) / TL;
-  const int co_tiles = (Cout + TCO - 1) / TCO;
-  const int per_row = (resident + co_tiles * B - 1) / (co_tiles * B);
-  const dim3 grid(per_row < n_tiles ? per_row : n_tiles, co_tiles, B);
-  kernel<<<grid, tc_threads<TCO>(), smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), scale, shift,
-      static_cast<const __nv_bfloat16*>(w), bias,
-      static_cast<const __nv_bfloat16*>(r), static_cast<__nv_bfloat16*>(y), part_s,
-      part_ss, L, C, Cout, Cp, st, seg, vec);
+  const int n_tiles = (a.L + TL - 1) / TL;
+  const int rows = (a.Cout + TCO - 1) / TCO * a.B;  // (channel tile, batch) rows
+  // blocks a row: f32 never more blocks than run at once (where an SM holds
+  // one block, a second, partial wave of blocks doubled a call's time on an
+  // H100); bf16 rounds up
+  int per_row = F32 ? resident / rows : (resident + rows - 1) / rows;
+  if (per_row < 1) per_row = 1;
+  const dim3 grid(per_row < n_tiles ? per_row : n_tiles, rows / a.B, a.B);
+  kernel<<<grid, tc_threads<TCO>(), smem, a.stream>>>(
+      static_cast<const T*>(a.x), a.scale, a.shift, static_cast<const T*>(a.w), a.bias,
+      static_cast<const T*>(a.r), static_cast<T*>(a.y), a.part_s, a.part_ss, a.L, a.C,
+      a.Cout, a.Cp, a.st, a.seg, a.vec);
   return 0;
 }
 
-// ---------------------------------------------------------------------------
-// dispatch on the output-channel tile and the mode
-// ---------------------------------------------------------------------------
-
-struct Args {
-  const void *x;
-  const float *scale, *shift;
-  const void* w;
-  const float* bias;
-  const void* r;
-  void* y;
-  float *part_s, *part_ss;
-  int B, L, C, Cout, Cp;
-  Strides st;
-  int seg, vec;
-  cudaStream_t stream;
-};
-
-template <bool TC, int TCO, bool RESIDUAL, bool STATS>
-int run(const Args& a) {
-  if constexpr (TC) {
-    return launch_tc<TCO, RESIDUAL, STATS>(a.x, a.scale, a.shift, a.w, a.bias, a.r,
-                                           a.y, a.part_s, a.part_ss, a.B, a.L, a.C,
-                                           a.Cout, a.Cp, a.st, a.seg, a.vec, a.stream);
-  } else {
-    launch<float, TCO, RESIDUAL, STATS>(a.x, a.scale, a.shift,
-                                        static_cast<const float*>(a.w), a.bias, a.r,
-                                        a.y, a.part_s, a.part_ss, a.B, a.L, a.C,
-                                        a.Cout, a.st, a.seg, a.stream);
-    return 0;
-  }
-}
-
-template <bool TC, bool RESIDUAL, bool STATS>
+template <typename T, bool RESIDUAL, bool STATS>
 int by_tile(int tco, const Args& a) {
   switch (tco) {
     case 8:
-      return run<TC, 8, RESIDUAL, STATS>(a);
+      return launch<T, 8, RESIDUAL, STATS>(a);
     case 16:
-      return run<TC, 16, RESIDUAL, STATS>(a);
+      return launch<T, 16, RESIDUAL, STATS>(a);
     case 32:
-      return run<TC, 32, RESIDUAL, STATS>(a);
+      return launch<T, 32, RESIDUAL, STATS>(a);
     case 64:
-      return run<TC, 64, RESIDUAL, STATS>(a);
+      return launch<T, 64, RESIDUAL, STATS>(a);
     default:
       return -1;
   }
 }
 
-template <bool TC>
+template <typename T>
 int by_mode(int residual, int stats, int tco, const Args& a) {
-  if (!residual && !stats) return by_tile<TC, false, false>(tco, a);
-  if (!residual && stats) return by_tile<TC, false, true>(tco, a);
-  if (residual && stats) return by_tile<TC, true, true>(tco, a);
+  if (!residual && !stats) return by_tile<T, false, false>(tco, a);
+  if (!residual && stats) return by_tile<T, false, true>(tco, a);
+  if (residual && stats) return by_tile<T, true, true>(tco, a);
   return -1;  // a residual without the statistics is not a path of the UNet
 }
 
-// Whether a bf16 (B, L, C) tensor's 8-position rows along L move as 16-byte
-// words: L contiguous, a 16-byte aligned address, batch and channel strides
-// in multiples of 8 elements.
-bool rows16(const void* p, long long sb, long long sl, long long sc) {
-  return sl == 1 && reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 8 == 0 &&
-         sc % 8 == 0;
+// Whether a (B, L, C) tensor of `esize`-byte elements moves as 16-byte rows
+// along L: L contiguous, a 16-byte aligned address, batch and channel
+// strides in multiples of 16 bytes.
+bool rows16(const void* p, long long sb, long long sl, long long sc, int esize) {
+  const int per = 16 / esize;
+  return sl == 1 && reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % per == 0 &&
+         sc % per == 0;
 }
 
 int chunk_of(int dtype, int tco) {
-  if (dtype == 0) return 1;  // the f32 body takes any C
-  if (dtype != 1) return -1;
+  if (dtype != 0 && dtype != 1) return -1;
   switch (tco) {
     case 8:
-      return tc_chunk<8>();
+      return dtype == 0 ? FK : tc_chunk<8>();
     case 16:
-      return tc_chunk<16>();
+      return dtype == 0 ? FK : tc_chunk<16>();
     case 32:
-      return tc_chunk<32>();
+      return dtype == 0 ? FK : tc_chunk<32>();
     case 64:
-      return tc_chunk<64>();
+      return dtype == 0 ? FK : tc_chunk<64>();
     default:
       return -1;
   }
@@ -794,17 +1116,29 @@ int tc_smem_of(int tco) {
   }
 }
 
+int f32_smem_of(int tco) {
+  switch (tco) {
+    case 8:
+      return static_cast<int>(f32_smem<8>());
+    case 16:
+      return static_cast<int>(f32_smem<16>());
+    case 32:
+      return static_cast<int>(f32_smem<32>());
+    default:
+      return static_cast<int>(f32_smem<64>());
+  }
+}
+
 }  // namespace
 
-// dtype 0: float32, 1: bfloat16 (x, the residual and y share it).  scale
-// and shift: (B, C) f32 contiguous; bias: (Cout,) f32.  The weight is
-// (3, C, Cout) f32 contiguous for dtype 0, and (3, Cout, Cp) bf16
-// contiguous for dtype 1, its channels zero-padded to Cp, a multiple of
-// fused_resblock_chunk(1, tco) at least C.  strides: x, y, residual, each
-// (batch, position, channel), in elements.  With stats, part_s and part_ss
-// are (B, Cout / seg, ceil(L / 128)) f32.  tco: 8, 16, 32 or 64 output
-// channels per block.  Returns -1 for an argument it does not take, else
-// the launch's cudaError_t.
+// dtype 0: float32, 1: bfloat16 (x, the weight, the residual and y share
+// it).  scale and shift: (B, C) f32 contiguous; bias: (Cout,) f32.  The
+// weight is (3, Cout, Cp) contiguous, its channels zero-padded to Cp, a
+// multiple of fused_resblock_chunk(dtype, tco) at least C.  strides: x, y,
+// residual, each (batch, position, channel), in elements.  With stats,
+// part_s and part_ss are (B, Cout / seg, ceil(L / 128)) f32.  tco: 8, 16,
+// 32 or 64 output channels per block.  Returns -1 for an argument it does
+// not take, else the launch's cudaError_t.
 extern "C" int fused_resblock(int dtype, int residual, int stats, int tco,
                               const void* x, const float* scale, const float* shift,
                               const void* w, const float* bias, const void* r,
@@ -819,26 +1153,26 @@ extern "C" int fused_resblock(int dtype, int residual, int stats, int tco,
          {strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
           strides[6], strides[7], strides[8]},
          seg, 0, static_cast<cudaStream_t>(stream)};
-  const Strides& st = a.st;
-  a.vec = (rows16(x, st.xb, st.xl, st.xc) ? 1 : 0) |
-          (rows16(y, st.yb, st.yl, st.yc) ? 2 : 0) |
-          (residual && rows16(r, st.rb, st.rl, st.rc) ? 4 : 0);
-  const int err = dtype == 0 ? by_mode<false>(residual, stats, tco, a)
-                             : by_mode<true>(residual, stats, tco, a);
+  const ConvStrides& st = a.st;
+  const int esize = dtype == 0 ? 4 : 2;
+  a.vec = (rows16(x, st.xb, st.xl, st.xc, esize) ? 1 : 0) |
+          (rows16(y, st.yb, st.yl, st.yc, esize) ? 2 : 0) |
+          (residual && rows16(r, st.rb, st.rl, st.rc, esize) ? 4 : 0);
+  const int err = dtype == 0 ? by_mode<float>(residual, stats, tco, a)
+                             : by_mode<__nv_bfloat16>(residual, stats, tco, a);
   if (err) return err;
   return static_cast<int>(cudaGetLastError());
 }
 
 // The input channels of one staged chunk of the kernel for dtype and tco
-// (the bf16 weight's channels are padded to a multiple of it), -1 for an
+// (the weight's channels are padded to a multiple of it), -1 for an
 // argument it does not take.
 extern "C" int fused_resblock_chunk(int dtype, int tco) { return chunk_of(dtype, tco); }
 
 // The dynamic shared memory in bytes that a launch for dtype, tco and
-// residual asks for (the f32 body's is static: 0), -1 for an argument it
-// does not take.
+// residual asks for, -1 for an argument it does not take.
 extern "C" int fused_resblock_smem(int dtype, int tco, int residual) {
   if (chunk_of(dtype, tco) < 0) return -1;
-  if (dtype == 0) return 0;
+  if (dtype == 0) return f32_smem_of(tco);
   return residual ? tc_smem_of<true>(tco) : tc_smem_of<false>(tco);
 }

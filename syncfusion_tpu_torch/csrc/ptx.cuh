@@ -40,6 +40,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Waits until at most N of this thread's most recent cp.async groups are
+// still in flight: the older ones have landed and are visible to it.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
 // and lane l receives row l/4, columns 2(l%4) and 2(l%4)+1 of each.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

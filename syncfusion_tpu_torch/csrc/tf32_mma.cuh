@@ -1,10 +1,13 @@
 // f32-accurate products on the tensor cores (3xTF32), shared by the
-// flash-attention kernels that take f32 operands: K1's f32 forward
-// (flash_fwd.cu) and K2a/K2b (flash_bwd.cu).
+// kernels that take f32 operands: the flash-attention kernels K1's f32
+// forward (flash_fwd.cu) and K2a/K2b (flash_bwd.cu), and the fused resnet
+// kernel's f32 body (fused_resblock.cu), which takes `round_tf32` and
+// `split` and lays out its own tiles.
 //
 // Every product runs on `mma.sync.m16n8k8` with tf32 operands and an f32
-// accumulator, 4 warps a block, 16 rows (one m16 tile) a warp, over shared
-// tiles of 64 rows of D = 64 columns.  TF32 keeps 10 of f32's 23 mantissa
+// accumulator; in the attention kernels 4 warps a block, 16 rows (one m16
+// tile) a warp, over shared tiles of 64 rows of D = 64 columns (the
+// helpers below past `split`).  TF32 keeps 10 of f32's 23 mantissa
 // bits, which alone misses the f32 gates by 4-9x, so an f32 operand x
 // enters as two tf32 values, big = x rounded and small = x - big, and a
 // product a·b as small·big + big·small + big·big, small terms first.  bf16

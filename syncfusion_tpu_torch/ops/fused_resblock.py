@@ -9,9 +9,10 @@ reaches device memory.  Public functions keep the JAX package's signatures
 and layout: x (B, L, C), weight (3, C, Cout), scale and shift (B, C) f32,
 bias (Cout,) f32; any strides, so the port's blocks pass (B, L, C) views of
 their (B, C, L) tensors and no copy is made.  The weight arrives rounded to
-the compute dtype; sums are f32; y is in x's dtype.  On the card the bf16
-kernel runs on the tensor cores (bf16 weight, the activation as hi + lo
-bf16), the f32 one on the CUDA cores.
+the compute dtype; sums are f32; y is in x's dtype.  On the card both
+kernels run on the tensor cores: bf16 with a bf16 weight and the activation
+as hi + lo bf16, f32 as 3xTF32 (every operand as a rounded tf32 part and
+its remainder).
 
 * ``fused_affine_silu_conv`` and ``fused_affine_silu_conv_blocked`` (the
   entries of the TPU kernels K3a and K3b, one function) run
@@ -122,7 +123,7 @@ def _kernel():
 
 @functools.cache
 def _chunk(dtype_code: int, tco: int) -> int:
-    """Input channels of one staged chunk of the kernel: the bf16 weight's
+    """Input channels of one staged chunk of the kernel: the weight's
     channels are zero-padded to a multiple of it."""
     return _build.library("fused_resblock").fused_resblock_chunk(dtype_code, tco)
 
@@ -183,15 +184,11 @@ def _launch(x, scale, shift, weight, bias, residual=None, num_groups=0):
     f32 = dict(dtype=torch.float32)
     scale, shift = scale.to(**f32).contiguous(), shift.to(**f32).contiguous()
     bias = bias.to(**f32).contiguous()
-    if x.dtype == torch.bfloat16:
-        # (3, Cout, Cp) bf16, input channels zero-padded to whole chunks:
-        # the layout the kernel stages for its B fragments
-        chunk = _chunk(_DTYPE_CODE[x.dtype], tco)
-        cp = -(-c // chunk) * chunk
-        weight = F.pad(weight.permute(0, 2, 1), (0, cp - c)).contiguous()
-    else:
-        cp = c
-        weight = weight.to(**f32).contiguous()
+    # (3, Cout, Cp) in x's dtype, input channels zero-padded to whole
+    # chunks: the layout the kernel stages for its B fragments
+    chunk = _chunk(_DTYPE_CODE[x.dtype], tco)
+    cp = -(-c // chunk) * chunk
+    weight = F.pad(weight.to(x.dtype).permute(0, 2, 1), (0, cp - c)).contiguous()
     y = _out_tensor(x, cout)
     n_tiles = -(-length // TILE_L)
     # per-(tile, segment) partial sums, tiles last: their sum is one

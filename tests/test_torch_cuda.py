@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
 K1 (the flash-attention forward), K2a and K2b (its backward), all on the
-tensor cores with f32 as 3xTF32, and K3 and K4 (the fused resnet chain; bf16
-on the tensor cores, f32 on the CUDA cores); and the DeepCache samplers
-through K1 against the plain attention.
+tensor cores with f32 as 3xTF32, and K3 and K4 (the fused resnet chain, on
+the tensor cores too: bf16 with hi + lo bf16 activations, f32 as 3xTF32);
+and the DeepCache samplers through K1 against the plain attention.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so that it also runs where JAX is not installed:
@@ -317,17 +317,18 @@ def test_k4_matches_plain_on_card(no_tf32, dtype, rows, c, cout, length, residua
     assert ((ss - want_ss).abs() / want_ss).max().item() <= STATS_TOL
 
 
+@pytest.mark.parametrize("dtype,rows", [(torch.bfloat16, 8), (torch.float32, 4)])
 @pytest.mark.parametrize("kind,c,cout,length,residual",
                          [("k3", c, co, n, False) for c, co, n in K3_SHAPES]
                          + [("k4", c, co, n, r) for c, co, n, r in K4_SHAPES]
                          + [("k4", 40, 32, 1001, True), ("k3", 10, 8, 1001, False)])
-def test_bf16_kernel_in_the_channel_last_layout_on_card(no_tf32, kind, c, cout,
-                                                         length, residual):
-    """The tensor-core body with x, the residual and y as contiguous
-    (B, L, C) tensors (the other stride layout: no 16-byte rows along L),
-    at every shape of the chain and at an L that is no multiple of 8,
-    against its plain version."""
-    x, scale, shift, w, bias, r = _fused_inputs(8, c, cout, length, torch.bfloat16,
+def test_bf16_kernel_in_the_channel_last_layout_on_card(no_tf32, dtype, rows, kind, c,
+                                                         cout, length, residual):
+    """Both tensor-core bodies (bf16, and f32 as 3xTF32) with x, the
+    residual and y as contiguous (B, L, C) tensors (the other stride
+    layout: no 16-byte rows along L), at every shape of the chain and at an
+    L that is no multiple of 8, against their plain versions."""
+    x, scale, shift, w, bias, r = _fused_inputs(rows, c, cout, length, dtype,
                                                 c + 2, residual)
     x = x.contiguous()
     r = r.contiguous() if r is not None else None
@@ -342,21 +343,55 @@ def test_bf16_kernel_in_the_channel_last_layout_on_card(no_tf32, kind, c, cout,
         assert ((s - want_s).abs() / (n * want_ss).sqrt()).max().item() <= STATS_TOL
         assert ((ss - want_ss).abs() / want_ss).max().item() <= STATS_TOL
     assert fr.affine_silu_conv.kernel_launches + fr.affine_silu_conv_stats.kernel_launches == 1
-    assert y.is_contiguous() and _rel(y, want) <= FUSED_TOL[torch.bfloat16]
+    assert y.is_contiguous() and _rel(y, want) <= FUSED_TOL[dtype]
 
 
-def test_bf16_kernel_is_deterministic_and_takes_a_bf16_weight_on_card(no_tf32):
+@pytest.mark.parametrize("dtype,rows", [(torch.bfloat16, 8), (torch.float32, 4)])
+def test_bf16_kernel_is_deterministic_and_takes_a_bf16_weight_on_card(no_tf32, dtype,
+                                                                      rows):
     """The group sums are per-tile partials added in a fixed order (no
-    atomics): two calls give bitwise equal y, s and ss.  An f32 weight with
-    a bf16 x raises instead of being rounded behind the caller's back."""
-    x, scale, shift, w, bias, r = _fused_inputs(8, 40, 32, 65536, torch.bfloat16,
-                                                3, True)
+    atomics): two calls give bitwise equal y, s and ss, in both bodies.  An
+    f32 weight with a bf16 x raises instead of being rounded behind the
+    caller's back; a bf16 weight with an f32 x is widened, exactly."""
+    x, scale, shift, w, bias, r = _fused_inputs(rows, 40, 32, 65536, dtype, 3, True)
     first = fr.affine_silu_conv_stats(x, scale, shift, w, bias, r, 8)
     second = fr.affine_silu_conv_stats(x, scale, shift, w, bias, r, 8)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
-    with pytest.raises(TypeError, match="bf16 weight"):
-        fr.affine_silu_conv(x, scale, shift, w.float(), bias)
+    if dtype == torch.bfloat16:
+        with pytest.raises(TypeError, match="bf16 weight"):
+            fr.affine_silu_conv(x, scale, shift, w.float(), bias)
+    else:
+        w16 = w.to(torch.bfloat16)
+        assert torch.equal(fr.affine_silu_conv(x, scale, shift, w16, bias),
+                           fr.affine_silu_conv(x, scale, shift, w16.float(), bias))
+
+
+def test_misaligned_f32_fused_input_runs_on_card(no_tf32):
+    """The 3xTF32 body moves x and the residual in 16-byte pieces only
+    where they allow it (L contiguous, a 16-byte address, strides in
+    multiples of 4): an odd L stride, or an address off 16 bytes, takes
+    4-byte copies and loads and still matches the plain version, one launch
+    each."""
+    x, scale, shift, w, bias, r = _fused_inputs(4, 33, 32, 1000, torch.float32, 7, True)
+    odd_l = x.contiguous()  # (B, L, C) with C = 33: L stride 33
+    flat = torch.zeros(x.numel() + 1, device="cuda")
+    off16 = flat[1:].view(4, 33, 1000).copy_(x.transpose(1, 2)).transpose(1, 2)
+    rflat = torch.zeros(r.numel() + 1, device="cuda")
+    r_off = rflat[1:].view(4, 32, 1000).copy_(r.transpose(1, 2)).transpose(1, 2)
+    for xx, rr in ((odd_l, r), (off16, r_off)):
+        fr.reset_counts()
+        y = fr.affine_silu_conv(xx, scale, shift, w, bias)
+        ys, s, ss = fr.affine_silu_conv_stats(xx, scale, shift, w, bias, rr, 8)
+        assert fr.affine_silu_conv.kernel_launches == 1
+        assert fr.affine_silu_conv_stats.kernel_launches == 1
+        want = fr._reference(xx, scale, shift, w, bias)
+        want_s, s_ref, ss_ref = fr._stats_reference(xx, scale, shift, w, bias, rr, 8)
+        assert _rel(y, want) <= FUSED_TOL[torch.float32]
+        assert _rel(ys, want_s) <= FUSED_TOL[torch.float32]
+        n = 1000 * 32 // 8
+        assert ((s - s_ref).abs() / (n * ss_ref).sqrt()).max().item() <= STATS_TOL
+        assert ((ss - ss_ref).abs() / ss_ref).max().item() <= STATS_TOL
 
 
 def test_gradient_through_the_fused_block_on_card(no_tf32):

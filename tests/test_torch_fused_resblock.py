@@ -12,9 +12,10 @@ the sum of squares sums 10^3 terms of size 1); the UNet 2e-4 (tests/test_unet_fo
 tolerance for the fused-stats path).  The UNet is that test's
 ``small_unet`` at L = 4096 with ``fused_block_l`` = 64, whose levels of 32
 to 128 channels pass the fused gate (the tiny UNet of
-tests/test_diffusion_stack.py has none).  The bf16 tensor-core kernel's
-arithmetic (the activation as hi + lo bf16 operands, per-chunk f32 partial
-sums) is modelled here and held to the card's gates.
+tests/test_diffusion_stack.py has none).  The arithmetic of both
+tensor-core bodies of the kernel is modelled here and held to the card's
+gates: bf16 (the activation as hi + lo bf16 operands) and f32 (3xTF32),
+each with per-chunk f32 partial sums.
 """
 
 import dataclasses
@@ -37,7 +38,7 @@ from syncfusion_tpu_torch.models.unet1d import UNet1d, compute_folds
 from syncfusion_tpu_torch.ops import fused_resblock as tfr
 from test_unet_folded import L, small_unet
 from torch_port_helpers import L as TINY_L
-from torch_port_helpers import n, t, tiny_pair, to_numpy
+from torch_port_helpers import THREE_TF32, n, t, tf32, tf32_read, tiny_pair, to_numpy
 
 ATOL = 2e-5
 SUM_RTOL = 2e-5
@@ -423,18 +424,17 @@ MAIN_PAIRS = [(40, 32), (32, 32), (64, 32), (80, 64), (64, 64), (128, 64),
               (128, 128), (10, 8), (8, 8), (16, 8)]
 
 
-def _bf16_inputs(c, cout, length, residual, seed, rows=2):
+def _chain_inputs(c, cout, length, residual, seed, rows=2, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(shape, generator=g)
 
-    x = randn(rows, c, length).to(torch.bfloat16).transpose(1, 2)
+    x = randn(rows, c, length).to(dtype).transpose(1, 2)
     scale, shift = randn(rows, c) * 0.3 + 1.0, randn(rows, c) * 0.5
-    w = (randn(3, c, cout) / np.sqrt(3 * c)).to(torch.bfloat16)
+    w = (randn(3, c, cout) / np.sqrt(3 * c)).to(dtype)
     bias = randn(cout) * 0.1
-    r = (randn(rows, cout, length).to(torch.bfloat16).transpose(1, 2)
-         if residual else None)
+    r = randn(rows, cout, length).to(dtype).transpose(1, 2) if residual else None
     return x, scale, shift, w, bias, r
 
 
@@ -460,7 +460,7 @@ def _tc_model(x, scale, shift, w, bias, residual, num_groups, split=True):
 
 def _gaps(c, cout, residual, seed, split=True):
     """(y error / max |plain|, worst sum error against its bound)."""
-    x, scale, shift, w, bias, r = _bf16_inputs(c, cout, 2048, residual, seed)
+    x, scale, shift, w, bias, r = _chain_inputs(c, cout, 2048, residual, seed)
     y, s, ss = _tc_model(x, scale, shift, w, bias, r, 8, split)
     want, want_s, want_ss = tfr._stats_reference(x, scale, shift, w, bias, r, 8)
     if r is None:
@@ -487,3 +487,81 @@ def test_activation_rounded_once_breaks_the_sums_gate():
     once, the group sums miss STATS_TOL."""
     _, rel_s = _gaps(32, 32, True, seed=5, split=False)
     assert rel_s > STATS_TOL, rel_s
+
+
+# The f32 kernel's arithmetic (3xTF32 on mma.sync m16n8k8), in plain
+# PyTorch on the CPU: the activation h = silu(x·scale + shift) and the
+# weight enter as big = rounded to tf32 and small = the remainder, read
+# truncated (``tf32``, ``tf32_read``); input channels go in chunks of 16
+# (zero-padded), and within a chunk, for each k8 step and each tap, the
+# products small·big, big·small and big·big of the 8 channels are added, in
+# that order, to the chunk's partial sum, which is added to the running sum
+# in f32.  The tensor cores' own adds, which truncate, are not modelled:
+# that is what the per-chunk partial sums guard against.  Held to the
+# card's gates (y within 1e-5 of max |plain|, the sums within 1e-5 of their
+# bounds) at the main path's (C, Cout) pairs with L cut to 2048, and at the
+# wide 1024-channel case at L = 256.
+FUSED_TOL_F32, F32_CHUNK = 1e-5, 16
+
+
+def _tf32_model(x, scale, shift, w, bias, residual, num_groups, passes=THREE_TF32):
+    """``(y, s, ss)`` by the f32 kernel's arithmetic (see above)."""
+    c, cout = w.shape[1:]
+    length = x.shape[1]
+    cp = -(-c // F32_CHUNK) * F32_CHUNK
+    h = torch.nn.functional.silu(x.float() * scale[:, None, :] + shift[:, None, :])
+    h = torch.nn.functional.pad(h, (0, cp - c, 1, 1))  # halo rows and channels
+    wp = torch.nn.functional.pad(w.float(), (0, 0, 0, cp - c))
+    h_big, w_big = tf32(h), tf32(wp)
+    terms = {"small_big": (tf32_read(h - h_big), w_big),
+             "big_small": (h_big, tf32_read(wp - w_big)),
+             "big_big": (h_big, w_big)}
+    acc = torch.zeros(x.shape[0], length, cout)
+    for c0 in range(0, cp, F32_CHUNK):
+        part = torch.zeros_like(acc)
+        for k0 in range(c0, c0 + F32_CHUNK, 8):
+            for tap in range(3):
+                for name in passes:
+                    a, b = terms[name]
+                    part = part + a[:, tap:tap + length, k0:k0 + 8] @ b[tap, k0:k0 + 8]
+        acc = acc + part
+    y = (acc + bias.float()).transpose(1, 2)
+    if residual is not None:
+        y = y + residual.float().transpose(1, 2)
+    yg = y.reshape(y.shape[0], num_groups, -1)
+    return y.transpose(1, 2), yg.sum(-1), (yg * yg).sum(-1)
+
+
+def _f32_gaps(c, cout, length, residual, seed, passes=THREE_TF32):
+    """(y error / max |plain|, worst sum error against its bound) of the
+    f32 model."""
+    x, scale, shift, w, bias, r = _chain_inputs(c, cout, length, residual, seed,
+                                                dtype=torch.float32)
+    y, s, ss = _tf32_model(x, scale, shift, w, bias, r, 8, passes)
+    want, want_s, want_ss = tfr._stats_reference(x, scale, shift, w, bias, r, 8)
+    rel = ((y - want).abs().max() / want.abs().max()).item()
+    n_ = length * cout // 8
+    rel_s = max(((s - want_s).abs() / (n_ * want_ss).sqrt()).max().item(),
+                ((ss - want_ss).abs() / want_ss).max().item())
+    return rel, rel_s
+
+
+@pytest.mark.parametrize("c,cout,length,residual",
+                         [(c, co, 2048, res) for c, co in MAIN_PAIRS for res in (False, True)]
+                         + [(1024, 1024, 256, True)])
+def test_f32_3xtf32_scheme_holds_the_card_gates(c, cout, length, residual):
+    """The f32 body's scheme (3xTF32, chunks of 16 channels, per-chunk f32
+    partial sums) keeps y within FUSED_TOL[f32] of ``_stats_reference`` and
+    the group sums within STATS_TOL at every (C, Cout) of the main path and
+    at the wide 1024-channel case."""
+    rel, rel_s = _f32_gaps(c, cout, length, residual, seed=c + cout + residual)
+    assert rel <= FUSED_TOL_F32 and rel_s <= STATS_TOL, (rel, rel_s)
+
+
+@pytest.mark.parametrize("c,cout", [(10, 8), (64, 64), (128, 128)])
+def test_plain_tf32_products_break_the_y_gate(c, cout):
+    """Why the f32 body takes three products: big·big alone (plain TF32)
+    moves y past FUSED_TOL[f32]."""
+    rel, _ = _f32_gaps(c, cout, 2048, False, seed=c + cout, passes=("big_big",))
+    assert rel > FUSED_TOL_F32, rel
+
