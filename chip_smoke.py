@@ -12,8 +12,8 @@ Phases, each printed with its seconds; any failure exits non-zero:
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes of the generation path (plus a ragged and a causal case), in
      bf16 and f32, and K1 in bf16 also at the 16 rows of the serving and fast
-     configurations' in-band forward, each error against its stated
-     tolerance, with the times of the kernel, the plain version and one
+     configurations' in-band forward and at the 2 and 1 rows of video to
+     Foley's (phase 13), each error against its stated tolerance, with the times of the kernel, the plain version and one
      PyTorch library call;
   4. the slice at full width: ``SyncFusionDiffusion`` built from
      exp/model/diffusion.yaml's values with seeded random weights, in bf16,
@@ -55,7 +55,28 @@ Phases, each printed with its seconds; any failure exits non-zero:
      split), both gated as phase 5, then one full-width loss and gradient
      (gated as phase 7);
  10. fused training: phase 6's command line with a model config that turns
-     the fused configuration on; K3 and K4 launch 12 times per forward.
+     the fused configuration on; K3 and K4 launch 12 times per forward;
+ 11. onset training at full width: ``VideoOnsetNet`` (R(2+1)D-18 with the
+     keep-temporal surgery, seeded weights) at the reference recipe, B = 16
+     chunks of 30 frames at 112x112 on the uint8 wire, lr 1e-4, wd 1e-3, in
+     bf16 (cfg/model/model-onset.yaml's precision) and in f32
+     (model-onset-f32.yaml): 2 warm-up and 5 timed steps each through
+     ``train_onset.fit_epoch`` on seeded batches (about 2 onsets a chunk) via
+     ``device_prefetch``; finite losses, the BatchNorm buffers moved, the
+     checkpoint reloads with ``strict=True``; then the eval forward's chunks
+     per second.  No TPU kernel lies on this path (cuDNN convolutions);
+ 12. onset cross-check, f32 without TF32: the same full-width net on the card
+     and on the CPU, same weights and input (B = 2, T = 30, 64x64 frames):
+     eval-mode logits, one train-mode loss, its gradients (on the card's ReLU
+     masks) and the BatchNorm buffers after it, and the share of ReLU inputs
+     whose sign the two disagree on;
+ 13. video to Foley at full width: ``video_to_foley.onset_times`` on seeded
+     frames of one 6-s video (3 chunks of 30 frames, full-width onset net in
+     f32 without TF32, as ``video_to_foley.main`` runs it), their onset track, then the full-width SyncFusion at the fast
+     point (DPM-Solver++(2M), 32 steps, CFG 1.5 in the band, DeepCache K = 2,
+     split 4) generates one 2^18-sample clip; K1 launches 153 times, its
+     plain version never; one warm-up and 3 timed runs, each split into its
+     onset and generation parts.
 Phase 3 also holds the backward kernels K2a and K2b against their plain
 versions at the training shapes (with the time of SDPA's backward), times
 K1's f32 kernel per forward beside SDPA's f32 forward, and holds K3 and K4
@@ -115,6 +136,8 @@ CACHED_CHECK = dict(num_steps=4, embedding_scale=SCALE, guidance_interval=BAND,
 CACHED_CHECK_K1 = 9 * 3
 ROWS = 2 * BATCH  # the CFG batch inside the band
 SERVE_ROWS = 2 * SERVE_BATCH
+# video to Foley's one clip (phase 13): 2 rows in the band, 1 outside it
+V2F_ROWS = (2, 1)
 # attention calls per UNet forward at each sequence length (levels 4-7 down
 # and up, plus the bottleneck at the level-7 length)
 ATTN_CALLS = {2048: 2, 1024: 2, 512: 2, 256: 3}
@@ -194,6 +217,30 @@ FUSED_GROUPS = 8
 # relative to their bounds sqrt(n·ss) and ss (f32, other orders)
 FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 STATS_TOL = 1e-5
+# the onset model (phases 11-13): the reference recipe's batch of 16 chunks
+# of 30 frames at 112x112; 2 warm-up and 5 timed training steps
+ONSET_BATCH, ONSET_T, ONSET_HW = 16, 30, 112
+ONSET_WARMUP, ONSET_TIMED = 2, 5
+# phase 12, f32 without TF32, card against CPU on the same weights and input:
+# logits, loss and BatchNorm buffers relative to their largest magnitude
+# (convolutions summed in other orders through 18 layers); gradients as
+# phase 7 (TRAIN_GRAD_TOL, GRAD_FLOOR), with the CPU's ReLUs taking the
+# card's masks (onset_net.ReluTape).  f32 rounding flips the few ReLU inputs
+# that lie within its error of 0, and one flip moves a weight gradient by a
+# sizeable share of its largest element: on the CPU, the full-width net in
+# f32 against f64 on 2 chunks of 8 frames at 32x32, one flip of the input
+# nearest 0 moves the f64 gradients by 3.7e-2, and on the f64 run's masks
+# f32 agrees within 6.0e-5 (on its own, 4.4e-1)
+# (tests/test_torch_onset.py::test_onset_gradients_hold_on_shared_relu_masks).
+# So the masks are gated apart: ONSET_FLIP_TOL bounds the share of ReLU
+# inputs whose sign the card and the CPU's own run disagree on.  Rounding
+# alone gave 165 of 99,434,880 (1.7e-6) here on an NVIDIA H100 80GB HBM3 at
+# 700 W, and 11 of 6,630,528 (1.7e-6) for the CPU's f32 against its f64 in
+# that test; an error well above rounding moves far more across 0.  B = 2
+# chunks at 64x64 bound the CPU's time.
+ONSET_TOL = 1e-4
+ONSET_FLIP_TOL = 1e-5
+ONSET_CHECK_SHAPE = (2, 30, 64, 64, 3)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -333,15 +380,17 @@ def phase_bwd_kernels(attn):
 def phase_kernels(attn):
     """Phase 3: flash attention against its plain version; returns the
     per-forward totals of the main path's shapes, by (dtype, rows): bf16 at
-    ROWS (the in-band batch of 4 clips) and SERVE_ROWS (of the serving and
-    fast configurations' 8), f32 at ROWS (the same shapes in the training
+    ROWS (the in-band batch of 4 clips), SERVE_ROWS (of the serving and
+    fast configurations' 8) and V2F_ROWS (video to Foley's one clip, in
+    and out of the band), f32 at ROWS (the same shapes in the training
     recipe's type)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(t, False) for t in ATTN_CALLS] + [(1000, False), (512, True)]
-    runs = [(torch.bfloat16, ROWS, cases), (torch.float32, ROWS, cases),
-            (torch.bfloat16, SERVE_ROWS, [(t, False) for t in ATTN_CALLS])]
+    runs = [(torch.bfloat16, ROWS, cases), (torch.float32, ROWS, cases)]
+    runs += [(torch.bfloat16, rows, [(t, False) for t in ATTN_CALLS])
+             for rows in (SERVE_ROWS, *V2F_ROWS)]
     total = {(dtype, rows): {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                              "bytes": 0, "ops": 0, "max_abs_err": 0.0}
              for dtype, rows, _ in runs}
@@ -1050,6 +1099,215 @@ def fused_vs_plain(attn, fr, noise, onsets, embedding, tmp: str):
     return rel_sample, rel_cached, abs(loss_f - loss_p) / abs(loss_p), rels[0][0]
 
 
+def onset_batches(n: int, seed: int, shape=(ONSET_BATCH, ONSET_T, ONSET_HW, ONSET_HW, 3)):
+    """``n`` seeded host batches on the uint8 wire: frames and labels with
+    2 onset frames drawn per chunk (fewer where they coincide)."""
+    rng = np.random.default_rng(seed)
+    for _ in range(n):
+        label = np.zeros(shape[:2], np.float32)
+        label[np.arange(shape[0])[:, None], rng.integers(0, shape[1], (shape[0], 2))] = 1.0
+        yield {"frames": rng.integers(0, 256, shape, dtype=np.uint8), "label": label}
+
+
+def phase_onset_train(tmp: str, precision: str) -> float:
+    """Phase 11 in one precision: ``ONSET_WARMUP + ONSET_TIMED`` steps of
+    the full-width onset net through ``train_onset.fit_epoch``, logging
+    every step; then the checkpoint round trip and the eval forward's rate.
+    Prints them; returns the median seconds per step."""
+    from syncfusion_tpu_torch import train_onset
+    from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
+    from syncfusion_tpu_torch.core.config import OnsetConfig
+    from syncfusion_tpu_torch.core.logging import MetricLogger
+    from syncfusion_tpu_torch.models.onset_net import VideoOnsetNet
+
+    cfg = OnsetConfig.from_dict({"model": {"precision": precision},
+                                 "trainer": {"seed": 0, "log_every_n_steps": 1}})
+    trainer = train_onset.build_trainer(cfg, "cuda")
+    state = trainer.create_state()
+    buffers = {k: v.clone() for k, v in trainer.model.named_buffers()}
+    run = os.path.join(tmp, f"onset_{precision}")
+    logger = MetricLogger(run)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    steps = train_onset.fit_epoch(trainer, state,
+                                  onset_batches(ONSET_WARMUP + ONSET_TIMED, 0),
+                                  "cuda", logger, 1, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    logger.close()
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss/train"] for r in recs]
+    secs = [r["sec_per_step"] for r in recs][ONSET_WARMUP:]
+    check(steps == state.step == ONSET_WARMUP + ONSET_TIMED and len(secs) == ONSET_TIMED,
+          f"onset {precision}: took {steps} steps, logged {len(recs)}")
+    check(all(math.isfinite(x) for x in losses), f"onset {precision}: non-finite loss")
+    moved = [k for k, v in trainer.model.named_buffers() if not torch.equal(v, buffers[k])]
+    check(len(moved) == len(buffers), f"onset {precision}: {len(buffers) - len(moved)} "
+          "BatchNorm buffers did not move")
+    ckpt = Checkpointer(CheckpointConfig(os.path.join(run, "ckpts"), monitor="loss/val"))
+    ckpt.save(state.step, state.state_dict(), {"loss/val": losses[-1]})
+    saved = ckpt.restore()
+    fresh = VideoOnsetNet(dtype=train_onset.PRECISIONS[precision])
+    fresh.load_state_dict(saved["model"], strict=True)
+    check(all(torch.equal(v.cpu(), saved["model"][k])
+              for k, v in trainer.model.state_dict().items()),
+          f"onset {precision}: the checkpoint does not hold the model")
+    frames = torch.from_numpy(next(onset_batches(1, 2))["frames"]).cuda()
+    for _ in range(2):
+        trainer.forward(state, frames)
+    infer_s = []
+    for _ in range(TIMED_RUNS):
+        start = time.perf_counter()
+        logits = trainer.forward(state, frames)
+        torch.cuda.synchronize()
+        infer_s.append(time.perf_counter() - start)
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (ONSET_BATCH, ONSET_T),
+          f"onset {precision}: eval logits")
+    med, infer = statistics.median(secs), statistics.median(infer_s)
+    print(f"  onset training, {precision}, B={ONSET_BATCH}x{ONSET_T}x{ONSET_HW}x{ONSET_HW}: "
+          f"losses {['%.5f' % x for x in losses]}; {med:.4f} s per step (median of "
+          f"steps {ONSET_WARMUP + 1}-{ONSET_WARMUP + ONSET_TIMED}, range {min(secs):.4f}-"
+          f"{max(secs):.4f}), {ONSET_BATCH / med:.3f} chunks/s, peak memory "
+          f"{peak:.3f} GiB; eval forward of {ONSET_BATCH} chunks: median {infer:.4f} s "
+          f"over {TIMED_RUNS} ({ONSET_BATCH / infer:.3f} chunks/s); "
+          f"{trainer.model.param_count():,} params; card {smi()}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return med
+
+
+def onset_cross_check() -> dict:
+    """Phase 12: the full-width onset net in f32 on the card and on the CPU
+    (TF32 is off for the whole run), same weights and input; the gated
+    gradients from a CPU run that takes the card's ReLU masks, the printed
+    ones also from a CPU run that takes its own, whose masks give the gated
+    share of ReLU inputs that change sign."""
+    import copy
+
+    from syncfusion_tpu_torch.models.onset_net import ReluTape, VideoOnsetNet
+    from syncfusion_tpu_torch.train.onset_trainer import OnsetTrainer, bc_loss
+
+    cpu = VideoOnsetNet().init(0)
+    gpu = copy.deepcopy(cpu).cuda()
+    batch = next(onset_batches(1, 3, ONSET_CHECK_SHAPE))
+    x = OnsetTrainer.prep_frames(torch.from_numpy(batch["frames"]))
+    y = torch.from_numpy(batch["label"])
+    with torch.no_grad():
+        want = cpu.eval()(x)
+        got = gpu.eval()(x.cuda()).cpu()
+    rel_logits = ((got - want).abs().max() / want.abs().max()).item()
+
+    def loss_and_grads(net, frames, labels, tape):
+        with tape:
+            net.train().zero_grad()
+            loss = bc_loss(net(frames), labels)
+            loss.backward()
+        return loss.item(), {k: p.grad.cpu() for k, p in net.named_parameters()}
+
+    buffers_c = {k: b.clone() for k, b in cpu.named_buffers()}
+    card_tape, own_tape = ReluTape(), ReluTape()
+    loss_g, grads_g = loss_and_grads(gpu, x.cuda(), y.cuda(), card_tape)
+    start = time.perf_counter()
+    loss_c, grads_c = loss_and_grads(cpu, x, y, ReluTape(replay=card_tape))
+    cpu_s = time.perf_counter() - start
+    buffers = dict(cpu.named_buffers())
+    rel_buffers = max(((b.cpu() - buffers[k]).abs().max() / buffers[k].abs().max()).item()
+                      for k, b in gpu.named_buffers())
+    for k, b in buffers.items():  # the second CPU run starts where the first did
+        b.copy_(buffers_c[k])
+    _, grads_own = loss_and_grads(cpu, x, y, own_tape)
+    flips, elements = card_tape.flips(own_tape)
+    gaps = grad_gaps(grads_g, grads_c)
+    own_gaps = grad_gaps(grads_g, grads_own)
+    out = {"logits": rel_logits, "loss": abs(loss_g - loss_c) / abs(loss_c),
+           "grads": gaps[0][0], "buffers": rel_buffers, "flips": flips / elements}
+    print(f"  onset f32, card vs CPU, B={ONSET_CHECK_SHAPE[0]}x{ONSET_CHECK_SHAPE[1]}x"
+          f"{ONSET_CHECK_SHAPE[2]}x{ONSET_CHECK_SHAPE[3]}: logits {out['logits']:.3e}, "
+          f"loss {out['loss']:.3e} (tol {ONSET_TOL:.0e}), buffers after the train "
+          f"forward {out['buffers']:.3e} (tol {ONSET_TOL:.0e}), gradients on the card's "
+          f"ReLU masks {out['grads']:.3e} (tol {TRAIN_GRAD_TOL:.0e}), on the CPU's own "
+          f"{own_gaps[0][0]:.3e} (not gated); {flips} of {elements:,} ReLU inputs "
+          f"change sign, a share of {out['flips']:.3e} (tol {ONSET_FLIP_TOL:.0e}); "
+          f"the CPU's loss and gradient took {cpu_s:.1f} s")
+    print_gaps("onset gradients, card vs CPU on the card's ReLU masks", gaps)
+    print_gaps("onset gradients, card vs CPU on its own ReLU masks", own_gaps)
+    return out
+
+
+def phase_video_to_foley(attn, fr) -> dict:
+    """Phase 13: ``video_to_foley.onset_times`` on 3 seeded uint8 chunks of
+    one 6-s video (the full-width onset net in f32 without TF32, as
+    ``video_to_foley.main`` runs it), the onset track, and one
+    clip at the fast point; one warm-up and ``TIMED_RUNS`` runs, each
+    timed in two parts and gated: the times are those the logits of one
+    batched forward give (raw logit > 0.5, deduplicated), the clip is
+    finite, K1 launched 153 times.  Returns the last run's counts."""
+    from syncfusion_tpu_torch import video_to_foley
+    from syncfusion_tpu_torch.eval.onset_annotations import dedup_consecutive
+    from syncfusion_tpu_torch.generate import onset_track
+    from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
+    from syncfusion_tpu_torch.train.onset_trainer import OnsetTrainer
+
+    rng = np.random.default_rng(4)
+    chunks = [{"frames": rng.integers(0, 256, (ONSET_T, ONSET_HW, ONSET_HW, 3),
+                                      dtype=np.uint8),
+               "start_frame": ONSET_T * i, "frame_rate": 15.0} for i in range(3)]
+    net = video_to_foley.load_onset_net(None, (2, 2, 2, 2), "cuda", seed=0)
+    # random weights put every logit of these frames below the threshold:
+    # move fc2's bias so that their median logit is the threshold, and half
+    # the frames are onsets before the dedup
+    with torch.no_grad():
+        frames = torch.from_numpy(np.stack([c["frames"] for c in chunks])).cuda()
+        logits = net(OnsetTrainer.prep_frames(frames)).float()
+        net.fc2.bias += 0.5 - logits.median()
+        logits = net(OnsetTrainer.prep_frames(frames)).float().cpu().numpy()
+    want = sorted((k + c["start_frame"]) / c["frame_rate"] for c, row in zip(chunks, logits)
+                  for k in dedup_consecutive(np.flatnonzero(row > 0.5).tolist()))
+    model = SyncFusionDiffusion.from_config(None, dtype=torch.bfloat16, device="cuda",
+                                            seed=0)
+    embedding = torch.zeros((1, 1, model.unet.cfg.embedding_features), device="cuda")
+    onset_s, gen_s = [], []
+    for run in range(TIMED_RUNS + 1):
+        reset_counts(attn, fr)
+        start = time.perf_counter()
+        times = video_to_foley.onset_times(net, chunks, "cuda")
+        torch.cuda.synchronize()
+        mid = time.perf_counter()
+        onsets = torch.from_numpy(onset_track(times, LENGTH)).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(run)
+        noise = torch.randn((1, LENGTH, 1), generator=gen, device="cuda")
+        wav = model.sample(noise, onsets, embedding, sampler="dpm", num_steps=FAST_STEPS,
+                           embedding_scale=FAST_SCALE, guidance_interval=BAND,
+                           deep_cache_interval=FAST_K, deep_split=DEEP_SPLIT)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        launched = counts(attn, fr)
+        expected = {name: FAST_K1 if name == "kernel_launches" else 0 for name in launched}
+        check(len(times) > 0 and times.tolist() == want,
+              f"video to Foley: onset times {times} != {want}")
+        check(int(onsets.sum()) == int(np.sum((times * SR).astype(int) < LENGTH)),
+              "video to Foley: the onset track holds the onsets of its 2^18 samples")
+        check(tuple(wav.shape) == (1, LENGTH, 1) and bool(torch.isfinite(wav).all()),
+              f"video to Foley: output {tuple(wav.shape)}")
+        check(launched == expected, f"video to Foley: launch counts {launched} != {expected}")
+        print(f"  video to Foley, {'warm-up' if run == 0 else f'run {run}'}: {len(times)} "
+              f"onsets from 3 chunks in {mid - start:.3f} s, generation {end - mid:.3f} s, "
+              f"rms {wav.float().pow(2).mean().sqrt().item():.4f}", flush=True)
+        if run:
+            onset_s.append(mid - start)
+            gen_s.append(end - mid)
+    total = [a + b for a, b in zip(onset_s, gen_s)]
+    print(f"  video to Foley per clip over {TIMED_RUNS} runs: median {statistics.median(total):.3f} s "
+          f"(range {min(total):.3f}-{max(total):.3f}): onset {statistics.median(onset_s):.4f} s "
+          f"(range {min(onset_s):.4f}-{max(onset_s):.4f}, {3 / statistics.median(onset_s):.2f} "
+          f"chunks/s), generation {statistics.median(gen_s):.3f} s (range "
+          f"{min(gen_s):.3f}-{max(gen_s):.3f}); launches per run {launched}")
+    del net, model
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1071,6 +1329,10 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    import importlib.util
+
+    print("  importable here (information only): " + ", ".join(
+        f"{name} {importlib.util.find_spec(name) is not None}" for name in ("PIL", "sklearn")))
     phase("1 environment", t0)
 
     t0 = time.perf_counter()
@@ -1268,13 +1530,36 @@ def main() -> int:
               f"micro-step (plain UNet, phase 6: {sec:.4f}), peak memory "
               f"{peak_f:.3f} GiB (phase 6: {peak:.3f})")
         del state
+        torch.cuda.empty_cache()
         phase("10 fused training at full width", t0)
+
+        t0 = time.perf_counter()
+        step_s = {precision: phase_onset_train(tmp, precision) for precision in ("bf16", "32")}
+        print(f"  onset training side by side, s per step: bf16 {step_s['bf16']:.4f}, "
+              f"f32 {step_s['32']:.4f} ({step_s['32'] / step_s['bf16']:.3f}x)")
+        phase("11 onset training at full width", t0)
+
+    t0 = time.perf_counter()
+    xo = onset_cross_check()
+    check(xo["logits"] <= ONSET_TOL, "onset cross-check: logits disagree")
+    check(xo["loss"] <= ONSET_TOL, "onset cross-check: loss disagrees")
+    check(xo["buffers"] <= ONSET_TOL, "onset cross-check: BatchNorm buffers disagree")
+    check(xo["grads"] <= TRAIN_GRAD_TOL, "onset cross-check: gradients disagree")
+    check(xo["flips"] <= ONSET_FLIP_TOL, "onset cross-check: the card's ReLU inputs "
+          "change sign against the CPU's more often than f32 rounding explains")
+    phase("12 onset cross-check", t0)
+
+    t0 = time.perf_counter()
+    v2f_launched = phase_video_to_foley(attn, fr)
+    phase("13 video to Foley at full width", t0)
 
     fwd16, fwd32 = total[torch.bfloat16, ROWS], total[torch.float32, ROWS]
     serve16 = total[torch.bfloat16, SERVE_ROWS]
+    v2f16 = {rows: total[torch.bfloat16, rows] for rows in V2F_ROWS}
     paths = {"generate": gen_launched, "generate_serving": serve_launched,
              "generate_fast": fast_launched, "train": train_launched,
-             "generate_fused": fused_launched, "train_fused": fused_train}
+             "generate_fused": fused_launched, "train_fused": fused_train,
+             "video_to_foley": v2f_launched}
 
     def launched_by_path(key):
         return {p_: c_[key] for p_, c_ in paths.items()}
@@ -1286,7 +1571,8 @@ def main() -> int:
         "replaces": "syncfusion_tpu/ops/attention.py:34",
         "launches": sum(launched_by_path("kernel_launches").values()),
         "launches_by_path": launched_by_path("kernel_launches"),
-        "max_abs_err": max(fwd16["max_abs_err"], serve16["max_abs_err"]),
+        "max_abs_err": max(fwd16["max_abs_err"], serve16["max_abs_err"],
+                           *(tot["max_abs_err"] for tot in v2f16.values())),
         "ms": fwd16["ms"],
         "plain_ms": fwd16["plain_ms"],
         "bound_ms": fwd16["bound_ms"],
@@ -1298,6 +1584,12 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "serving_work": f"the same 9 calls at BH={SERVE_ROWS * HEADS}, the in-band "
                         "forward of the serving and fast configurations (B=8)",
+        "video_to_foley": {f"rows_{rows}": {key: tot[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for rows, tot in v2f16.items()},
+        "video_to_foley_work": "the same 9 calls at BH=16 (2 rows, in the band) "
+                               "and BH=8 (1 row, outside it): video to Foley's "
+                               "whole forwards (B=1)",
         "float32": {key: fwd32[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "float32_work": "the same 9 calls in f32 (the training forward's type)",

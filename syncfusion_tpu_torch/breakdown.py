@@ -1,7 +1,9 @@
-"""Where one UNet forward's time goes on the card.
+"""Where one UNet forward's, or one onset training step's, time goes on
+the card.
 
     python -m syncfusion_tpu_torch.breakdown [--batch 8] [--length 262144]
         [--model_config model.json] [--deep_split S]
+    python -m syncfusion_tpu_torch.breakdown --onset bf16|32 [--batch 16]
 
 Builds the full-width model of exp/model/diffusion.yaml, or of
 ``--model_config`` (JSON of the diffusion config's model node, as in
@@ -10,7 +12,10 @@ and ``fold_cap`` for the fused resnet chain), with seeded random weights
 in bf16, computes the context once, and profiles ``--iters``
 forwards of the UNet at ``--batch`` rows (8 = the in-band CFG batch of 4
 clips) with ``torch.profiler``; with ``--deep_split S``, the DeepCache
-forward on a deep feature taken once from a whole forward.  Prints the
+forward on a deep feature taken once from a whole forward.  With
+``--onset``, the full-width onset net (seeded, cfg/model/model-onset.yaml's
+recipe in that precision) takes ``--iters`` training steps of ``--batch``
+chunks (default 16) of 30 frames at 112x112 on the uint8 wire.  Prints the
 device time per forward by kernel class and the top kernels, the host wall
 time per forward and the device's idle share, and a last JSON line with the
 same numbers.  Needs the card.
@@ -32,6 +37,7 @@ CLASSES = (("flash_fwd", ("flash_fwd",)),
            ("group_norm", ("RowwiseMoments", "GroupNorm", "group_norm",
                            "ComputeFusedParams")),
            ("conv", ("convolve", "cudnn", "xmma", "nchwToNhwc", "nhwcToNchw")),
+           ("reduce", ("reduce_kernel",)),
            ("gemm", ("gemm", "Gemm", "cutlass")),
            ("copy/cast/cat/fill", ("copy_kernel", "CatArray", "FillFunctor")),
            ("elementwise", ("elementwise", "Functor", "silu")))
@@ -44,20 +50,28 @@ def classify(name: str) -> str:
     return "other"
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--length", type=int, default=2**18)
-    ap.add_argument("--iters", type=int, default=3)
-    ap.add_argument("--model_config", default=None,
-                    help="JSON of the diffusion config's model node "
-                         "(default: exp/model/diffusion.yaml's values)")
-    ap.add_argument("--deep_split", type=int, default=0,
-                    help="profile the cached forward at this split (0: whole)")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("breakdown: needs the card")
+def onset_step(args):
+    """(one onset training step, its label)."""
+    import numpy as np
 
+    from syncfusion_tpu_torch.core.config import OnsetConfig
+    from syncfusion_tpu_torch.train_onset import build_trainer
+
+    cfg = OnsetConfig.from_dict({"model": {"precision": args.onset},
+                                 "trainer": {"seed": 0}})
+    trainer = build_trainer(cfg, "cuda")
+    state = trainer.create_state()
+    b = args.batch or 16
+    rng = np.random.default_rng(0)
+    batch = {"frames": torch.from_numpy(rng.integers(0, 256, (b, 30, 112, 112, 3),
+                                                     dtype=np.uint8)).cuda(),
+             "label": torch.from_numpy((rng.random((b, 30)) < 0.07).astype(np.float32)).cuda()}
+    return (lambda: trainer.train_step(state, batch),
+            f"onset training step, {args.onset}, batch {b} x 30 x 112 x 112")
+
+
+def unet_forward(args):
+    """(one UNet forward, its label)."""
     model_cfg = None
     if args.model_config:
         with open(args.model_config) as f:
@@ -65,7 +79,7 @@ def main(argv=None) -> None:
     model = SyncFusionDiffusion.from_config(model_cfg, dtype=torch.bfloat16,
                                             device="cuda", seed=0)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    b, length = args.batch, args.length
+    b, length = args.batch or 8, args.length
     x = torch.randn((b, length, 1), generator=gen, device="cuda")
     onsets = torch.zeros((b, length, 1), device="cuda")
     onsets[:, ::9600, 0] = 1.0
@@ -81,6 +95,29 @@ def main(argv=None) -> None:
     @torch.no_grad()
     def forward():
         return model.unet(x, sigma, **kw)
+
+    cached = f", cached at split {args.deep_split}" if args.deep_split else ""
+    return forward, (f"UNet forward ({args.model_config or 'default model'}{cached}), "
+                     f"batch {b}, L {length}, bf16")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows of the UNet forward (8) or onset chunks (16)")
+    ap.add_argument("--length", type=int, default=2**18)
+    ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--model_config", default=None,
+                    help="JSON of the diffusion config's model node "
+                         "(default: exp/model/diffusion.yaml's values)")
+    ap.add_argument("--deep_split", type=int, default=0,
+                    help="profile the cached forward at this split (0: whole)")
+    ap.add_argument("--onset", choices=("bf16", "32"), default=None,
+                    help="profile an onset training step in this precision")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("breakdown: needs the card")
+    forward, label = onset_step(args) if args.onset else unet_forward(args)
 
     for _ in range(2):
         forward()
@@ -105,19 +142,16 @@ def main(argv=None) -> None:
         cls = classify(evt.key)
         by_class[cls] = by_class.get(cls, 0.0) + ms
     device = sum(by_class.values())
-    cached = f", cached at split {args.deep_split}" if args.deep_split else ""
-    print(f"UNet forward ({args.model_config or 'default model'}{cached}), batch {b}, "
-          f"L {length}, bf16: host wall {wall:.3f} ms, "
-          f"device busy {device:.3f} ms, idle share {1 - device / wall:.3f}")
+    print(f"{label}: host wall {wall:.3f} ms, device busy {device:.3f} ms, idle "
+          f"share {1 - device / wall:.3f}")
     for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls:12s} {ms:9.3f} ms  {ms / device:6.1%}")
-    print("top kernels (ms per forward, launches per forward, name):")
+    print("top kernels (ms per iteration, launches per iteration, name):")
     for ms, count, name in sorted(kernels, reverse=True)[:20]:
         print(f"  {ms:9.3f} {count:5d}  {name[:110]}")
-    print(json.dumps({"model_config": args.model_config,
-                      "deep_split": args.deep_split, "batch": b,
-                      "length": length, "wall_ms": wall,
-                      "device_ms": device, "by_class_ms": by_class}))
+    print(json.dumps({"what": label, "model_config": args.model_config,
+                      "deep_split": args.deep_split, "onset": args.onset,
+                      "wall_ms": wall, "device_ms": device, "by_class_ms": by_class}))
 
 
 if __name__ == "__main__":

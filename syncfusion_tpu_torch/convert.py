@@ -8,11 +8,14 @@ is the leaf's layout:
   * ``Dense`` kernel (in, out) -> ``Linear`` weight (out, in);
   * ``DenseGeneral`` kernel (in, *out) (qkv: (C, 3, H, D)) -> (prod(out), in),
     its bias (*out) -> (prod(out),);
-  * ``Conv`` kernel (k, in, out) -> (out, in, k);
+  * ``Conv`` kernel (k, in, out) -> (out, in, k), and a 3-D one
+    (kt, kh, kw, in, out) -> (out, in, kt, kh, kw);
   * ``ConvTranspose`` kernel (k, in, out) -> (in, out, k) flipped along k:
     Flax does not flip the kernel (``transpose_kernel=False``), torch's
     transposed convolution does;
-  * ``GroupNorm`` scale -> weight.
+  * ``GroupNorm`` and ``BatchNorm`` scale -> weight; BatchNorm's
+    ``batch_stats`` mean and var -> the buffers running_mean and
+    running_var (``onset_state_dict``).
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ def convert_leaf(path: tuple, a: np.ndarray) -> tuple[str, np.ndarray]:
             a = a.reshape(a.shape[0], -1).T
         elif a.ndim == 3:
             a = a.transpose(2, 1, 0)
+        elif a.ndim == 5:
+            a = a.transpose(4, 3, 0, 1, 2)
         else:
             a = a.T
     elif name == "bias" and parent in _DENSE_GENERAL:
@@ -80,4 +85,22 @@ def to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
         for path, leaf in flatten(tree).items():
             key, a = convert_leaf(path, leaf)
             sd[f"{prefix}.{key}"] = torch.from_numpy(a)
+    return sd
+
+
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def onset_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX onset net's ``{"params", "batch_stats"}`` tree (numpy or JAX
+    arrays) -> a ``state_dict`` for ``VideoOnsetNet.load_state_dict(
+    strict=True)``."""
+    sd = {}
+    for path, leaf in flatten(variables["params"]).items():
+        key, a = convert_leaf(path, leaf)
+        sd[key] = torch.from_numpy(a)
+    for path, leaf in flatten(variables.get("batch_stats", {})).items():
+        *mods, name = path
+        sd[".".join([*mods, _BN_STATS[name]])] = torch.from_numpy(
+            np.array(leaf, dtype=np.float32, order="C"))
     return sd

@@ -1,15 +1,19 @@
-"""Configuration of the diffusion system, without a YAML dependency.
+"""Configuration of the diffusion system and the onset model, without a
+YAML dependency.
 
 The model defaults are the values of ``exp/model/diffusion.yaml`` (the
 reference's hyperparameters); ``TrainConfig``'s are those of
-``exp/train_diffusion_gh.yaml``.  ``from_dict`` reads an already-loaded config
-node; ``from_yaml`` reads the file itself and needs PyYAML, which only the
-callers that use it must have.
+``exp/train_diffusion_gh.yaml``; ``OnsetConfig``'s those of
+``cfg/data/data-onset-greatesthit.yaml``, ``cfg/model/model-onset.yaml`` and
+``cfg/trainer/trainer-onset.yaml``.  ``from_dict`` reads an already-loaded
+config node; ``from_yaml`` reads the file itself and needs PyYAML, which only
+the callers that use it must have.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Mapping, Optional
 
 
@@ -62,14 +66,23 @@ class EncoderConfig:
 
 
 def _from_dict(cls, node: Mapping[str, Any]):
-    """Build ``cls`` from the keys of ``node`` it knows; lists become tuples.
+    """Build ``cls`` from the keys of ``node`` it knows; lists become tuples,
+    and a string given for a float field (YAML 1.1 reads ``1e-4`` as one)
+    becomes a float.
 
     Keys the port has no use for (e.g. ``flash_attention``, a TPU execution
     switch: the port always runs its kernel on the card) are ignored.
     """
-    names = {f.name for f in dataclasses.fields(cls)}
-    kw = {k: tuple(v) if isinstance(v, list) else v
-          for k, v in node.items() if k in names}
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    kw = {}
+    for k, v in node.items():
+        if k not in fields:
+            continue
+        if isinstance(v, list):
+            v = tuple(v)
+        elif isinstance(v, str) and isinstance(fields[k].default, float):
+            v = float(v)
+        kw[k] = v
     return cls(**kw)
 
 
@@ -86,13 +99,16 @@ def model_configs(model_cfg: Optional[Mapping[str, Any]]
     return unet, EncoderConfig.from_dict(model_cfg["onsets_encoder"])
 
 
-def from_yaml(path) -> tuple[UNetConfig, EncoderConfig]:
-    """Read an ``exp/model/diffusion.yaml``-style file (needs PyYAML)."""
+def from_yaml(path, raw: bool = False):
+    """Read an ``exp/model/diffusion.yaml``-style file as its
+    ``(UNetConfig, EncoderConfig)``, or with ``raw`` any YAML file as the
+    dict it holds (needs PyYAML).  Numbers like ``1e-4``, which YAML 1.1
+    reads as strings, are left to the config classes to convert."""
     import yaml
 
     with open(path) as f:
         node = yaml.safe_load(f)
-    return model_configs(node["model"])
+    return node if raw else model_configs(node["model"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,3 +151,103 @@ class TrainConfig:
     lr_eps: float = 1e-6
     lr_weight_decay: float = 1e-3
     amodel: str = "HTSAT-tiny"
+
+
+@dataclasses.dataclass(frozen=True)
+class OnsetDataConfig:
+    """``cfg/data/data-onset-greatesthit.yaml``, with the keys that
+    ``script/train_onset_model.py`` reads with a default."""
+
+    root_dir: str = "data/greatest-hits/mic-mp4-processed"
+    train_split_file_path: str = "data/greatest-hits/mic-mp4-processed/train.txt"
+    val_split_file_path: str = "data/greatest-hits/mic-mp4-processed/val.txt"
+    test_split_file_path: str = "data/greatest-hits/mic-mp4-processed/test.txt"
+    train_data_to_use: float = 1.0
+    val_data_to_use: float = 1.0
+    test_data_to_use: float = 1.0
+    chunk_length_in_seconds: float = 2.0
+    augment: bool = False
+    batch_size: int = 16
+    num_workers: int = 8
+    frame_size: int = 112
+    fps: int = 15
+    wire: str = "uint8"  # "uint8", "yuv420" or "float"
+    device_jitter: bool = True
+    cache_decoded: bool = True
+    cache_decoded_mb: int = 8192
+
+
+@dataclasses.dataclass(frozen=True)
+class OnsetModelConfig:
+    """``cfg/model/model-onset.yaml``; ``precision`` is ``"bf16"`` (bf16
+    convolutions over f32 parameters) or ``"32"`` (f32, no TF32)."""
+
+    precision: str = "bf16"
+    lr: float = 1e-4
+    lr_beta1: float = 0.9
+    lr_beta2: float = 0.999
+    lr_eps: float = 1e-8
+    lr_weight_decay: float = 1e-3
+    pretrained: bool = False
+    pretrained_path: Optional[str] = None
+    layers: tuple[int, ...] = (2, 2, 2, 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class OnsetTrainerConfig:
+    """``cfg/trainer/trainer-onset.yaml``."""
+
+    max_epochs: int = 100
+    check_val_every_n_epoch: int = 5
+    log_every_n_steps: int = 10
+    seed: int = 12345
+    logs_dir: str = "logs/onset"
+
+
+@dataclasses.dataclass(frozen=True)
+class OnsetConfig:
+    """The onset model's ``data``, ``model`` and ``trainer`` nodes."""
+
+    data: OnsetDataConfig = OnsetDataConfig()
+    model: OnsetModelConfig = OnsetModelConfig()
+    trainer: OnsetTrainerConfig = OnsetTrainerConfig()
+
+    @classmethod
+    def from_dict(cls, node: Mapping[str, Any]) -> "OnsetConfig":
+        """From a ``{"data": ..., "model": ..., "trainer": ...}`` node; a
+        missing key keeps its default.  ``precision`` becomes a string (the
+        YAML holds ``bf16`` or ``32``)."""
+        model = dict(node.get("model", {}))
+        if "precision" in model:
+            model["precision"] = str(model["precision"])
+        return cls(data=_from_dict(OnsetDataConfig, node.get("data", {})),
+                   model=_from_dict(OnsetModelConfig, model),
+                   trainer=_from_dict(OnsetTrainerConfig, node.get("trainer", {})))
+
+    @classmethod
+    def from_files(cls, paths) -> "OnsetConfig":
+        """``-c`` files merged in order, a later key over an earlier one (as
+        ``script/train_onset_model.py`` merges them): JSON, or YAML through
+        ``from_yaml`` where PyYAML is installed."""
+        node: dict = {}
+        for path in paths:
+            if str(path).endswith((".yaml", ".yml")):
+                overlay = from_yaml(path, raw=True) or {}
+            else:
+                with open(path) as f:
+                    overlay = json.load(f)
+            node = merge(node, overlay)
+        return cls.from_dict(node)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def merge(base: Mapping, overlay: Mapping) -> dict:
+    """Deep merge: ``overlay``'s keys win, nested dicts merge."""
+    out = dict(base)
+    for k, v in overlay.items():
+        if isinstance(out.get(k), Mapping) and isinstance(v, Mapping):
+            v = merge(out[k], v)
+        out[k] = v
+    return out

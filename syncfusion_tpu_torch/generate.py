@@ -50,13 +50,14 @@ def onset_track(times: np.ndarray, length: int = LENGTH, sr: int = SR) -> np.nda
     return onsets
 
 
-def restore_model(directory) -> dict:
-    """The model state dict of a ``train_diffusion`` checkpoint directory:
-    its best step by the monitored metric, else its latest (the reference's
+def restore_model(directory, monitor: str = "valid_loss") -> dict:
+    """The model state dict of a training checkpoint directory
+    (``train_diffusion``'s; ``train_onset``'s with ``monitor="loss/val"``):
+    its best step by ``monitor``, else its latest (the reference's
     ``restore_params``)."""
     if not Path(directory).is_dir():
         raise FileNotFoundError(f"no checkpoint directory {directory}")
-    ckpt = Checkpointer(CheckpointConfig(directory))
+    ckpt = Checkpointer(CheckpointConfig(directory, monitor=monitor))
     step = ckpt.best_step()
     if step is None:
         step = ckpt.latest_step()

@@ -40,9 +40,11 @@ class OptimizerConfig:
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place: every gradient times
     ``max_norm / norm`` when the global norm is at least ``max_norm`` (no
-    epsilon), untouched below it.  Returns the norm; never syncs the host."""
+    epsilon), untouched below it.  Returns the norm, taken in at least f32;
+    never syncs the host."""
+    acc = torch.promote_types(grads[0].dtype, torch.float32)
     norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+        torch.stack([torch.linalg.vector_norm(g, dtype=acc) for g in grads]))
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(factor.to(g.dtype))

@@ -2,7 +2,8 @@
 K1 (the flash-attention forward), K2a and K2b (its backward), all on the
 tensor cores with f32 as 3xTF32, and K3 and K4 (the fused resnet chain, on
 the tensor cores too: bf16 with hi + lo bf16 activations, f32 as 3xTF32);
-and the DeepCache samplers through K1 against the plain attention.
+the DeepCache samplers through K1 against the plain attention; and the
+onset net and its train step on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so that it also runs where JAX is not installed:
@@ -20,9 +21,11 @@ import pytest
 import torch
 
 from syncfusion_tpu_torch.models.blocks import SelfAttention1d
+from syncfusion_tpu_torch.models.onset_net import VideoOnsetNet
 from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
 from syncfusion_tpu_torch.ops import attention as ta
 from syncfusion_tpu_torch.ops import fused_resblock as fr
+from syncfusion_tpu_torch.train.onset_trainer import OnsetTrainer, bc_loss
 
 pytestmark = pytest.mark.cuda
 
@@ -467,3 +470,62 @@ def test_cached_sampling_through_the_kernel_on_card(no_tf32, sampler):
     want = model.sample(noise, onsets, emb, **kw)
     assert torch.isfinite(got).all() and got.shape == (2, 2048, 1)
     assert _rel(got, want) <= 1e-3
+
+
+@pytest.fixture
+def exact_f32(card):
+    """f32 without TF32 in cuDNN and in matmuls, as precision 32 trains."""
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield card
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def test_onset_net_and_train_step_on_card_match_cpu(exact_f32):
+    """The onset net (R(2+1)D-10, 2 chunks of 8 frames at 32x32) in f32:
+    on the card against the CPU on the same weights and frames, the
+    eval-mode logits and the train-mode loss within 1e-4 relative, the
+    BatchNorm buffers after the train forward within 1e-4 of each one's
+    largest value, the gradients within 1e-3 of max(max |g|, 1e-3 of the
+    largest gradient) per tensor (chip_smoke.py's TRAIN_GRAD_TOL and
+    GRAD_FLOOR), the CPU taking the card's ReLU masks (f32 rounding flips a
+    few ReLU inputs, and a flip moves a weight gradient by far more than
+    rounding: chip_smoke.py, ONSET_TOL); then one OnsetTrainer step on the
+    card on the uint8 wire."""
+    import copy
+
+    from syncfusion_tpu_torch.models.onset_net import ReluTape
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 8, 32, 32, 3), generator=gen)
+    labels = (torch.rand((2, 8), generator=gen) < 0.3).float()
+    cpu = VideoOnsetNet((1, 1, 1, 1)).init(0)
+    gpu = copy.deepcopy(cpu).cuda()
+    with torch.no_grad():
+        assert _rel(gpu.eval()(x.cuda()).cpu(), cpu.eval()(x)) <= 1e-4
+
+    def loss_and_grads(net, frames, y, tape):
+        with tape:
+            net.train().zero_grad()
+            loss = bc_loss(net(frames), y)
+            loss.backward()
+        return loss.item(), {k: p.grad.cpu() for k, p in net.named_parameters()}
+
+    card = ReluTape()
+    loss_g, grads_g = loss_and_grads(gpu, x.cuda(), labels.cuda(), card)
+    loss_c, grads_c = loss_and_grads(cpu, x, labels, ReluTape(replay=card))
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    buffers_g = dict(gpu.named_buffers())
+    for name, b in cpu.named_buffers():
+        assert _rel(buffers_g[name].cpu(), b) <= 1e-4, name
+    top = max(g.abs().max().item() for g in grads_c.values())
+    for name, g in grads_c.items():
+        scale = max(g.abs().max().item(), 1e-3 * top)
+        assert (grads_g[name] - g).abs().max().item() <= 1e-3 * scale, name
+
+    trainer = OnsetTrainer(gpu)
+    state = trainer.create_state()
+    wire = torch.randint(0, 256, (2, 8, 32, 32, 3), dtype=torch.uint8, device="cuda")
+    metrics, logits = trainer.train_step(state, {"frames": wire, "label": labels.cuda()})
+    assert state.step == 1 and logits.shape == (2, 8)
+    assert math.isfinite(metrics["loss/train"].item())

@@ -50,6 +50,17 @@ def test_port_imports_nothing_of_jax(path):
         assert mod not in FORBIDDEN, f"{path.name} imports {mod} (in {func})"
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_pil_only_in_functions_and_never_sklearn(path):
+    """PIL and scikit-learn are not among the packages the card's machine
+    promises (scikit-learn is absent there): the port and chip_smoke.py
+    import PIL only inside the functions that decode or draw, and
+    scikit-learn nowhere."""
+    for mod, func in _imports(ast.parse(path.read_text())):
+        assert mod != "sklearn", f"{path.name} imports sklearn (in {func})"
+        assert mod != "PIL" or func is not None, f"{path.name} imports PIL at module level"
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -63,6 +74,29 @@ def test_config_defaults_are_the_yaml():
     from syncfusion_tpu_torch.core.config import EncoderConfig, UNetConfig, from_yaml
 
     assert from_yaml(ROOT / "exp/model/diffusion.yaml") == (UNetConfig(), EncoderConfig())
+
+
+def test_onset_config_defaults_are_the_yaml():
+    """OnsetConfig's defaults hold every key of the onset YAMLs, and the
+    f32 overlay merged after them gives precision 32."""
+    from syncfusion_tpu_torch.core.config import OnsetConfig, from_yaml
+
+    cfg = OnsetConfig()
+    files = {"data": "cfg/data/data-onset-greatesthit.yaml",
+             "model": "cfg/model/model-onset.yaml",
+             "trainer": "cfg/trainer/trainer-onset.yaml"}
+    for node, path in files.items():
+        got = getattr(cfg, node)
+        for key, val in from_yaml(ROOT / path, raw=True)[node].items():
+            if isinstance(getattr(got, key), float):
+                val = float(val)  # YAML 1.1 reads 1e-4 as a string
+            assert getattr(got, key) == val, (node, key)
+    merged = OnsetConfig.from_files([ROOT / p for p in files.values()])
+    assert merged == cfg
+    f32 = OnsetConfig.from_files([ROOT / p for p in files.values()]
+                                 + [ROOT / "cfg/model/model-onset-f32.yaml"])
+    assert f32.model.precision == "32" and f32.model.lr == 1e-4
+    assert f32.data == cfg.data and f32.trainer == cfg.trainer
 
 
 def test_generate_end_to_end_on_cpu(tmp_path, monkeypatch):
