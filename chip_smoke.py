@@ -76,7 +76,23 @@ Phases, each printed with its seconds; any failure exits non-zero:
      point (DPM-Solver++(2M), 32 steps, CFG 1.5 in the band, DeepCache K = 2,
      split 4) generates one 2^18-sample clip; K1 launches 153 times, its
      plain version never; one warm-up and 3 timed runs, each split into its
-     onset and generation parts.
+     onset and generation parts;
+ 14. CLAP at full width (HTSAT-tiny and roberta-base, seeded weights, f32
+     without TF32): (a) ``ClapEmbedder.embed_audio`` timed on the training
+     batch's conditioning chunks (B = 4 x 2^18 samples) and on one,
+     ``embed_text`` on 1 and 4 prompts (the hashed tokenizer: the card has
+     no roberta files), one warm-up and 3 runs each; (b) the same weights
+     on the CPU, B = 1: the audio and text embeddings and the dB mel
+     against the card's, gated; (c) ``train_diffusion.main`` with its
+     default embedder, CLAP, at phase 6's command line cut to 2
+     micro-steps (finite losses, 9 K1/K2a/K2b a forward or backward, no
+     plain call), then micro-steps fed through ``device_prefetch`` with
+     CLAP in the feeder thread against zero embeddings, in turns; (d)
+     ``video_to_foley.main`` on phase 13's chunks and onset net at the fast
+     point with ``--cond_wav`` (a seeded wav) and with ``--text``, one
+     warm-up and 3 runs each split into onset, CLAP and generation; 153 K1
+     a clip.  No TPU kernel lies inside CLAP: the JAX package runs it
+     through XLA.
 Phase 3 also holds the backward kernels K2a and K2b against their plain
 versions at the training shapes (with the time of SDPA's backward), times
 K1's f32 kernel per forward beside SDPA's f32 forward, and holds K3 and K4
@@ -90,6 +106,7 @@ this checkout: it imports no JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -241,6 +258,24 @@ ONSET_WARMUP, ONSET_TIMED = 2, 5
 ONSET_TOL = 1e-4
 ONSET_FLIP_TOL = 1e-5
 ONSET_CHECK_SHAPE = (2, 30, 64, 64, 3)
+# phase 14, CLAP at full width (HTSAT-tiny, roberta-base), f32 without TF32
+# as the JAX embedder computes it.  Card against CPU on the same weights and
+# input: the unit-norm audio and text embeddings within CLAP_EMB_TOL (both
+# sum in f32 in other orders, cuFFT against pocketfft and cuBLAS against the
+# CPU's GEMMs, through 12 Swin blocks or 12 RoBERTa layers; the CPU tests
+# held the port against the JAX package at ~1e-7 on tiny towers); the dB mel
+# within CLAP_DB_TOL dB where its power is at least CLAP_DB_FLOOR of the
+# largest.  Below that floor the dB value measures rounding: the frames that
+# repeat-padding leaves silent sit at the 1e-10 clamp, and near them an FFT
+# error of ~1e-7 of a frame's largest bin is a sizeable share of the power.
+CLAP_EMB_TOL = 1e-4
+CLAP_DB_TOL = 1e-3
+CLAP_DB_FLOOR = 1e-6
+CLAP_PROMPTS = ["hit wood", "scratch metal", "tap a ceramic plate", "rustle dry leaves"]
+CLAP_TRAIN_STEPS = 2
+# phase 14c's feed timing: micro-steps fed through device_prefetch, warm-up
+# and timed, in turns zero embeddings / CLAP / CLAP / zero embeddings
+CLAP_FEED_WARMUP, CLAP_FEED_STEPS = 2, 6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -513,9 +548,10 @@ def fused_work(b, c, cout, length, dtype, residual):
 
 def device_ms(fn, tag: str, calls: int = 10) -> tuple:
     """Device time per call of ``fn`` from torch.profiler's trace: of the
-    kernels whose name holds ``tag``, and of every kernel the call runs.
-    Unlike CUDA events around eager calls, it leaves out the time the card
-    waits for the host between them."""
+    kernels whose name holds ``tag``, and of every kernel the call runs;
+    then the count of kernels and copies per call.  Unlike CUDA events
+    around eager calls, it leaves out the time the card waits for the host
+    between them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -524,13 +560,14 @@ def device_ms(fn, tag: str, calls: int = 10) -> tuple:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    tagged = every = 0.0
+    tagged = every = launches = 0.0
     for event in prof.key_averages():
         ms = event.self_device_time_total / 1e3 / calls
         every += ms
+        launches += event.count / calls if ms > 0 else 0
         if tag in event.key:
             tagged += ms
-    return tagged, every
+    return tagged, every, launches
 
 
 def phase_fused_kernels(fr, dtypes=(torch.bfloat16, torch.float32)):
@@ -897,10 +934,13 @@ def reset_counts(attn, fr) -> None:
     fr.reset_counts()
 
 
-def phase_train(attn, fr, tmp: str, name: str, model_cfg=None):
-    """Phases 6 and 10: the training command line at full width, f32, with
-    the default model or ``model_cfg`` (passed as ``--model_config``).
-    Returns (final state, launch counts, seconds per micro-step, peak GiB)."""
+def phase_train(attn, fr, tmp: str, name: str, model_cfg=None, embedder="none",
+                steps: int = TRAIN_STEPS):
+    """Phases 6, 10 and 14c: the training command line at full width, f32,
+    ``steps`` micro-steps, with the default model or ``model_cfg`` (passed
+    as ``--model_config``), and ``--embedder embedder`` (None: the default,
+    CLAP).  Returns (final state, launch counts, seconds per micro-step,
+    peak GiB)."""
     from syncfusion_tpu_torch import train_diffusion
     from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
 
@@ -908,14 +948,15 @@ def phase_train(attn, fr, tmp: str, name: str, model_cfg=None):
     if not os.path.exists(shard):
         write_shard(shard)
     logs = os.path.join(tmp, name)
-    args = ["--train_path", shard, "--val_path", shard,
-            "--logs_dir", logs, "--embedder", "none",
+    args = ["--train_path", shard, "--val_path", shard, "--logs_dir", logs,
             "--precision", "32", "--batch_size", str(BATCH), "--length", str(LENGTH),
             "--accumulate_grad_batches", str(ACCUMULATE),
-            "--max_steps", str(TRAIN_STEPS), "--log_every_n_steps", "1",
-            "--val_check_interval", str(TRAIN_STEPS), "--val_batches", "1",
+            "--max_steps", str(steps), "--log_every_n_steps", "1",
+            "--val_check_interval", str(steps), "--val_batches", "1",
             "--num_items", str(SAMPLE_ITEMS), "--sampling_steps", str(SAMPLE_STEPS),
             "--device", "cuda"]
+    if embedder is not None:
+        args += ["--embedder", embedder]
     if model_cfg is not None:
         path = os.path.join(tmp, f"{name}.json")
         with open(path, "w") as f:
@@ -937,19 +978,25 @@ def phase_train(attn, fr, tmp: str, name: str, model_cfg=None):
     print(f"  train losses {['%.5f' % x for x in losses]}, valid loss "
           f"{['%.5f' % x for x in valid]}, sec per micro-step "
           f"{['%.3f' % r['sec_per_step'] for r in train]}")
-    check(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
+    check(state.step == steps and len(losses) == steps,
           f"took {state.step} micro-steps, logged {len(losses)}")
     check(all(math.isfinite(x) for x in losses + valid), "non-finite loss")
+    # a wav and a mel panel per clip; the panels need PIL, which the card's
+    # machine does not promise (the sample logger logs their failure)
     media = sorted(os.listdir(os.path.join(run, "media")))
-    check(len(media) == SAMPLE_ITEMS, f"sample logger wrote {media}")
+    wavs = [m for m in media if m.endswith(".wav")]
+    pngs = [m for m in media if m.endswith(".png")]
+    has_pil = importlib.util.find_spec("PIL") is not None
+    check(len(wavs) == SAMPLE_ITEMS and len(pngs) == SAMPLE_ITEMS * has_pil,
+          f"sample logger wrote {media}")
     saved = Checkpointer(CheckpointConfig(os.path.join(run, "ckpts"))).restore()
     state.model.load_state_dict(saved["model"], strict=True)
-    check(saved["step"] == TRAIN_STEPS and saved["optimizer"]["adamw"]["state"],
+    check(saved["step"] == steps and saved["optimizer"]["adamw"]["state"],
           "checkpoint lacks the step or the optimizer state")
     # forwards: one per micro-step, one validation batch, one per sampler
     # step (CFG runs both branches as one forward); backwards: one per
     # micro-step
-    forwards, backwards = TRAIN_STEPS + 1 + SAMPLE_STEPS, TRAIN_STEPS
+    forwards, backwards = steps + 1 + SAMPLE_STEPS, steps
     fused = model_cfg is not None
     want = {"kernel_launches": 9 * forwards, "dq_launches": 9 * backwards,
             "dkv_launches": 9 * backwards, "plain_calls": 0, "plain_bwd_calls": 0,
@@ -1242,7 +1289,8 @@ def phase_video_to_foley(attn, fr) -> dict:
     clip at the fast point; one warm-up and ``TIMED_RUNS`` runs, each
     timed in two parts and gated: the times are those the logits of one
     batched forward give (raw logit > 0.5, deduplicated), the clip is
-    finite, K1 launched 153 times.  Returns the last run's counts."""
+    finite, K1 launched 153 times.  Returns the last run's counts, the
+    chunks, the onset net's state dict and the onset times."""
     from syncfusion_tpu_torch import video_to_foley
     from syncfusion_tpu_torch.eval.onset_annotations import dedup_consecutive
     from syncfusion_tpu_torch.generate import onset_track
@@ -1303,9 +1351,193 @@ def phase_video_to_foley(attn, fr) -> dict:
           f"(range {min(onset_s):.4f}-{max(onset_s):.4f}, {3 / statistics.median(onset_s):.2f} "
           f"chunks/s), generation {statistics.median(gen_s):.3f} s (range "
           f"{min(gen_s):.3f}-{max(gen_s):.3f}); launches per run {launched}")
+    net_state = {k: v.cpu() for k, v in net.state_dict().items()}
     del net, model
     torch.cuda.empty_cache()
-    return launched
+    return launched, chunks, net_state, want
+
+
+def time_calls(fn, runs: int = TIMED_RUNS) -> list:
+    """One warm-up and ``runs`` calls of ``fn``, each on the host clock up
+    to ``torch.cuda.synchronize()``: the seconds of the timed calls."""
+    secs = []
+    for run in range(runs + 1):
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if run:
+            secs.append(time.perf_counter() - start)
+    return secs
+
+
+def spread(secs: list, scale: float = 1e3) -> str:
+    return (f"median {statistics.median(secs) * scale:.3f} (range "
+            f"{min(secs) * scale:.3f}-{max(secs) * scale:.3f})")
+
+
+def phase_clap() -> dict:
+    """Phases 14a and 14b: ``ClapEmbedder`` with seeded weights on the card;
+    ``embed_audio`` timed on the training batch's conditioning chunks
+    (B = 4 x 2^18 samples, repeat-padded to 10 s) and on one, ``embed_text``
+    on 1 and 4 prompts; then the same weights on the CPU, B = 1: audio and
+    text embeddings and the dB mel against the card's, gated.  Returns the
+    errors."""
+    from syncfusion_tpu_torch.models.clap.htsat import CLAP_SAMPLES, clap_mel, prepare_audio
+    from syncfusion_tpu_torch.models.clap.model import ClapEmbedder, ClapModel
+    from syncfusion_tpu_torch.ops.quantize import float32_to_int16
+
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    emb = ClapEmbedder(device="cuda", seed=0)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in emb.model.parameters())
+    print(f"  CLAP on the card: {params:,} parameters (HTSAT-tiny "
+          f"{sum(p.numel() for p in emb.model.audio_branch.parameters()):,}, roberta-base "
+          f"{sum(p.numel() for p in emb.model.text_branch.parameters()):,}), built in "
+          f"{time.perf_counter() - start:.3f} s")
+    chunks = (0.1 * np.random.default_rng(14).standard_normal((BATCH, LENGTH, 1))
+              ).astype(np.float32)
+    for rows in (BATCH, 1):
+        out = emb.embed_audio(chunks[:rows])
+        check(tuple(out.shape) == (rows, 1, 512) and bool(torch.isfinite(out).all())
+              and (out.norm(dim=-1) - 1.0).abs().max().item() <= 1e-5,
+              f"embed_audio: {tuple(out.shape)}")
+        secs = time_calls(lambda: emb.embed_audio(chunks[:rows]))
+        _, dev, launches = device_ms(lambda: emb.embed_audio(chunks[:rows]), "", calls=3)
+        print(f"  embed_audio, B={rows} chunks of {LENGTH} samples (repeat-padded to "
+              f"{CLAP_SAMPLES}): ms {spread(secs)}; device {dev:.3f} ms in "
+              f"{launches:.0f} kernels and copies a call")
+    for rows in (1, 4):
+        out = emb.embed_text(CLAP_PROMPTS[:rows])
+        check(tuple(out.shape) == (rows, 1, 512) and bool(torch.isfinite(out).all()),
+              f"embed_text: {tuple(out.shape)}")
+        secs = time_calls(lambda: emb.embed_text(CLAP_PROMPTS[:rows]))
+        _, dev, launches = device_ms(lambda: emb.embed_text(CLAP_PROMPTS[:rows]), "",
+                                     calls=3)
+        print(f"  embed_text, {rows} prompt(s), 77 tokens: ms {spread(secs)}; device "
+              f"{dev:.3f} ms in {launches:.0f} kernels and copies a call")
+    print(f"  peak memory of 14a {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    cpu = ClapEmbedder(device="cpu", model=ClapModel())
+    cpu.model.load_state_dict(emb.model.state_dict(), strict=True)
+    wav = chunks[:1]
+    err = {"audio": (emb.embed_audio(wav).cpu() - cpu.embed_audio(wav)).abs().max().item(),
+           "text": (emb.embed_text(CLAP_PROMPTS).cpu()
+                    - cpu.embed_text(CLAP_PROMPTS)).abs().max().item()}
+    x = torch.from_numpy(prepare_audio(float32_to_int16(wav[:, :, 0]))).float() / 32767.0
+    with torch.no_grad():
+        want, got = clap_mel(x).double(), clap_mel(x.cuda()).double().cpu()
+    power = 10.0 ** (want / 10.0)
+    live = power >= CLAP_DB_FLOOR * power.max()
+    err["db"] = (got - want).abs()[live].max().item()
+    err["db_all"] = (got - want).abs().max().item()
+    err["live"] = live.double().mean().item()
+    print(f"  card vs CPU, same weights, B=1: audio embedding max |diff| "
+          f"{err['audio']:.3e}, text ({len(CLAP_PROMPTS)} prompts) {err['text']:.3e} "
+          f"(tol {CLAP_EMB_TOL:.0e}); dB mel {err['db']:.3e} dB over the "
+          f"{err['live']:.4f} of bins with power >= {CLAP_DB_FLOOR:.0e} of the largest "
+          f"(tol {CLAP_DB_TOL:.0e}; over all bins {err['db_all']:.3e}, not gated)")
+    check(err["audio"] <= CLAP_EMB_TOL, "CLAP cross-check: audio embeddings disagree")
+    check(err["text"] <= CLAP_EMB_TOL, "CLAP cross-check: text embeddings disagree")
+    check(err["db"] <= CLAP_DB_TOL, "CLAP cross-check: the dB mel disagrees")
+    del emb, cpu
+    torch.cuda.empty_cache()
+    return err
+
+
+def feed_step_times(state, shard: str, embedder) -> list:
+    """Seconds per micro-step of training ``state`` on batches of ``shard``
+    made by ``train_diffusion.make_batches`` with ``embedder`` (its epochs
+    chained) and fed by ``device_prefetch``, as ``train_diffusion.main``
+    feeds them: the embedder runs in the feeder thread.  Each step is timed
+    from the end of the one before to its loss read, so a wait for the
+    feeder counts; ``CLAP_FEED_WARMUP`` steps, then ``CLAP_FEED_STEPS``
+    timed."""
+    import contextlib
+    import itertools
+
+    from syncfusion_tpu_torch.core.config import TrainConfig
+    from syncfusion_tpu_torch.data.prefetch import device_prefetch
+    from syncfusion_tpu_torch.train.diffusion_trainer import DiffusionTrainer
+    from syncfusion_tpu_torch.train_diffusion import make_batches
+
+    cfg = TrainConfig(batch_size=BATCH, length=LENGTH)
+    trainer = DiffusionTrainer(state.model, embedding_mask_proba=cfg.embedding_mask_proba)
+    batches = itertools.chain.from_iterable(
+        make_batches(shard, cfg, seed, embedder) for seed in itertools.count())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    secs = []
+    with contextlib.closing(device_prefetch(batches, torch.device("cuda"))) as stream:
+        last = time.perf_counter()
+        for i, batch in zip(range(CLAP_FEED_WARMUP + CLAP_FEED_STEPS), stream):
+            float(trainer.train_step(state, batch, gen)["train_loss"])
+            now = time.perf_counter()
+            if i >= CLAP_FEED_WARMUP:
+                secs.append(now - last)
+            last = now
+    return secs
+
+
+def phase_video_to_foley_clap(attn, fr, tmp: str, chunks: list, net_state: dict,
+                              want: list) -> dict:
+    """Phase 14d: ``video_to_foley.main`` on phase 13's chunks and onset net
+    (saved as a train_onset checkpoint), at the fast point, conditioned with
+    ``--cond_wav`` (a seeded 3-s stereo wav at 44.1 kHz) and with
+    ``--text``; one warm-up and ``TIMED_RUNS`` runs each, split into main's
+    onset, CLAP and generation parts (each with its models' set-up); the
+    onset times are phase 13's, K1 launches 153 times a clip.  Returns the
+    last run's launch counts of each condition."""
+    from syncfusion_tpu_torch import video_to_foley
+    from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
+    from syncfusion_tpu_torch.ops.wav import read_wav, write_wav
+
+    onset_dir = os.path.join(tmp, "onset")
+    Checkpointer(CheckpointConfig(onset_dir, monitor="loss/val")).save(
+        0, {"model": net_state}, {"loss/val": 1.0})
+    cond = os.path.join(tmp, "cond.wav")
+    rng = np.random.default_rng(5)
+    write_wav(cond, (0.1 * rng.standard_normal((2, 3 * 44100))).astype(np.float32), 44100)
+    out, clips = {}, {}
+    for label, flags in (("cond_wav", ["--cond_wav", cond]), ("text", ["--text", "hit wood"])):
+        parts = {"onset": [], "clap": [], "generation": []}
+        wall = []
+        for run in range(TIMED_RUNS + 1):
+            reset_counts(attn, fr)
+            torch.cuda.reset_peak_memory_stats()
+            clip = os.path.join(tmp, f"{label}.wav")
+            start = time.perf_counter()
+            res = video_to_foley.main([
+                "--video_dir", tmp, "--onset_ckpt", onset_dir, "--onset_layers", "2", "2",
+                "2", "2", "--sampler", "dpm", "--num_steps", str(FAST_STEPS),
+                "--embedding_scale", str(FAST_SCALE), "--deep_cache_interval", str(FAST_K),
+                "--deep_split", str(DEEP_SPLIT), "--output", clip, "--device", "cuda",
+                *flags], chunks=chunks)
+            seconds = time.perf_counter() - start
+            launched = counts(attn, fr)
+            expected = {k: FAST_K1 if k == "kernel_launches" else 0 for k in launched}
+            wav, sr = read_wav(clip)
+            check(res["times"].tolist() == want, f"video to Foley, {label}: onset times "
+                  f"{res['times']} != phase 13's {want}")
+            check(sr == SR and wav.shape == (1, LENGTH) and bool(np.isfinite(wav).all()),
+                  f"video to Foley, {label}: output {wav.shape}")
+            check(launched == expected,
+                  f"video to Foley, {label}: launch counts {launched} != {expected}")
+            print(f"  video to Foley --{label}, {'warm-up' if run == 0 else f'run {run}'}: "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in res["seconds"].items())
+                  + f", main {seconds:.3f} s, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+            if run:
+                wall.append(seconds)
+                for k, v in res["seconds"].items():
+                    parts[k].append(v)
+        clips[label] = wav
+        out[label] = launched
+        print(f"  video to Foley --{label} per clip over {TIMED_RUNS} runs, s: main "
+              f"{spread(wall, 1)}; " + "; ".join(f"{k} {spread(v, 1)}" for k, v in parts.items())
+              + f"; launches per run {launched}")
+    check(np.abs(clips["cond_wav"] - clips["text"]).max() > 1e-3,
+          "video to Foley: the --cond_wav and --text clips are the same")
+    return out
 
 
 def main() -> int:
@@ -1329,10 +1561,8 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
-    import importlib.util
-
     print("  importable here (information only): " + ", ".join(
-        f"{name} {importlib.util.find_spec(name) is not None}" for name in ("PIL", "sklearn")))
+        f"{name} {importlib.util.find_spec(name) is not None}" for name in ("PIL", "sklearn", "regex", "transformers")))
     phase("1 environment", t0)
 
     t0 = time.perf_counter()
@@ -1550,8 +1780,44 @@ def main() -> int:
     phase("12 onset cross-check", t0)
 
     t0 = time.perf_counter()
-    v2f_launched = phase_video_to_foley(attn, fr)
+    v2f_launched, v2f_chunks, v2f_net, v2f_times = phase_video_to_foley(attn, fr)
     phase("13 video to Foley at full width", t0)
+
+    t0 = time.perf_counter()
+    clap_err = phase_clap()
+    phase("14ab CLAP at full width, card against CPU", t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        state, clap_train, sec_c, peak_c = phase_train(
+            attn, fr, tmp, "clap", embedder=None, steps=CLAP_TRAIN_STEPS)
+        print(f"  CLAP-conditioned training (default embedder), f32, B={BATCH}, "
+              f"L={LENGTH}: {sec_c:.4f} s at micro-step {CLAP_TRAIN_STEPS} (phase 6, "
+              f"zero embeddings: {sec:.4f}, median of steps 2-{TRAIN_STEPS}), peak "
+              f"memory {peak_c:.3f} GiB (phase 6: {peak:.3f})")
+        from syncfusion_tpu_torch.models.clap import ClapEmbedder
+        from syncfusion_tpu_torch.models.embedder import ZeroEmbedder
+
+        clap = ClapEmbedder(device="cuda")
+        zero = ZeroEmbedder(512, device="cuda")
+        feed = {"zero": [], "clap": []}
+        for label in ("zero", "clap", "clap", "zero"):
+            secs = feed_step_times(state, os.path.join(tmp, "shard.tar"),
+                                   clap if label == "clap" else zero)
+            feed[label].append(statistics.median(secs))
+            print(f"  fed micro-steps, {label} embeddings in the feeder thread: s "
+                  f"{spread(secs, 1)}", flush=True)
+        med = {k: statistics.median(v) for k, v in feed.items()}
+        print(f"  CLAP in the feeder thread: {med['clap']:.4f} s per micro-step against "
+              f"{med['zero']:.4f} with zero embeddings ({med['clap'] / med['zero']:.4f}x; "
+              f"turns {feed})")
+        del state, clap
+        torch.cuda.empty_cache()
+        phase("14c CLAP-conditioned training", t0)
+
+        t0 = time.perf_counter()
+        v2f_clap = phase_video_to_foley_clap(attn, fr, tmp, v2f_chunks, v2f_net, v2f_times)
+        phase("14d CLAP-conditioned video to Foley", t0)
 
     fwd16, fwd32 = total[torch.bfloat16, ROWS], total[torch.float32, ROWS]
     serve16 = total[torch.bfloat16, SERVE_ROWS]
@@ -1559,7 +1825,9 @@ def main() -> int:
     paths = {"generate": gen_launched, "generate_serving": serve_launched,
              "generate_fast": fast_launched, "train": train_launched,
              "generate_fused": fused_launched, "train_fused": fused_train,
-             "video_to_foley": v2f_launched}
+             "video_to_foley": v2f_launched, "train_clap": clap_train,
+             "video_to_foley_cond_wav": v2f_clap["cond_wav"],
+             "video_to_foley_text": v2f_clap["text"]}
 
     def launched_by_path(key):
         return {p_: c_[key] for p_, c_ in paths.items()}
@@ -1687,6 +1955,7 @@ def main() -> int:
                       for dtype, reports in fused_regs.items()},
         })
     rows[3]["ms_fused_resnet_alone"] = k3_alone_ms
+    print(f"  CLAP card vs CPU errors: {clap_err}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,14 +8,16 @@ is the leaf's layout:
   * ``Dense`` kernel (in, out) -> ``Linear`` weight (out, in);
   * ``DenseGeneral`` kernel (in, *out) (qkv: (C, 3, H, D)) -> (prod(out), in),
     its bias (*out) -> (prod(out),);
-  * ``Conv`` kernel (k, in, out) -> (out, in, k), and a 3-D one
-    (kt, kh, kw, in, out) -> (out, in, kt, kh, kw);
+  * ``Conv`` kernel (k, in, out) -> (out, in, k), a 2-D one (kh, kw, in,
+    out) -> (out, in, kh, kw) and a 3-D one (kt, kh, kw, in, out) -> (out,
+    in, kt, kh, kw);
   * ``ConvTranspose`` kernel (k, in, out) -> (in, out, k) flipped along k:
     Flax does not flip the kernel (``transpose_kernel=False``), torch's
     transposed convolution does;
-  * ``GroupNorm`` and ``BatchNorm`` scale -> weight; BatchNorm's
-    ``batch_stats`` mean and var -> the buffers running_mean and
-    running_var (``onset_state_dict``).
+  * ``GroupNorm``, ``BatchNorm`` and ``LayerNorm`` scale -> weight;
+    BatchNorm's ``batch_stats`` mean and var -> the buffers running_mean and
+    running_var (``onset_state_dict``);
+  * ``Embed`` embedding -> ``nn.Embedding`` weight (``clap_state_dict``).
 """
 
 from __future__ import annotations
@@ -64,13 +66,15 @@ def convert_leaf(path: tuple, a: np.ndarray) -> tuple[str, np.ndarray]:
             a = a.reshape(a.shape[0], -1).T
         elif a.ndim == 3:
             a = a.transpose(2, 1, 0)
+        elif a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
         elif a.ndim == 5:
             a = a.transpose(4, 3, 0, 1, 2)
         else:
             a = a.T
     elif name == "bias" and parent in _DENSE_GENERAL:
         a = a.reshape(-1)
-    elif name == "scale":
+    elif name in ("scale", "embedding"):
         name = "weight"
     return ".".join([*mods, name]), np.array(a, dtype=np.float32, order="C")
 
@@ -103,4 +107,16 @@ def onset_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
         *mods, name = path
         sd[".".join([*mods, _BN_STATS[name]])] = torch.from_numpy(
             np.array(leaf, dtype=np.float32, order="C"))
+    return sd
+
+
+def clap_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``ClapModel``'s ``{"params"}`` tree (numpy or JAX arrays) ->
+    a ``state_dict`` for the port's ``ClapModel.load_state_dict(strict=True)``;
+    the mel BatchNorm's ``mel_bn_*`` parameters become its buffers as they
+    are."""
+    sd = {}
+    for path, leaf in flatten(variables.get("params", variables)).items():
+        key, a = convert_leaf(path, leaf)
+        sd[key] = torch.from_numpy(a)
     return sd

@@ -6,6 +6,9 @@ checkpoints by the monitored metric **and** always the latest
 (``save_last``).  Each checkpoint is one file, ``step_{step}.pt``, written to
 a temporary name and renamed, so a file that exists is whole; the metrics of
 every kept step are in ``metrics.json`` beside them.
+
+``load_torch_state_dict`` reads a state dict saved by another program
+(laion_clap's checkpoint), plain or nested under ``"state_dict"``.
 """
 
 from __future__ import annotations
@@ -103,3 +106,14 @@ class Checkpointer:
         if step is None or not self.path(step).exists():
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         return torch.load(self.path(step), map_location="cpu", weights_only=True)
+
+
+def load_torch_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
+    """A ``.pt``/``.ckpt`` file -> ``{name: tensor}`` on the CPU: a plain
+    state dict, or a Lightning or laion_clap checkpoint that nests it under
+    ``"state_dict"``.  Entries that are not tensors are dropped.  Read with
+    ``weights_only=True``: a file that pickles other objects is refused."""
+    blob = torch.load(str(path), map_location="cpu", weights_only=True)
+    if isinstance(blob, Mapping) and "state_dict" in blob:
+        blob = blob["state_dict"]
+    return {k: v for k, v in blob.items() if isinstance(v, torch.Tensor)}

@@ -20,7 +20,8 @@ import torch
 
 def to_device(batch: Mapping, device: torch.device) -> dict:
     """numpy arrays of ``batch`` -> tensors on ``device``; other entries
-    (texts, file names) pass through."""
+    (tensors the embedder made on the device, texts, file names) pass
+    through."""
     pin = device.type == "cuda"
     out = {}
     for key, val in batch.items():

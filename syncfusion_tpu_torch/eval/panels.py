@@ -1,15 +1,61 @@
-"""Label line plots of the onset model's test run (port of
-``write_label_plot`` of ``syncfusion_tpu/eval/panels.py``).  The mel panels
-of that module wait on ``ops/mel`` (ROADMAP.md, port queue: 'CLAP').  PIL
-is imported inside the function, so the module imports without it: PIL is
-not among the card machine's promised packages, and only the ``test``
-subcommand draws."""
+"""Spectrogram panels of the diffusion trainer's sample logger and label
+line plots of the onset model's test run (port of ``write_spec_panel``,
+``spec_to_image``, ``_colormap`` and ``write_label_plot`` of
+``syncfusion_tpu/eval/panels.py``).  PIL is imported inside the functions
+that draw, so the module imports without it: PIL is not among the card
+machine's promised packages."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
 import numpy as np
+
+# compact viridis approximation (anchor colours, linearly interpolated)
+_VIRIDIS = np.array(
+    [[68, 1, 84], [59, 82, 139], [33, 145, 140], [94, 201, 98], [253, 231, 37]],
+    np.float32,
+)
+
+
+def _colormap(x: np.ndarray) -> np.ndarray:
+    """x in [0, 1] -> (..., 3) uint8 viridis-like colours."""
+    x = np.clip(x, 0.0, 1.0) * (len(_VIRIDIS) - 1)
+    i = np.clip(x.astype(int), 0, len(_VIRIDIS) - 2)
+    frac = (x - i)[..., None]
+    rgb = _VIRIDIS[i] * (1 - frac) + _VIRIDIS[i + 1] * frac
+    return rgb.astype(np.uint8)
+
+
+def spec_to_image(spec: np.ndarray, upscale: int = 3):
+    """(H, W) spectrogram (any range) -> PIL image, min-max scaled, low
+    frequencies at the bottom, each bin ``upscale`` pixels square."""
+    from PIL import Image
+
+    s = np.asarray(spec, np.float32)
+    rng = s.max() - s.min()
+    s = (s - s.min()) / rng if rng > 0 else np.zeros_like(s)
+    img = Image.fromarray(_colormap(s[::-1]))
+    return img.resize((img.width * upscale, img.height * upscale), Image.NEAREST)
+
+
+def write_spec_panel(out_dir: str | Path, name: str, specs: dict[str, np.ndarray],
+                     step: int = 0) -> Path:
+    """Write ``{name}_step{step:08d}.png``, one row per entry of ``specs``
+    (e.g. ``{"sample": mel}``); returns its path."""
+    from PIL import Image
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rows = [spec_to_image(s) for s in specs.values()]
+    panel = Image.new("RGB", (max(r.width for r in rows), sum(r.height for r in rows)))
+    y = 0
+    for r in rows:
+        panel.paste(r, (0, y))
+        y += r.height
+    path = out_dir / f"{name}_step{step:08d}.png"
+    panel.save(path)
+    return path
 
 
 def write_label_plot(

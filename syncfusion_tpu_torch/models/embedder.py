@@ -1,33 +1,50 @@
-"""Embedders of the conditioning audio (port of
+"""Embedders of the conditioning audio and text (port of
 ``syncfusion_tpu/models/embedder.py``).
 
-Only ``ZeroEmbedder`` is ported; CLAP is ROADMAP's port queue item 'CLAP'
-and raises rather than being replaced by zeros.
+Both return (B, 1, E) f32 tensors on their device, which the training feed
+passes to the trainer as they are.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from typing import Optional
 
-CLAP_TODO = ("the CLAP embedder is not ported yet (ROADMAP.md, port queue: "
-             "'CLAP'); pass embedder 'none' for zero embeddings")
+import numpy as np
+import torch
+
+from syncfusion_tpu_torch.device import default_device
 
 
 class ZeroEmbedder:
     """Zero (B, 1, E) embeddings: keeps the pipeline shape-identical
-    without CLAP weights (smoke runs, unconditional ablations)."""
+    without CLAP (smoke runs, unconditional ablations)."""
 
-    def __init__(self, embedding_features: int = 512):
+    def __init__(self, embedding_features: int = 512, device=None):
         self.embedding_features = embedding_features
+        self.device = default_device(device)
 
-    def embed_audio(self, wav: np.ndarray) -> np.ndarray:
-        return np.zeros((np.asarray(wav).shape[0], 1, self.embedding_features),
-                        np.float32)
+    def _zeros(self, rows: int) -> torch.Tensor:
+        return torch.zeros((rows, 1, self.embedding_features), device=self.device)
+
+    def embed_audio(self, wav: np.ndarray) -> torch.Tensor:
+        return self._zeros(np.asarray(wav).shape[0])
+
+    def embed_text(self, texts: list[str]) -> torch.Tensor:
+        return self._zeros(len(texts))
 
 
-def build_embedder(amodel: str | None, embedding_features: int = 512):
-    """``amodel`` of the config's embedder node -> an embedder: None or
-    ``"none"`` gives ``ZeroEmbedder``; a CLAP model raises."""
+def build_embedder(amodel: str | None, embedding_features: int = 512, device=None,
+                   checkpoint_path: Optional[str] = None,
+                   tokenizer_path: Optional[str] = None):
+    """``amodel`` of the config's embedder node -> an embedder on ``device``:
+    None or ``"none"`` gives ``ZeroEmbedder``; ``"HTSAT-tiny"`` gives CLAP
+    with the laion checkpoint ``checkpoint_path`` (random weights without
+    one)."""
     if amodel in (None, "none"):
-        return ZeroEmbedder(embedding_features)
-    raise NotImplementedError(f"embedder amodel {amodel!r}: {CLAP_TODO}")
+        return ZeroEmbedder(embedding_features, device)
+    if amodel != "HTSAT-tiny":
+        raise ValueError(f"embedder amodel {amodel!r}: the reference's CLAP is "
+                         "'HTSAT-tiny'")
+    from syncfusion_tpu_torch.models.clap import ClapEmbedder
+
+    return ClapEmbedder(checkpoint_path, tokenizer_path, device=device)

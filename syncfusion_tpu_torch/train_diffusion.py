@@ -2,7 +2,8 @@
 
     python -m syncfusion_tpu_torch.train_diffusion \\
         --train_path "data/.../train_shard_{1..3}.tar" \\
-        --val_path data/.../val_shard_1.tar --logs_dir logs --embedder none \\
+        --val_path data/.../val_shard_1.tar --logs_dir logs \\
+        [--clap_ckpt 630k-audioset-best.pt | --embedder none] \\
         [--ckpt logs/runs/<run>/ckpts] [--model_config model.json] \\
         [--<key> <value> for any key of TrainConfig, e.g. --batch_size 2]
 
@@ -11,13 +12,16 @@ batch 4 chunks of 2^18 samples, gradient accumulation 2, clip 0.5, AdamW,
 f32 compute (``--precision 32``: no TF32, the JAX package's parity policy)
 or ``--precision bf16`` (bf16 compute over f32 parameters).  Every
 ``val_check_interval`` micro-steps it computes the validation loss, writes
-``--num_items`` sampled clips to ``media/`` and saves a checkpoint (best
-``save_top_k`` by valid_loss and the latest); ``--ckpt DIR`` resumes from
-the latest checkpoint in DIR.  Metrics go to ``<logs_dir>/runs/<run>/
+``--num_items`` sampled clips and their mel panels to ``media/`` and saves
+a checkpoint (best ``save_top_k`` by valid_loss and the latest); ``--ckpt
+DIR`` resumes from the latest checkpoint in DIR.  Metrics go to ``<logs_dir>/runs/<run>/
 metrics.jsonl``.  ``--model_config``: JSON of the diffusion config's model
-node, as in ``generate.py``.  ``--embedder none`` conditions on zero
-embeddings; CLAP (the default, ``HTSAT-tiny``) is not ported yet and raises.
-Runs on the card; ``--device cpu`` runs on the CPU.
+node, as in ``generate.py``.  Each batch is conditioned on the CLAP
+embedding of its conditioning chunk (the default embedder, ``HTSAT-tiny``,
+with the laion checkpoint ``--clap_ckpt``, else random weights and a
+warning), computed on the device in the feeder thread; ``--embedder none``
+conditions on zero embeddings.  Runs on the card; ``--device cpu`` runs on
+the CPU.
 """
 
 from __future__ import annotations
@@ -41,8 +45,10 @@ from syncfusion_tpu_torch.core.logging import MetricLogger
 from syncfusion_tpu_torch.data.prefetch import device_prefetch, to_device
 from syncfusion_tpu_torch.data.sfx_dataset import batched, collate, create_sfx_dataset
 from syncfusion_tpu_torch.device import default_device
+from syncfusion_tpu_torch.eval.panels import write_spec_panel
 from syncfusion_tpu_torch.models.embedder import build_embedder
 from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
+from syncfusion_tpu_torch.ops.mel import mel_spectrogram, power_to_db
 from syncfusion_tpu_torch.ops.quantize import float32_to_int16
 from syncfusion_tpu_torch.train.diffusion_trainer import (
     DiffusionTrainer,
@@ -52,8 +58,6 @@ from syncfusion_tpu_torch.train.diffusion_trainer import (
 
 log = logging.getLogger("syncfusion_tpu_torch.train_diffusion")
 
-MEL_TODO = ("sample logger: mel panels wait for ops/mel (ROADMAP.md, port "
-            "queue: 'CLAP'); writing the wavs only")
 PRECISIONS = {"32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -68,7 +72,7 @@ def dataset(path, cfg: TrainConfig, seed: int, train: bool):
 def make_batches(path, cfg: TrainConfig, seed: int, embedder, train: bool = True):
     """Dataset stream -> model batches in their wire formats: uint8 onsets,
     f32 or (``wire_int16``) int16 wav, and the embedding of each item's
-    conditioning chunk."""
+    conditioning chunk (a tensor on the embedder's device)."""
     stream = batched(dataset(path, cfg, seed, train), batch_size=cfg.batch_size,
                      drop_last=True, shuffle_size=cfg.shuffle_size, seed=seed)
     for b in stream:
@@ -95,13 +99,13 @@ def validate(trainer: DiffusionTrainer, state: TrainState, cfg: TrainConfig,
 
 class SampleLogger:
     """Samples ``num_items`` clips of the validation set at each validation
-    and writes them to ``media/`` (the reference's SampleLogger without its
-    mel panels)."""
+    and writes each to ``media/`` with the panel of its mel spectrogram
+    (the reference's SampleLogger: n_fft 1024, hop 512, 80 slaney-normed
+    mels of the power, ``power_to_db`` over the batch)."""
 
     def __init__(self, cfg: TrainConfig, val_path, embedder, device):
         self.cfg, self.val_path = cfg, val_path
         self.embedder, self.device = embedder, device
-        self._told = False
 
     def __call__(self, model, metrics_logger: MetricLogger, step: int) -> None:
         """Samples and writes them; a failure is logged as a warning, as the
@@ -117,20 +121,23 @@ class SampleLogger:
                                       cfg.num_items))
         if not items or not cfg.sampling_steps:
             return
-        if not self._told:
-            log.info(MEL_TODO)
-            self._told = True
         b = collate(items)
-        emb = torch.from_numpy(self.embedder.embed_audio(b["cond"])).to(self.device)
+        emb = self.embedder.embed_audio(b["cond"])
         onsets = torch.from_numpy(b["onsets"]).to(self.device)
         gen = torch.Generator(device=self.device).manual_seed(step)
         noise = torch.randn((len(items), cfg.length, 1), generator=gen,
                             device=self.device)
         for steps in cfg.sampling_steps:
             wavs = model.sample(noise, onsets, emb, num_steps=steps,
-                                embedding_scale=cfg.embedding_scale)
-            for i, w in enumerate(wavs[:, :, 0].cpu().numpy()):
+                                embedding_scale=cfg.embedding_scale)[:, :, 0].float()
+            mels = power_to_db(mel_spectrogram(
+                wavs, sample_rate=cfg.sampling_rate, n_fft=1024, hop_length=512,
+                n_mels=80, power=2.0, norm="slaney")).cpu().numpy()
+            for i, w in enumerate(wavs.cpu().numpy()):
                 metrics_logger.log_audio(f"sample_{i}", w, cfg.sampling_rate, step)
+            for i, mel in enumerate(mels):
+                write_spec_panel(metrics_logger.run_dir / "media",
+                                 f"mel_spectrogram_{i}_{steps}steps", {"sample": mel}, step)
 
 
 def _flag_type(default):
@@ -151,7 +158,10 @@ def parse_args(argv=None):
                     help="JSON of the diffusion config's model node "
                          "(default: exp/model/diffusion.yaml's values)")
     ap.add_argument("--embedder", dest="amodel", default=TrainConfig.amodel,
-                    help="'none' for zero embeddings (CLAP is not ported)")
+                    help="'HTSAT-tiny' (CLAP) or 'none' for zero embeddings")
+    ap.add_argument("--clap_ckpt", default=None,
+                    help="laion_clap checkpoint (630k-audioset-best.pt), the "
+                         "config's embedder_checkpoint")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; raises without one)")
     for f in dataclasses.fields(TrainConfig):
@@ -186,7 +196,10 @@ def main(argv=None) -> TrainState:
         with open(args.model_config) as f:
             model_cfg = json.load(f)
     embedder = build_embedder(cfg.amodel,
-                              model_configs(model_cfg)[0].embedding_features)
+                              model_configs(model_cfg)[0].embedding_features,
+                              device, checkpoint_path=args.clap_ckpt)
+    if not args.clap_ckpt:
+        log.warning("no CLAP checkpoint: the embedder is zero or random-weight")
     model = SyncFusionDiffusion.from_config(model_cfg, dtype=dtype,
                                             device=device, seed=cfg.seed)
     trainer = DiffusionTrainer(

@@ -4,6 +4,7 @@ sampling.
 
     python -m syncfusion_tpu_torch.video_to_foley --video_dir DIR \\
         [--onset_ckpt ONSET_RUN/ckpts] [--diffusion_ckpt RUN/ckpts] \\
+        [--text "hit wood" | --cond_wav timbre.wav] [--clap_ckpt CLAP.pt] \\
         [--model_config model.json] [--device cpu] --output foley.wav
 
 ``--video_dir`` is a preprocessed ``{video}/`` directory (``frames/*.jpg``,
@@ -17,10 +18,12 @@ conditions ``SyncFusionDiffusion.sample`` with the sampler flags of
 ``generate.py``; ``--diffusion_ckpt`` takes a ``train_diffusion``
 checkpoint directory as ``generate.py --ckpt`` does, and ``--model_config``
 a JSON of the diffusion config's model node (in place of the JAX script's
-``--override``).  The embedding is zeros: ``--text``, ``--cond_wav`` and
-``--clap_ckpt`` need CLAP, which is not ported yet, and raise; so does
-``--mux_video``.  Runs on the card; ``--device cpu`` runs on the CPU.
-Decoding the JPEG frames needs PIL.
+``--override``).  The clip is conditioned on the CLAP embedding of
+``--text`` or of ``--cond_wav`` (its channels' mean, resampled to 48 kHz),
+with the laion checkpoint ``--clap_ckpt`` (random CLAP weights without it),
+else on zeros.  ``--mux_video`` raises: muxing is not ported yet.  Runs on
+the card; ``--device cpu`` runs on the CPU.  Decoding the JPEG frames needs
+PIL.
 """
 
 from __future__ import annotations
@@ -36,15 +39,17 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
+from syncfusion_tpu_torch.core.config import model_configs
 from syncfusion_tpu_torch.data.onset_dataset import GreatestHitsDataset
 from syncfusion_tpu_torch.data.transforms import FrameTransform
 from syncfusion_tpu_torch.device import default_device
 from syncfusion_tpu_torch.eval.onset_annotations import dedup_consecutive
 from syncfusion_tpu_torch.generate import LENGTH, SR, onset_track, restore_model
-from syncfusion_tpu_torch.models.embedder import CLAP_TODO
+from syncfusion_tpu_torch.models.embedder import build_embedder
 from syncfusion_tpu_torch.models.onset_net import VideoOnsetNet
 from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
-from syncfusion_tpu_torch.ops.wav import write_wav
+from syncfusion_tpu_torch.ops.resample import resample
+from syncfusion_tpu_torch.ops.wav import read_wav, write_wav
 from syncfusion_tpu_torch.train.onset_trainer import OnsetTrainer
 
 log = logging.getLogger("syncfusion_tpu_torch.video_to_foley")
@@ -102,6 +107,30 @@ def load_onset_net(onset_ckpt, layers, device, seed: int = 0) -> VideoOnsetNet:
     return net.eval()
 
 
+def conditioning(text: str | None, cond_wav: str | None, clap_ckpt: str | None,
+                 features: int, device) -> torch.Tensor:
+    """The (1, 1, ``features``) embedding of the clip: CLAP's of ``text``,
+    else of the wav file ``cond_wav`` (mean over channels, resampled to 48
+    kHz), else zeros."""
+    if not (text or cond_wav):
+        return torch.zeros((1, 1, features), device=device)
+    embedder = build_embedder("HTSAT-tiny", features, device, checkpoint_path=clap_ckpt)
+    if not clap_ckpt:
+        log.warning("no --clap_ckpt: the CLAP weights are random")
+    if text:
+        return embedder.embed_text([text])
+    wav, sr = read_wav(cond_wav)
+    y = wav.mean(axis=0)
+    if sr != SR:
+        y = resample(y, sr, SR)
+    return embedder.embed_audio(y[None, :, None])
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--video_dir", required=True,
@@ -110,7 +139,8 @@ def parse_args(argv=None):
                     help="train_onset checkpoint directory")
     ap.add_argument("--diffusion_ckpt", default=None,
                     help="train_diffusion checkpoint directory")
-    ap.add_argument("--clap_ckpt", default=None)
+    ap.add_argument("--clap_ckpt", default=None,
+                    help="laion_clap checkpoint (630k-audioset-best.pt)")
     ap.add_argument("--cond_wav", default=None, help="timbre reference audio")
     ap.add_argument("--text", default=None, help="text condition instead of audio")
     ap.add_argument("--output", default="foley.wav")
@@ -140,43 +170,54 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None) -> np.ndarray:
-    """Writes ``--output``; returns the onset times."""
+def main(argv=None, chunks=None) -> dict:
+    """Writes ``--output``; returns ``{"times": onset times, "seconds":
+    {"onset", "clap", "generation"}}``, each part's seconds with its models'
+    set-up, the device synchronised at its end.  ``chunks``: the video's
+    chunks as ``read_chunks`` gives them, in place of reading
+    ``--video_dir``."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.text or args.cond_wav or args.clap_ckpt:
-        raise NotImplementedError(f"--text, --cond_wav and --clap_ckpt: {CLAP_TODO}")
     if args.mux_video:
         raise NotImplementedError(MUX_TODO)
     device = default_device(args.device)
     # the onset net in exact f32, as train_onset trains it at precision 32
-    # (the raw logits are thresholded); generation computes in bf16
+    # (the raw logits are thresholded), and CLAP in f32 as the JAX package
+    # runs it; generation computes in bf16
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
 
     # 1. onset times from the frames
     t0 = time.perf_counter()
     net = load_onset_net(args.onset_ckpt, args.onset_layers, device)
-    times = onset_times(net, read_chunks(Path(args.video_dir)), device)
-    log.info("predicted %d onsets in %.2f s: %s", len(times), time.perf_counter() - t0,
-             np.round(times, 2)[:12])
+    if chunks is None:
+        chunks = read_chunks(Path(args.video_dir))
+    times = onset_times(net, chunks, device)
     del net
+    seconds["onset"] = time.perf_counter() - t0
+    log.info("predicted %d onsets: %s", len(times), np.round(times, 2)[:12])
 
-    # 2. the onset track; 3. the zero embedding
+    # 2. the onset track; 3. the conditioning embedding
+    t0 = time.perf_counter()
     onsets = torch.from_numpy(onset_track(times, args.length)).to(device)
     model_cfg = None
     if args.model_config:
         with open(args.model_config) as f:
             model_cfg = json.load(f)
+    features = model_configs(model_cfg)[0].embedding_features
+    embedding = conditioning(args.text, args.cond_wav, args.clap_ckpt, features, device)
+    _sync(device)
+    seconds["clap"] = time.perf_counter() - t0
+
+    # 4. sampling
+    t0 = time.perf_counter()
     model = SyncFusionDiffusion.from_config(model_cfg, dtype=torch.bfloat16, device=device)
     if args.diffusion_ckpt:
         model.load_state_dict(restore_model(args.diffusion_ckpt), strict=True)
     else:
         log.warning("no --diffusion_ckpt: parameters are random, the output is "
                     "noise-shaped")
-    embedding = torch.zeros((1, 1, model.unet.cfg.embedding_features), device=device)
-
-    # 4. sampling
     gi = tuple(args.guidance_interval)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     noise = torch.randn((1, args.length, 1), generator=gen, device=device)
@@ -186,10 +227,12 @@ def main(argv=None) -> np.ndarray:
                        sampler=args.sampler,
                        deep_cache_interval=args.deep_cache_interval,
                        deep_split=args.deep_split)
-    wav = wav[0, :, 0].cpu().numpy()
+    wav = wav[0, :, 0].float().cpu().numpy()
+    seconds["generation"] = time.perf_counter() - t0
     write_wav(args.output, wav, SR)
-    log.info("wrote %s (%.2f s @ %d Hz)", args.output, len(wav) / SR, SR)
-    return times
+    log.info("wrote %s (%.2f s @ %d Hz); seconds: %s", args.output, len(wav) / SR, SR,
+             {k: round(v, 4) for k, v in seconds.items()})
+    return {"times": times, "seconds": seconds}
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 K1 (the flash-attention forward), K2a and K2b (its backward), all on the
 tensor cores with f32 as 3xTF32, and K3 and K4 (the fused resnet chain, on
 the tensor cores too: bf16 with hi + lo bf16 activations, f32 as 3xTF32);
-the DeepCache samplers through K1 against the plain attention; and the
-onset net and its train step on the card against the CPU.
+the DeepCache samplers through K1 against the plain attention; the onset
+net and its train step, and the CLAP embedder, on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so that it also runs where JAX is not installed:
@@ -529,3 +529,23 @@ def test_onset_net_and_train_step_on_card_match_cpu(exact_f32):
     metrics, logits = trainer.train_step(state, {"frames": wire, "label": labels.cuda()})
     assert state.step == 1 and logits.shape == (2, 8)
     assert math.isfinite(metrics["loss/train"].item())
+
+
+def test_clap_embedder_on_card_matches_cpu(exact_f32):
+    """CLAP at full width (HTSAT-tiny, roberta-base), seeded weights on the
+    card copied to the CPU: ``embed_audio`` of a clip repeat-padded to 10 s
+    and ``embed_text`` (hashed tokenizer when no roberta files exist)
+    agree to 1e-4 on unit-norm embeddings, f32 without TF32 (chip_smoke.py,
+    CLAP_EMB_TOL)."""
+    from syncfusion_tpu_torch.models.clap.model import ClapEmbedder, ClapModel
+
+    gpu = ClapEmbedder(device="cuda", seed=3)
+    cpu = ClapEmbedder(device="cpu", model=ClapModel())
+    cpu.model.load_state_dict(gpu.model.state_dict(), strict=True)
+    wav = 0.1 * torch.randn((2, 96000, 1), generator=torch.Generator().manual_seed(2))
+    for fn, arg in ((lambda e, a: e.embed_audio(a), wav.numpy()),
+                    (lambda e, a: e.embed_text(a), ["hit wood", "scratch metal"])):
+        got, want = fn(gpu, arg), fn(cpu, arg)
+        assert got.device.type == "cuda" and got.shape == (2, 1, 512)
+        assert (got.cpu() - want).abs().max().item() <= 1e-4
+        assert (got.norm(dim=-1) - 1.0).abs().max().item() <= 1e-5

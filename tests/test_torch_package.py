@@ -50,15 +50,22 @@ def test_port_imports_nothing_of_jax(path):
         assert mod not in FORBIDDEN, f"{path.name} imports {mod} (in {func})"
 
 
+# modules the card's machine does not promise: imported only inside the
+# functions that use them (PIL decodes and draws; regex and transformers
+# tokenize)
+FUNCTION_ONLY = {"PIL", "regex", "transformers"}
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_pil_only_in_functions_and_never_sklearn(path):
-    """PIL and scikit-learn are not among the packages the card's machine
-    promises (scikit-learn is absent there): the port and chip_smoke.py
-    import PIL only inside the functions that decode or draw, and
-    scikit-learn nowhere."""
+    """PIL, regex, transformers and scikit-learn are not among the packages
+    the card's machine promises (scikit-learn is absent there): the port
+    and chip_smoke.py import the first three only inside the functions that
+    use them, and scikit-learn nowhere."""
     for mod, func in _imports(ast.parse(path.read_text())):
         assert mod != "sklearn", f"{path.name} imports sklearn (in {func})"
-        assert mod != "PIL" or func is not None, f"{path.name} imports PIL at module level"
+        assert mod not in FUNCTION_ONLY or func is not None, (
+            f"{path.name} imports {mod} at module level")
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

@@ -37,6 +37,7 @@ from syncfusion_tpu_torch import generate, train_diffusion
 from syncfusion_tpu_torch.convert import to_state_dict
 from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
 from syncfusion_tpu_torch.core.config import TrainConfig
+from syncfusion_tpu_torch.models.embedder import build_embedder
 from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
 from syncfusion_tpu_torch.models.unet1d import cfg_dropout_mask
 from syncfusion_tpu_torch.ops import attention as ta
@@ -392,6 +393,8 @@ def test_train_cli_end_to_end_and_resume(tmp_path):
     assert np.isfinite(losses).all()
     assert np.isfinite([r["valid_loss"] for r in recs if "valid_loss" in r]).all()
     assert sorted(p.name for p in (run / "media").iterdir()) == [
+        "mel_spectrogram_0_2steps_step00000004.png",
+        "mel_spectrogram_1_2steps_step00000004.png",
         "sample_0_step4.wav", "sample_1_step4.wav"]
     saved = Checkpointer(CheckpointConfig(run / "ckpts")).restore()
     assert saved["step"] == 4
@@ -469,11 +472,35 @@ def test_train_cli_needs_a_card_unless_told(tmp_path, monkeypatch):
         train_diffusion.main(_cli_args(tmp_path, "unused.tar"))
 
 
-def test_train_cli_clap_is_not_substituted(tmp_path):
-    args = _cli_args(tmp_path, "unused.tar", "--device", "cpu")
-    args[args.index("--embedder") + 1] = "HTSAT-tiny"
-    with pytest.raises(NotImplementedError, match="port queue: 'CLAP'"):
-        train_diffusion.main(args)
+def test_train_cli_clap_is_not_substituted(tmp_path, monkeypatch):
+    """``--embedder HTSAT-tiny`` (the default) builds CLAP with
+    ``--clap_ckpt``, never zeros; ``none`` builds the zero embedder."""
+    built = []
+
+    class Stop(Exception):
+        pass
+
+    def recorder(amodel, features, device, checkpoint_path=None):
+        built.append((amodel, features, str(device), checkpoint_path))
+        raise Stop
+
+    monkeypatch.setattr(train_diffusion, "build_embedder", recorder)
+    args = _cli_args(tmp_path, "unused.tar", "--device", "cpu", "--clap_ckpt", "c.pt")
+    for amodel in ("HTSAT-tiny", "none"):
+        args[args.index("--embedder") + 1] = amodel
+        with pytest.raises(Stop):
+            train_diffusion.main(args)
+    without = [a for a in args if a != "--embedder"]
+    without.remove("none")
+    with pytest.raises(Stop):
+        train_diffusion.main(without)
+    assert built == [("HTSAT-tiny", 8, "cpu", "c.pt"), ("none", 8, "cpu", "c.pt"),
+                     ("HTSAT-tiny", 8, "cpu", "c.pt")]
+    with pytest.raises(ValueError, match="HTSAT-tiny"):
+        build_embedder("HTSAT-base", 8, "cpu")
+    zero = build_embedder("none", 8, "cpu")
+    assert torch.equal(zero.embed_audio(np.ones((3, 5, 1))), torch.zeros((3, 1, 8)))
+    assert torch.equal(zero.embed_text(["a", "b"]), torch.zeros((2, 1, 8)))
 
 
 class _ZeroEmbedder:
