@@ -13,8 +13,9 @@ Phases, each printed with its seconds; any failure exits non-zero:
      the shapes of the generation path (plus a ragged and a causal case), in
      bf16 and f32, and K1 in bf16 also at the 16 rows of the serving and fast
      configurations' in-band forward and at the 2 and 1 rows of video to
-     Foley's (phase 13), each error against its stated tolerance, with the times of the kernel, the plain version and one
-     PyTorch library call;
+     Foley's (phase 13), K1 in f32 also at the 20 rows of evaluation's
+     (phase 15), each error against its stated tolerance, with the times of
+     the kernel, the plain version and one PyTorch library call;
   4. the slice at full width: ``SyncFusionDiffusion`` built from
      exp/model/diffusion.yaml's values with seeded random weights, in bf16,
      generates 2^18-sample clips in three configurations: B = 4 with
@@ -92,7 +93,19 @@ Phases, each printed with its seconds; any failure exits non-zero:
      point with ``--cond_wav`` (a seeded wav) and with ``--text``, one
      warm-up and 3 runs each split into onset, CLAP and generation; 153 K1
      a clip.  No TPU kernel lies inside CLAP: the JAX package runs it
-     through XLA.
+     through XLA;
+ 15. evaluation at full width (exp/evaluate_gh_gen.yaml): a 10-track test
+     shard written to a temp dir, ``evaluate_diffusion.main`` with ``--exp
+     prepare_gh_gt`` (10 GT chunks) and ``--exp evaluate_gh_gen`` (B = 10,
+     150-step DDIM, CFG 2.0 at every step, the prefix before the first
+     onset cut, 96000 samples kept, 22.05 kHz out, f32 without TF32, CLAP
+     audio conditioning; K1's f32 body 1350 times, the plain attention
+     never), timed per clip and its peak memory printed; the full-width
+     VGGish on both directories, card against CPU (gated), its Frechet
+     distance and ms a clip; FAD of the mel statistics and
+     ``evaluate_onset.main`` (finite over 10 files); one clip muxed onto
+     JPEG frames and read back (gated), ffmpeg's muxer where there is one;
+     ``resample_torch`` on the card against the host resampler (gated).
 Phase 3 also holds the backward kernels K2a and K2b against their plain
 versions at the training shapes (with the time of SDPA's backward), times
 K1's f32 kernel per forward beside SDPA's f32 forward, and holds K3 and K4
@@ -105,6 +118,7 @@ this checkout: it imports no JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import importlib.util
 import io
@@ -276,6 +290,35 @@ CLAP_TRAIN_STEPS = 2
 # phase 14c's feed timing: micro-steps fed through device_prefetch, warm-up
 # and timed, in turns zero embeddings / CLAP / CLAP / zero embeddings
 CLAP_FEED_WARMUP, CLAP_FEED_STEPS = 2, 6
+# phase 15, evaluation as exp/evaluate_gh_gen.yaml runs it: 10 test tracks
+# (one chunk each) at B = 10, 150-step DDIM with CFG 2.0 at every step, so
+# every forward runs 2B rows and launches K1's f32 body 9 times; the clips'
+# first 96000 samples at 22.05 kHz (44100 samples, 2 s)
+EVAL_TRACKS = EVAL_BATCH = 10
+EVAL_ROWS = 2 * EVAL_BATCH
+EVAL_K1 = 9 * NUM_STEPS
+EVAL_SAMPLES = 44100
+# VGGish on the card against the same weights on the CPU, f32 without TF32:
+# max |diff| / max |embedding| (sums of up to 12288 products in other orders)
+VGGISH_TOL = 1e-4
+# the mux round trip reads back the 16-bit PCM that the container holds
+MUX_TOL = 1e-6
+# the host resampler against resample_torch on the card (f32 sums of ~40
+# taps in other orders)
+RESAMPLE_TOL = 1e-5
+# a 16x16 grey baseline JPEG (PIL's encoder, quality 75): the frames of the
+# mux round trip, so that the card's machine needs no image library
+GREY_JPEG = bytes.fromhex(
+    "ffd8ffe000104a46494600010100000100010000ffdb0043000806060706050807070709"
+    "09080a0c140d0c0b0b0c1912130f141d1a1f1e1d1a1c1c20242e2720222c231c1c283729"
+    "2c30313434341f27393d38323c2e333432ffc0000b080010001001011100ffc4001f0000"
+    "010501010101010100000000000000000102030405060708090a0bffc400b51000020103"
+    "03020403050504040000017d01020300041105122131410613516107227114328191a108"
+    "2342b1c11552d1f02433627282090a161718191a25262728292a3435363738393a434445"
+    "464748494a535455565758595a636465666768696a737475767778797a83848586878889"
+    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9"
+    "cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9faffda00080101"
+    "00003f0028a28affd9")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -418,7 +461,7 @@ def phase_kernels(attn):
     ROWS (the in-band batch of 4 clips), SERVE_ROWS (of the serving and
     fast configurations' 8) and V2F_ROWS (video to Foley's one clip, in
     and out of the band), f32 at ROWS (the same shapes in the training
-    recipe's type)."""
+    recipe's type) and EVAL_ROWS (evaluation's CFG batch of 10 clips)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -426,6 +469,7 @@ def phase_kernels(attn):
     runs = [(torch.bfloat16, ROWS, cases), (torch.float32, ROWS, cases)]
     runs += [(torch.bfloat16, rows, [(t, False) for t in ATTN_CALLS])
              for rows in (SERVE_ROWS, *V2F_ROWS)]
+    runs.append((torch.float32, EVAL_ROWS, [(t, False) for t in ATTN_CALLS]))
     total = {(dtype, rows): {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                              "bytes": 0, "ops": 0, "max_abs_err": 0.0}
              for dtype, rows, _ in runs}
@@ -900,19 +944,30 @@ def forward_full_vs_cached(model, attn, fr, inputs: tuple) -> dict:
 
 
 def write_shard(path: str, tracks: int = 4, seconds: float = 12.0,
-                every: float = 0.25, seed: int = 0) -> None:
+                every: float = 0.25, seed: int = 0, first: float = 0.01,
+                burst: float = 0.0) -> None:
     """A webdataset shard of noise tracks at 48 kHz with an onset every
-    ``every`` seconds, so that every 2^18-sample chunk has onsets."""
+    ``every`` seconds from ``first``, so that every 2^18-sample chunk has
+    onsets; ``burst`` > 0 adds a decaying noise burst of that amplitude at
+    each onset, which the onset detector finds."""
     from syncfusion_tpu_torch.ops.wav import write_wav
 
     rng = np.random.default_rng(seed)
+    decay = np.exp(-np.arange(4800) / 1200.0)
     with tempfile.TemporaryDirectory() as tmp, tarfile.open(path, "w") as tar:
         for i in range(tracks):
-            wav = (0.1 * rng.standard_normal(int(seconds * SR))).astype(np.float32)
+            wav = 0.1 * rng.standard_normal(int(seconds * SR))
+            onsets = np.arange(first, seconds, every)
+            if burst:
+                for x in onsets:
+                    at = int(x * SR)
+                    n = min(decay.size, wav.size - at)
+                    wav[at:at + n] += burst * decay[:n] * rng.standard_normal(n)
+            wav = wav.astype(np.float32)
             write_wav(os.path.join(tmp, "a.wav"), wav, SR)
             with open(os.path.join(tmp, "a.wav"), "rb") as f:
                 audio = f.read()
-            times = "".join(f"{x:.4f},hit\n" for x in np.arange(0.01, seconds, every))
+            times = "".join(f"{x:.4f},hit\n" for x in onsets)
             for name, body in ((f"track{i}.resampled.wav", audio),
                                (f"track{i}.times.csv", times.encode())):
                 info = tarfile.TarInfo(name)
@@ -1540,11 +1595,140 @@ def phase_video_to_foley_clap(attn, fr, tmp: str, chunks: list, net_state: dict,
     return out
 
 
+def phase_eval(attn, fr, tmp: str) -> dict:
+    """Phase 15: the reference's evaluation through the port's entry points.
+    (a) ``evaluate_diffusion.main`` with ``--exp prepare_gh_gt`` and then
+    ``--exp evaluate_gh_gen`` at the preset's values (full-width UNet in
+    f32, CLAP HTSAT-tiny audio conditioning, seeded weights) on a 10-track
+    test shard, K1's f32 body launched 1350 times, the plain attention
+    never; (b) VGGish (full width, seeded) on both directories on the card,
+    held against the same weights on the CPU; (c) FAD of the mel statistics
+    and ``evaluate_onset.main`` over the 10 files; (d) one generated wav
+    muxed onto JPEG frames and read back, ffmpeg's muxer where there is one,
+    and ``resample_torch`` on the card against the host resampler.  Returns
+    the launch counts of (a)."""
+    from syncfusion_tpu_torch import evaluate_diffusion, evaluate_onset
+    from syncfusion_tpu_torch.device import exact_f32
+    from syncfusion_tpu_torch.eval import fad, mux
+    from syncfusion_tpu_torch.ops.resample import resample, resample_torch
+    from syncfusion_tpu_torch.ops.wav import read_wav
+
+    shard, gt, gen = (os.path.join(tmp, name) for name in ("test.tar", "gh-gt", "gh-gen"))
+    # onsets in every track's first 2 s (the onset check of the presets),
+    # the first at 0.3 s, each with a burst the onset detector finds
+    write_shard(shard, tracks=EVAL_TRACKS, seconds=6.0, every=0.37, first=0.3, burst=0.8)
+    evaluate_diffusion.main(["--exp", "prepare_gh_gt", "--dataset_path", shard,
+                             "--experiment_path", gt])
+    # K1's launches by body: the dtype of every q that flash_fwd launches on
+    k1_dtypes = collections.Counter()
+    launch = attn.flash_fwd
+
+    def counted_fwd(q, *args, **kwargs):
+        before = attn.flash_attention.kernel_launches
+        result = launch(q, *args, **kwargs)
+        k1_dtypes[str(q.dtype)] += attn.flash_attention.kernel_launches - before
+        return result
+
+    reset_counts(attn, fr)
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    attn.flash_fwd = counted_fwd
+    try:
+        out = evaluate_diffusion.main(["--exp", "evaluate_gh_gen", "--dataset_path", shard,
+                                       "--experiment_path", gen, "--gt_dir", gt])
+    finally:
+        attn.flash_fwd = launch
+    seconds = time.perf_counter() - start
+    launched = counts(attn, fr)
+    expected = {k: EVAL_K1 if k == "kernel_launches" else 0 for k in launched}
+    check(launched == expected, f"evaluation: launch counts {launched} != {expected}")
+    check(k1_dtypes == {"torch.float32": EVAL_K1},
+          f"evaluation: K1 launches by dtype {dict(k1_dtypes)}, not all f32")
+    stats = out["generation"]
+    check(stats["clips"] == EVAL_TRACKS, f"evaluation generated {stats['clips']} clips")
+    for d in (gt, gen):
+        names = sorted(n_ for n_ in os.listdir(d) if n_.endswith(".wav"))
+        check(len(names) == EVAL_TRACKS, f"{d}: {len(names)} wavs")
+        for name in names:
+            wav, sr = read_wav(os.path.join(d, name))
+            check(sr == 22050 and wav.shape == (1, EVAL_SAMPLES)
+                  and bool(np.isfinite(wav).all()), f"{d}/{name}: {wav.shape} at {sr} Hz")
+    print(f"  evaluate_gh_gen, B={EVAL_BATCH}, DDIM {NUM_STEPS}, CFG {SCALE} at every "
+          f"step, f32: {stats['generation_s'] / stats['clips']:.3f} s a clip generating "
+          f"(embedding, noise, sampling), {stats['post_s'] / stats['clips']:.4f} s a clip "
+          f"resampling to 22.05 kHz and writing; main {seconds:.3f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {EVAL_TRACKS} + "
+          f"{EVAL_TRACKS} wavs of {EVAL_SAMPLES} samples ({EVAL_SAMPLES / 22050:.2f} s) "
+          f"at 22050 Hz; launches {launched}; K1 by dtype {dict(k1_dtypes)}", flush=True)
+
+    # (b) VGGish, card against CPU
+    embedder = fad.VGGishEmbedder()
+    patches = {d: [fad.vggish_log_mel(read_wav(os.path.join(d, n_))[0].mean(axis=0), 22050)
+                   for n_ in sorted(os.listdir(d)) if n_.endswith(".wav")]
+               for d in (gen, gt)}
+    fad._embed_dir(embedder, gen)  # warm-up
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    embs = {d: fad._embed_dir(embedder, d) for d in (gen, gt)}
+    vggish_ms = (time.perf_counter() - start) * 1e3 / (2 * EVAL_TRACKS)
+    cpu = fad.VGGish()
+    cpu.load_state_dict(embedder.net.state_dict())
+    with torch.no_grad(), exact_f32():
+        want = {d: cpu(torch.from_numpy(np.concatenate(p_))).numpy()
+                for d, p_ in patches.items()}
+    err = max(float(np.abs(embs[d] - want[d]).max() / np.abs(want[d]).max()) for d in want)
+    dist = fad.frechet_distance(*fad.gaussian_stats(embs[gen]), *fad.gaussian_stats(embs[gt]))
+    print(f"  VGGish ({sum(p_.numel() for p_ in cpu.parameters()):,} params, seeded), "
+          f"{embs[gen].shape[0]} + {embs[gt].shape[0]} patches: {vggish_ms:.3f} ms a clip "
+          f"(log-mel on the host, forward on the card); card vs CPU max |diff| / max "
+          f"|embedding| {err:.3e} (tol {VGGISH_TOL:.0e}); Frechet distance {dist:.4f}",
+          flush=True)
+    check(err <= VGGISH_TOL, "VGGish: the card disagrees with the CPU")
+    check(math.isfinite(dist), "VGGish: non-finite Frechet distance")
+
+    # (c) FAD of the preset (mel statistics) and the onset metrics
+    onset = evaluate_onset.main(["--gen_dir", gen, "--tar_dir", gt])
+    print(f"  FAD (preset backend) {out['metrics']}; onset metrics {onset}", flush=True)
+    check(all(math.isfinite(v) for v in out["metrics"].values()), "FAD: not finite")
+    check(all(math.isfinite(v) for v in onset.values()) and onset["num_files"] == EVAL_TRACKS,
+          f"onset metrics {onset}")
+
+    # (d) the mux round trip; resample_torch on the card
+    frames = os.path.join(tmp, "frames")
+    os.makedirs(frames)
+    for i in range(1, 31):
+        with open(os.path.join(frames, f"clip.frame_{i:06d}.jpg"), "wb") as f:
+            f.write(GREY_JPEG)
+    clip = os.path.join(gen, sorted(n_ for n_ in os.listdir(gen) if n_.endswith(".wav"))[0])
+    wav = read_wav(clip)[0][0]
+    dest = mux.attach_audio_to_frames(frames, "clip.frame_%06d.jpg", clip,
+                                      os.path.join(tmp, "clip.mp4"), fps=15, n_frames=30)
+    back = mux.extract_video_audio(dest, 22050)
+    pcm = (np.clip(wav, -1.0, 1.0 - 1 / 32768.0) * 32768.0).astype(np.int16) / 32768.0
+    mux_err = float(np.abs(back - pcm).max()) if back.shape == pcm.shape else math.inf
+    ran = mux.have_ffmpeg()
+    if ran:
+        mux.attach_audio_to_video(dest, clip, os.path.join(tmp, "clip_h264.mp4"), fps=15)
+    x = np.random.default_rng(3).standard_normal((2, 96000)).astype(np.float32)
+    res_err = float((resample_torch(torch.from_numpy(x).cuda(), SR, 22050).cpu()
+                     - torch.from_numpy(resample(x, SR, 22050))).abs().max())
+    print(f"  mux: {os.path.getsize(dest)} bytes, 30 JPEG frames + {wav.size} samples; read "
+          f"back against the 16-bit PCM max |diff| {mux_err:.3e} (tol {MUX_TOL:.0e}), "
+          f"against the f32 wav clipped to [-1, 1] "
+          f"{float(np.abs(back - np.clip(wav, -1.0, 1.0)).max()):.3e}; ffmpeg muxer ran: "
+          f"{ran}; resample_torch on the card vs the host 48 -> 22.05 kHz max |diff| "
+          f"{res_err:.3e} (tol {RESAMPLE_TOL:.0e})", flush=True)
+    check(mux_err <= MUX_TOL, "mux round trip disagrees")
+    check(res_err <= RESAMPLE_TOL, "resample_torch on the card disagrees with the host")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from syncfusion_tpu_torch.device import set_exact_f32
     from syncfusion_tpu_torch.models import blocks
     from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
     from syncfusion_tpu_torch.ops import _build
@@ -1553,8 +1737,7 @@ def main() -> int:
     from syncfusion_tpu_torch.ops.wav import write_wav
 
     # f32 references run in full f32 (matmul and cuDNN convolutions)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_exact_f32()
 
     t0 = time.perf_counter()
     card = smi()
@@ -1819,15 +2002,21 @@ def main() -> int:
         v2f_clap = phase_video_to_foley_clap(attn, fr, tmp, v2f_chunks, v2f_net, v2f_times)
         phase("14d CLAP-conditioned video to Foley", t0)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        eval_launched = phase_eval(attn, fr, tmp)
+        phase("15 evaluation at full width", t0)
+
     fwd16, fwd32 = total[torch.bfloat16, ROWS], total[torch.float32, ROWS]
     serve16 = total[torch.bfloat16, SERVE_ROWS]
     v2f16 = {rows: total[torch.bfloat16, rows] for rows in V2F_ROWS}
+    eval32 = total[torch.float32, EVAL_ROWS]
     paths = {"generate": gen_launched, "generate_serving": serve_launched,
              "generate_fast": fast_launched, "train": train_launched,
              "generate_fused": fused_launched, "train_fused": fused_train,
              "video_to_foley": v2f_launched, "train_clap": clap_train,
              "video_to_foley_cond_wav": v2f_clap["cond_wav"],
-             "video_to_foley_text": v2f_clap["text"]}
+             "video_to_foley_text": v2f_clap["text"], "evaluate": eval_launched}
 
     def launched_by_path(key):
         return {p_: c_[key] for p_, c_ in paths.items()}
@@ -1840,7 +2029,8 @@ def main() -> int:
         "launches": sum(launched_by_path("kernel_launches").values()),
         "launches_by_path": launched_by_path("kernel_launches"),
         "max_abs_err": max(fwd16["max_abs_err"], serve16["max_abs_err"],
-                           *(tot["max_abs_err"] for tot in v2f16.values())),
+                           *(tot["max_abs_err"] for tot in v2f16.values()),
+                           eval32["max_abs_err"]),
         "ms": fwd16["ms"],
         "plain_ms": fwd16["plain_ms"],
         "bound_ms": fwd16["bound_ms"],
@@ -1861,6 +2051,10 @@ def main() -> int:
         "float32": {key: fwd32[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "float32_work": "the same 9 calls in f32 (the training forward's type)",
+        "evaluate": {key: eval32[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "evaluate_work": f"the same 9 calls in f32 at BH={EVAL_ROWS * HEADS}: the "
+                         f"evaluation's forward (B={EVAL_BATCH}, CFG at every step)",
         "design": {"bfloat16": "tensor cores: mma.sync m16n8k16 (P as hi + lo "
                                "bf16), cp.async K/V ring of 2 stages, 4 warps "
                                "of 32 query rows a block",

@@ -120,3 +120,12 @@ def clap_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
         key, a = convert_leaf(path, leaf)
         sd[key] = torch.from_numpy(a)
     return sd
+
+
+def vggish_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``VGGish``'s ``{"params"}`` tree (numpy or JAX arrays;
+    ``syncfusion_tpu/eval/fad.py``, the inverse of its
+    ``convert_torchvggish``) -> a ``state_dict`` for the port's
+    ``eval.fad.VGGish.load_state_dict(strict=True)``.  ``fc1_1`` keeps its
+    rows' order: both flatten the 6 x 4 x 512 map as (H, W, C)."""
+    return clap_state_dict(variables)

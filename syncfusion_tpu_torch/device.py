@@ -1,6 +1,10 @@
-"""Where the port runs: the card, unless the caller names another device."""
+"""Where the port runs: the card, unless the caller names another device;
+and how it computes in f32 there: exact, without TF32, as the JAX package
+does."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -18,3 +22,21 @@ def default_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device: syncfusion_tpu_torch runs on the card; pass "
             "device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def set_exact_f32() -> None:
+    """From here on cuBLAS and cuDNN compute f32 products in f32, not TF32
+    (the JAX package's f32).  Entry points call it for precision 32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """``set_exact_f32`` within the block, the settings before it after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    set_exact_f32()
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -1,10 +1,16 @@
-"""Polyphase windowed-sinc resampling in numpy (a copy of the host-side
-half of ``syncfusion_tpu/ops/resample.py``).
+"""Polyphase windowed-sinc resampling (port of
+``syncfusion_tpu/ops/resample.py``).
 
 torchaudio ``functional.resample`` semantics: hann-windowed sinc lowpass,
 ``lowpass_filter_width=6``, ``rolloff=0.99``; one FIR kernel per output
-phase, applied as a strided convolution.  The data pipeline calls it only
-for a shard whose sample rate differs from the training rate.
+phase, applied as a strided convolution.  Two implementations share the
+kernel bank:
+  * ``resample``: numpy, on the host.  The data pipeline calls it for a
+    shard whose sample rate differs from the training rate, evaluation for
+    48 -> 22.05 kHz after generation.
+  * ``resample_torch``: batched, on the tensor's device, a strided
+    ``F.conv1d`` in f32 (the JAX package's ``resample_jax``, which runs
+    outside Pallas).
 """
 
 from __future__ import annotations
@@ -13,6 +19,10 @@ import functools
 import math
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from syncfusion_tpu_torch.device import exact_f32
 
 
 @functools.lru_cache(maxsize=64)
@@ -66,4 +76,21 @@ def resample(
     # (B, num_frames, K) @ (K, new) -> (B, num_frames, new) -> interleave
     y = frames @ kernels.T
     y = y.reshape(x.shape[0], -1)[:, :target_len]
+    return y.reshape(*shape, target_len)
+
+
+def resample_torch(wav: torch.Tensor, orig_freq: int, new_freq: int,
+                   lowpass_filter_width: int = 6, rolloff: float = 0.99) -> torch.Tensor:
+    """Resample ``(..., T)`` audio on its device, in f32 (cuDNN's TF32 off,
+    as ``resample_jax`` convolves at ``Precision.HIGHEST``)."""
+    if orig_freq == new_freq:
+        return wav
+    kernels, width, orig, new = _kernel(orig_freq, new_freq, lowpass_filter_width, rolloff)
+    shape, length = wav.shape[:-1], wav.shape[-1]
+    target_len = int(math.ceil(new * length / orig))
+    x = F.pad(wav.reshape(-1, 1, length).float(), (width, width + orig))
+    k = torch.from_numpy(kernels).to(x.device)[:, None, :]  # (new, 1, K)
+    with exact_f32():
+        y = F.conv1d(x, k, stride=orig)  # (B, new, num_frames)
+    y = y.transpose(1, 2).reshape(x.shape[0], -1)[:, :target_len]
     return y.reshape(*shape, target_len)

@@ -6,8 +6,9 @@ Loss and metrics reproduce the reference ``BCLoss``
   * pos-weighted BCE-with-logits, ``pos_weight = (N - sum y) / sum y`` per
     batch;
   * AP on a positives/negatives-balanced subsample, computed as
-    scikit-learn's ``average_precision_score`` does (``average_precision``,
-    numpy: the card's machine has no scikit-learn);
+    scikit-learn's ``average_precision_score`` does
+    (``eval/onset_metrics.average_precision``, numpy: the card's machine has
+    no scikit-learn);
   * binary accuracy at 0.75 on the sigmoid probabilities;
   * "OnsNumAcc": the share of chunks whose predicted onset count, after the
     reference's consecutive-onset zeroing loop, equals the target count.
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from syncfusion_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from syncfusion_tpu_torch.eval.onset_metrics import average_precision
 from syncfusion_tpu_torch.models.onset_net import VideoOnsetNet
 from syncfusion_tpu_torch.ops.augment import color_jitter_device
 from syncfusion_tpu_torch.train.diffusion_trainer import (
@@ -59,19 +61,6 @@ def _collapse_consecutive(pred: np.ndarray) -> np.ndarray:
             if row[j] == 1 and row[j + 1] == 1:
                 row[j + 1] = 0
     return pred
-
-
-def average_precision(target: np.ndarray, score: np.ndarray) -> float:
-    """scikit-learn's ``average_precision_score`` for binary labels:
-    sum over the distinct scores, in decreasing order, of (recall gained)
-    times the precision there; tied scores form one threshold."""
-    order = np.argsort(score, kind="mergesort")[::-1]
-    score, target = score[order], np.asarray(target, np.float64)[order]
-    last = np.r_[np.flatnonzero(np.diff(score)), score.size - 1]
-    tps = np.cumsum(target)[last]
-    precision = tps / (last + 1)
-    recall = tps / tps[-1]
-    return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
 
 
 def onset_metrics(logits, targets) -> dict[str, float]:

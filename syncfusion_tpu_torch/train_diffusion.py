@@ -44,7 +44,7 @@ from syncfusion_tpu_torch.core.config import TrainConfig, model_configs
 from syncfusion_tpu_torch.core.logging import MetricLogger
 from syncfusion_tpu_torch.data.prefetch import device_prefetch, to_device
 from syncfusion_tpu_torch.data.sfx_dataset import batched, collate, create_sfx_dataset
-from syncfusion_tpu_torch.device import default_device
+from syncfusion_tpu_torch.device import default_device, set_exact_f32
 from syncfusion_tpu_torch.eval.panels import write_spec_panel
 from syncfusion_tpu_torch.models.embedder import build_embedder
 from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
@@ -189,8 +189,7 @@ def main(argv=None) -> TrainState:
     device = default_device(args.device)
     dtype = PRECISIONS[cfg.precision]
     if cfg.precision == "32":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_exact_f32()
     model_cfg = None
     if args.model_config:
         with open(args.model_config) as f:

@@ -43,7 +43,7 @@ from syncfusion_tpu_torch.core.logging import MetricLogger
 from syncfusion_tpu_torch.data.onset_dataset import GreatestHitsDataset, loader
 from syncfusion_tpu_torch.data.prefetch import device_prefetch
 from syncfusion_tpu_torch.data.transforms import FrameTransform
-from syncfusion_tpu_torch.device import default_device
+from syncfusion_tpu_torch.device import default_device, set_exact_f32
 from syncfusion_tpu_torch.eval.onset_annotations import (
     concat_annotations,
     write_chunk_annotations,
@@ -107,8 +107,7 @@ def build_trainer(cfg: OnsetConfig, device, jitter: Optional[tuple] = None) -> O
     if m.precision not in PRECISIONS:
         raise ValueError(f"model.precision {m.precision!r}: one of {sorted(PRECISIONS)}")
     if m.precision == "32":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_exact_f32()
     with torch.device(device):
         net = VideoOnsetNet(m.layers, dtype=PRECISIONS[m.precision])
     net.init(cfg.trainer.seed)

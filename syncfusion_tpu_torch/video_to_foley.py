@@ -21,9 +21,11 @@ a JSON of the diffusion config's model node (in place of the JAX script's
 ``--override``).  The clip is conditioned on the CLAP embedding of
 ``--text`` or of ``--cond_wav`` (its channels' mean, resampled to 48 kHz),
 with the laion checkpoint ``--clap_ckpt`` (random CLAP weights without it),
-else on zeros.  ``--mux_video`` raises: muxing is not ported yet.  Runs on
-the card; ``--device cpu`` runs on the CPU.  Decoding the JPEG frames needs
-PIL.
+else on zeros.  ``--mux_video OUT.mp4`` muxes the clip onto ``--source_video``
+at ``--mux_fps`` (trimmed to the clip, through ffmpeg), or without one onto
+the video directory's own frames (``frames/{video}.frame_%06d.jpg``, stored
+as Motion-JPEG by the native muxer, no ffmpeg).  Runs on the card;
+``--device cpu`` runs on the CPU.  Decoding the JPEG frames needs PIL.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import math
 import tempfile
 import time
 from pathlib import Path
@@ -42,7 +45,8 @@ import torch
 from syncfusion_tpu_torch.core.config import model_configs
 from syncfusion_tpu_torch.data.onset_dataset import GreatestHitsDataset
 from syncfusion_tpu_torch.data.transforms import FrameTransform
-from syncfusion_tpu_torch.device import default_device
+from syncfusion_tpu_torch.device import default_device, set_exact_f32
+from syncfusion_tpu_torch.eval.mux import attach_audio_to_frames, attach_audio_to_video
 from syncfusion_tpu_torch.eval.onset_annotations import dedup_consecutive
 from syncfusion_tpu_torch.generate import LENGTH, SR, onset_track, restore_model
 from syncfusion_tpu_torch.models.embedder import build_embedder
@@ -53,10 +57,6 @@ from syncfusion_tpu_torch.ops.wav import read_wav, write_wav
 from syncfusion_tpu_torch.train.onset_trainer import OnsetTrainer
 
 log = logging.getLogger("syncfusion_tpu_torch.video_to_foley")
-
-MUX_TODO = ("--mux_video: muxing audio onto the source video belongs to the "
-            "evaluation modules, which are not ported yet (ROADMAP.md, port "
-            "queue: 'Evaluation')")
 
 
 def read_chunks(video_dir: Path) -> list[dict]:
@@ -158,8 +158,10 @@ def parse_args(argv=None):
                     help="DeepCache: the UNet level where the deep half starts")
     ap.add_argument("--onset_layers", type=int, nargs=4, default=(2, 2, 2, 2))
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mux_video", default=None)
-    ap.add_argument("--source_video", default=None)
+    ap.add_argument("--mux_video", default=None,
+                    help="also write the clip muxed onto the video as this .mp4")
+    ap.add_argument("--source_video", default=None,
+                    help="video to mux onto (ffmpeg); default: --video_dir's frames")
     ap.add_argument("--mux_fps", type=int, default=15)
     ap.add_argument("--model_config", default=None,
                     help="JSON of the diffusion config's model node "
@@ -178,14 +180,11 @@ def main(argv=None, chunks=None) -> dict:
     ``--video_dir``."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.mux_video:
-        raise NotImplementedError(MUX_TODO)
     device = default_device(args.device)
     # the onset net in exact f32, as train_onset trains it at precision 32
     # (the raw logits are thresholded), and CLAP in f32 as the JAX package
     # runs it; generation computes in bf16
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_exact_f32()
     seconds = {}
 
     # 1. onset times from the frames
@@ -232,6 +231,18 @@ def main(argv=None, chunks=None) -> dict:
     write_wav(args.output, wav, SR)
     log.info("wrote %s (%.2f s @ %d Hz); seconds: %s", args.output, len(wav) / SR, SR,
              {k: round(v, 4) for k, v in seconds.items()})
+    if args.mux_video:
+        if args.source_video:
+            attach_audio_to_video(args.source_video, args.output, args.mux_video,
+                                  fps=args.mux_fps,
+                                  video_duration_in_seconds=len(wav) / SR)
+        else:
+            name = Path(args.video_dir).name
+            attach_audio_to_frames(Path(args.video_dir) / "frames",
+                                   f"{name}.frame_%06d.jpg", args.output,
+                                   args.mux_video, fps=args.mux_fps,
+                                   n_frames=math.ceil(len(wav) / SR * args.mux_fps))
+        log.info("muxed %s", args.mux_video)
     return {"times": times, "seconds": seconds}
 
 

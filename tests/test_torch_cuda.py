@@ -3,7 +3,8 @@ K1 (the flash-attention forward), K2a and K2b (its backward), all on the
 tensor cores with f32 as 3xTF32, and K3 and K4 (the fused resnet chain, on
 the tensor cores too: bf16 with hi + lo bf16 activations, f32 as 3xTF32);
 the DeepCache samplers through K1 against the plain attention; the onset
-net and its train step, and the CLAP embedder, on the card against the CPU.
+net and its train step, the CLAP embedder and VGGish (with the on-device
+resampler), on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so that it also runs where JAX is not installed:
@@ -475,10 +476,10 @@ def test_cached_sampling_through_the_kernel_on_card(no_tf32, sampler):
 @pytest.fixture
 def exact_f32(card):
     """f32 without TF32 in cuDNN and in matmuls, as precision 32 trains."""
-    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    yield card
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+    from syncfusion_tpu_torch import device
+
+    with device.exact_f32():
+        yield card
 
 
 def test_onset_net_and_train_step_on_card_match_cpu(exact_f32):
@@ -549,3 +550,31 @@ def test_clap_embedder_on_card_matches_cpu(exact_f32):
         assert got.device.type == "cuda" and got.shape == (2, 1, 512)
         assert (got.cpu() - want).abs().max().item() <= 1e-4
         assert (got.norm(dim=-1) - 1.0).abs().max().item() <= 1e-5
+
+
+def test_vggish_on_card_matches_cpu(card):
+    """VGGish at full width (72 M parameters), seeded weights on the card
+    copied to the CPU, f32 without TF32 (``device.exact_f32``): the
+    embeddings of a 2-s clip's patches agree to 1e-4 of max |embedding|
+    (chip_smoke.py, VGGISH_TOL); ``resample_torch`` on the card agrees
+    with the host resampler to 1e-5 (RESAMPLE_TOL)."""
+    import numpy as np
+
+    from syncfusion_tpu_torch import device
+    from syncfusion_tpu_torch.eval import fad
+    from syncfusion_tpu_torch.ops.resample import resample, resample_torch
+
+    gpu = fad.VGGishEmbedder()
+    assert gpu.device.type == "cuda"
+    cpu = fad.VGGish()
+    cpu.load_state_dict(gpu.net.state_dict(), strict=True)
+    y = (0.1 * np.random.default_rng(2).standard_normal(44100)).astype(np.float32)
+    got = gpu.embed(y, 22050)
+    with torch.no_grad(), device.exact_f32():
+        want = cpu(torch.from_numpy(fad.vggish_log_mel(y, 22050))).numpy()
+    assert got.shape == want.shape == (2, 128)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    x = np.random.default_rng(3).standard_normal((2, 9600)).astype(np.float32)
+    back = resample_torch(torch.from_numpy(x).to(card), 48000, 22050)
+    assert back.device.type == "cuda"
+    assert np.abs(back.cpu().numpy() - resample(x, 48000, 22050)).max() <= 1e-5

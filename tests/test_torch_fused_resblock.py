@@ -370,7 +370,7 @@ def test_fused_stats_loss_and_gradients_match_jax():
         return jm.loss(p, key, jnp.asarray(wav), jnp.asarray(onsets),
                        jnp.asarray(emb))
 
-    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     k_sigma, k_noise, _ = jax.random.split(key, 3)
     sigma = jax.random.uniform(k_sigma, (2,), dtype=jnp.float32)
     noise = jax.random.normal(k_noise, wav.shape, dtype=jnp.float32)

@@ -78,7 +78,7 @@ def test_loss_and_every_gradient_match_jax(proba):
         return jm.loss(p, key, jnp.asarray(wav), jnp.asarray(onsets),
                        jnp.asarray(emb), embedding_mask_proba=proba)
 
-    want_loss, want_grads = jax.value_and_grad(loss_fn)(params)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(params)
     k_sigma, k_noise, _ = jax.random.split(key, 3)
     sigma = jax.random.uniform(k_sigma, (wav.shape[0],), dtype=jnp.float32)
     noise = jax.random.normal(k_noise, wav.shape, dtype=jnp.float32)

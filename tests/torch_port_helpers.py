@@ -2,8 +2,16 @@
 tests/test_diffusion_stack.py and its PyTorch port with the same
 parameters, carried over by ``syncfusion_tpu_torch.convert``; a webdataset
 shard written by the JAX package's shard writer; a model of the tensor
-cores' TF32 products, for the CPU models of the kernels' arithmetic."""
+cores' TF32 products, for the CPU models of the kernels' arithmetic.
 
+Importing this module runs torch's CPU operators on one thread.  The suite
+runs in several worker processes at once, more than the box has cores to
+spare for each one's thread pool: on tensors this small, torch's threads
+then wait on each other, and one test of tests/test_torch_train.py took
+48 s on 8 threads against 2.7 s on one, beside 3 busy workers.  Every
+worker imports every test module while collecting, so all run alike."""
+
+import functools
 from pathlib import Path
 
 import jax
@@ -20,18 +28,28 @@ from syncfusion_tpu_torch.core.config import EncoderConfig, UNetConfig
 from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion as TorchSyncFusion
 from test_diffusion_stack import ENC, L, UNET  # noqa: F401  (re-exported)
 
+torch.set_num_threads(1)
+
 
 def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_pair(seed: int, fold_cap: int, unet_kw: tuple):
+    """The JAX model and its parameters, made once per process for each
+    configuration (JAX arrays are immutable, so tests share them)."""
+    jm = SyncFusionDiffusion(unet=UNet1d(**UNET, **dict(unet_kw)),
+                             onsets_encoder=Encoder1d(**ENC), fold_cap=fold_cap)
+    return jm, jm.init(jax.random.key(seed), L, batch=2)
+
+
 def tiny_pair(seed: int = 0, fold_cap: int = 0, **unet_kw):
     """(JAX model, JAX params, port model on the CPU with those params);
     ``unet_kw`` (e.g. ``fused_stats=True``) goes to both UNets, ``fold_cap``
-    to the JAX model and the port's UNet config."""
-    jm = SyncFusionDiffusion(unet=UNet1d(**UNET, **unet_kw),
-                             onsets_encoder=Encoder1d(**ENC), fold_cap=fold_cap)
-    params = jm.init(jax.random.key(seed), L, batch=2)
+    to the JAX model and the port's UNet config.  The port's model is a
+    new one on every call; the JAX side is shared (``_jax_pair``)."""
+    jm, params = _jax_pair(seed, fold_cap, tuple(sorted(unet_kw.items())))
     tm = TorchSyncFusion(UNetConfig(**UNET, **unet_kw, fold_cap=fold_cap),
                          EncoderConfig(**ENC))
     tm.load_state_dict(to_state_dict(to_numpy(params)), strict=True)
