@@ -105,7 +105,26 @@ Phases, each printed with its seconds; any failure exits non-zero:
      distance and ms a clip; FAD of the mel statistics and
      ``evaluate_onset.main`` (finite over 10 files); one clip muxed onto
      JPEG frames and read back (gated), ffmpeg's muxer where there is one;
-     ``resample_torch`` on the card against the host resampler (gated).
+     ``resample_torch`` on the card against the host resampler (gated);
+ 16. multi-device on the one card, each run a child of ``python -m
+     torch.distributed.run --standalone --nproc_per_node 1`` (NCCL,
+     ``cuda:LOCAL_RANK``; ``chip_smoke.py --multi-device PART OUT [DIR]`` is
+     the child): (a) ``DataParallelSampler`` at the serving configuration
+     (B = 8, one warm-up and 3 timed runs, 351 K1 a run, the plain attention
+     never; ``local_indices`` 0..7; 2 f32 steps against
+     ``SyncFusionDiffusion.sample`` on the same noise, gated); (b)
+     ``train_diffusion.main`` at phase 6's command line with the model in
+     DDP (9 K2a and 9 K2b a backward; the losses against phase 6's, gated;
+     fresh trainers in DDP and in one process timed on one batch in turns;
+     one DDP micro-step profiled, whose device events must show NCCL's
+     all-reduce); (c) the onset trainer with synchronised
+     BatchNorm, bf16, B = 16: one step against the single-process trainer on
+     the same weights and batch (loss and buffers, gated), then phase 11's
+     steps timed; (d) here, 16b's checkpoint into a single-process
+     ``DiffusionTrainer``, strictly.  The machine has one card and NCCL
+     takes one rank a device, so FSDP and ``model_parallel`` (a model axis
+     of at least 2 ranks) do not run here: tests/test_torch_parallel.py
+     runs them on the CPU over gloo.
 Phase 3 also holds the backward kernels K2a and K2b against their plain
 versions at the training shapes (with the time of SDPA's backward), times
 K1's f32 kernel per forward beside SDPA's f32 forward, and holds K3 and K4
@@ -989,13 +1008,25 @@ def reset_counts(attn, fr) -> None:
     fr.reset_counts()
 
 
+def train_args(shard: str, logs: str, steps: int) -> list:
+    """Phase 6's command line: f32, B = 4 x 2^18, accumulation 2, ``steps``
+    micro-steps, one validation batch and a 2-step sample logger at the
+    end."""
+    return ["--train_path", shard, "--val_path", shard, "--logs_dir", logs,
+            "--precision", "32", "--batch_size", str(BATCH), "--length", str(LENGTH),
+            "--accumulate_grad_batches", str(ACCUMULATE), "--max_steps", str(steps),
+            "--log_every_n_steps", "1", "--val_check_interval", str(steps),
+            "--val_batches", "1", "--num_items", str(SAMPLE_ITEMS), "--sampling_steps",
+            str(SAMPLE_STEPS)]
+
+
 def phase_train(attn, fr, tmp: str, name: str, model_cfg=None, embedder="none",
                 steps: int = TRAIN_STEPS):
     """Phases 6, 10 and 14c: the training command line at full width, f32,
     ``steps`` micro-steps, with the default model or ``model_cfg`` (passed
     as ``--model_config``), and ``--embedder embedder`` (None: the default,
     CLAP).  Returns (final state, launch counts, seconds per micro-step,
-    peak GiB)."""
+    peak GiB, the micro-steps' losses)."""
     from syncfusion_tpu_torch import train_diffusion
     from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
 
@@ -1003,13 +1034,7 @@ def phase_train(attn, fr, tmp: str, name: str, model_cfg=None, embedder="none",
     if not os.path.exists(shard):
         write_shard(shard)
     logs = os.path.join(tmp, name)
-    args = ["--train_path", shard, "--val_path", shard, "--logs_dir", logs,
-            "--precision", "32", "--batch_size", str(BATCH), "--length", str(LENGTH),
-            "--accumulate_grad_batches", str(ACCUMULATE),
-            "--max_steps", str(steps), "--log_every_n_steps", "1",
-            "--val_check_interval", str(steps), "--val_batches", "1",
-            "--num_items", str(SAMPLE_ITEMS), "--sampling_steps", str(SAMPLE_STEPS),
-            "--device", "cuda"]
+    args = train_args(shard, logs, steps) + ["--device", "cuda"]
     if embedder is not None:
         args += ["--embedder", embedder]
     if model_cfg is not None:
@@ -1062,7 +1087,7 @@ def phase_train(attn, fr, tmp: str, name: str, model_cfg=None, embedder="none",
     print(f"  launches {launched} (expected {want}), peak memory {peak:.3f} GiB")
     check(launched == want, f"launch counts {launched} != {want}")
     sec = statistics.median(r["sec_per_step"] for r in train[1:])
-    return state, launched, sec, peak
+    return state, launched, sec, peak, losses
 
 
 def training_batch(tmp: str) -> tuple:
@@ -1723,6 +1748,312 @@ def phase_eval(attn, fr, tmp: str) -> dict:
     return launched
 
 
+# phase 16: each multi-device run is a child of ``python -m
+# torch.distributed.run --standalone --nproc_per_node 1``: one rank, NCCL,
+# cuda:LOCAL_RANK.  The card's machine has one H100 and NCCL refuses two
+# ranks on one device, so FSDP and model_parallel (a model axis of at least
+# 2 ranks) cannot run here; tests/test_torch_parallel.py runs them on the
+# CPU over gloo.
+MULTI_DEVICE_TIMEOUT = 300
+# 16b and 16c: the ranks' numbers against the single process's on the same
+# command, weights and batch.  At world size 1 the all-reduces leave every
+# number as it was (NCCL's average over one rank multiplies by 1.0), so the
+# first micro-step and the onset step agree to rounding; later micro-steps
+# carry cuDNN's weight-gradient algorithms, which may sum in another order
+# from one run to the next.
+MD_FIRST_TOL, MD_LATER_TOL = 1e-6, 1e-4
+MD_ONSET_TOL = 1e-6
+# 16a: the data-parallel sampler's rows against SyncFusionDiffusion.sample on
+# the same noise, 2 f32 steps: the same kernels on the same batch
+MD_SAMPLE_TOL = 1e-6
+
+
+def torchrun(part: str, out_dir: str, *args: str) -> dict:
+    """Phase 16's ``part`` in a child under torchrun (one rank); returns the
+    JSON it wrote.  A child that exits non-zero fails the phase."""
+    out = os.path.join(out_dir, f"{part}.json")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__), "--multi-device",
+           part, out, *args]
+    proc = subprocess.run(cmd, timeout=MULTI_DEVICE_TIMEOUT)
+    check(proc.returncode == 0, f"phase 16 {part}: the rank exited {proc.returncode}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def md_sampler(device, attn, fr) -> dict:
+    """16a: ``DataParallelSampler`` at the serving configuration, B = 8 on
+    the one rank; one warm-up and TIMED_RUNS timed runs, each gated on its
+    launches; then 2 f32 steps against ``SyncFusionDiffusion.sample``."""
+    from syncfusion_tpu_torch.core.mesh import create_mesh
+    from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
+    from syncfusion_tpu_torch.parallel.sampling import DataParallelSampler
+
+    mesh = create_mesh()
+    serving = dict(num_steps=NUM_STEPS, embedding_scale=SCALE, guidance_interval=BAND,
+                   deep_cache_interval=SERVE_K, deep_split=DEEP_SPLIT)
+    model = SyncFusionDiffusion.from_config(None, dtype=torch.bfloat16, device=device,
+                                            seed=0)
+    _, onsets, embedding = sampler_inputs(SERVE_BATCH)
+    sampler = DataParallelSampler(model, mesh, per_chip_batch=SERVE_BATCH,
+                                  length=LENGTH, **serving)
+    check(sampler.local_indices().tolist() == list(range(SERVE_BATCH)),
+          f"local_indices {sampler.local_indices()}")
+    seconds = []
+    want = {name: 0 for name in counts(attn, fr)} | {"kernel_launches": SERVE_K1}
+    for run in range(TIMED_RUNS + 1):
+        reset_counts(attn, fr)
+        gen = torch.Generator(device=device).manual_seed(1)
+        start = time.perf_counter()
+        rows = sampler(onsets, embedding, gen)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - start
+        launched = counts(attn, fr)
+        check(tuple(rows.shape) == (SERVE_BATCH, LENGTH) and bool(torch.isfinite(rows).all()),
+              f"16a: rows {tuple(rows.shape)}")
+        check(launched == want, f"16a: launch counts {launched} != {want}")
+        print(f"  16a sampler, {'warm-up' if run == 0 else f'run {run}'}: {took:.3f} s",
+              flush=True)
+        if run:
+            seconds.append(took)
+    del model, sampler
+    model32 = SyncFusionDiffusion.from_config(None, dtype=torch.float32, device=device,
+                                              seed=0)
+    check_kw = dict(serving, num_steps=2)
+    rows = DataParallelSampler(model32, mesh, per_chip_batch=SERVE_BATCH, length=LENGTH,
+                               **check_kw)(onsets, embedding,
+                                           torch.Generator(device=device).manual_seed(7))
+    noise = torch.randn((SERVE_BATCH, LENGTH, 1), device=device,
+                        generator=torch.Generator(device=device).manual_seed(7))
+    ref = model32.sample(noise, onsets, embedding, **check_kw)[:, :, 0]
+    rel = ((rows - ref).abs().max() / ref.abs().max()).item()
+    check(rel <= MD_SAMPLE_TOL, f"16a: rows against sample {rel:.3e}")
+    return {"seconds": seconds, "launches": launched, "rel_vs_sample": rel,
+            "clips_per_min": [SERVE_BATCH * LENGTH / SR / 8.0 / t_ * 60 for t_ in seconds]}
+
+
+def md_train(device, attn, fr, tmp: str) -> dict:
+    """16b: ``train_diffusion.main`` at phase 6's command line on the rank
+    (the model in DDP); then fresh trainers, in DDP and in one process, take
+    micro-steps on one batch in turns (timed), and one DDP micro-step under
+    the profiler, whose device events must show NCCL's all-reduce."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from syncfusion_tpu_torch import train_diffusion
+    from syncfusion_tpu_torch.core.mesh import mesh_for_batch
+    from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
+    from syncfusion_tpu_torch.train.diffusion_trainer import DiffusionTrainer, OptimizerConfig
+
+    shard = os.path.join(tmp, "shard.tar")
+    write_shard(shard)
+    logs = os.path.join(tmp, "ddp")
+    reset_counts(attn, fr)
+    state = train_diffusion.main(train_args(shard, logs, TRAIN_STEPS) + ["--embedder", "none"])
+    torch.cuda.synchronize()
+    launched = counts(attn, fr)
+    check(isinstance(state.model, torch.nn.parallel.DistributedDataParallel),
+          f"16b: the model is a {type(state.model).__name__}, not DDP")
+    forwards, backwards = TRAIN_STEPS + 1 + SAMPLE_STEPS, TRAIN_STEPS
+    want = {name: 0 for name in launched} | {
+        "kernel_launches": 9 * forwards, "dq_launches": 9 * backwards,
+        "dkv_launches": 9 * backwards}
+    check(launched == want, f"16b: launch counts {launched} != {want}")
+    (run,) = os.listdir(os.path.join(logs, "runs"))
+    run = os.path.join(logs, "runs", run)
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        train = [r for r in map(json.loads, f) if "train_loss" in r]
+    del state
+    torch.cuda.empty_cache()
+
+    mesh = mesh_for_batch(BATCH)
+    trainers = {name: DiffusionTrainer(
+        SyncFusionDiffusion.from_config(None, device=device, seed=0),
+        OptimizerConfig(accumulate_grad_batches=ACCUMULATE),
+        mesh=mesh if name == "ddp" else None) for name in ("ddp", "single")}
+    states = {name: tr.create_state() for name, tr in trainers.items()}
+    wav, onsets, emb, _, _ = training_batch(tmp)
+    batch = {"wav": wav, "onsets": onsets, "embedding": emb}
+
+    def micro_step(name, seed):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        trainers[name].train_step(states[name], batch,
+                                  torch.Generator(device=device).manual_seed(seed))
+        torch.cuda.synchronize()
+        return time.perf_counter() - start
+
+    # the same micro-steps in DDP and in one process, in turns
+    turns = {"ddp": [], "single": []}
+    for name in ("ddp", "single", "single", "ddp", "ddp", "single"):
+        secs = [micro_step(name, i) for i in range(2 * ACCUMULATE)]
+        turns[name] += secs[ACCUMULATE:]  # the first update of each turn warms up
+    print(f"  16b micro-steps on one batch, in turns: DDP s {turns['ddp']}, one "
+          f"process s {turns['single']}", flush=True)
+    del trainers["single"], states["single"]
+    trainer, fresh = trainers["ddp"], states["ddp"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(fresh, batch, torch.Generator(device=device).manual_seed(1))
+        torch.cuda.synchronize()
+    on_device = sorted({e.name for e in prof.events()
+                        if e.device_type.name == "CUDA" and "nccl" in e.name.lower()})
+    onerank = sorted({e.name for e in prof.events() if e.device_type.name == "CUDA"
+                      and "onerank" in e.name.lower()})
+    check(bool(on_device), "16b: no NCCL event on the device in a profiled micro-step")
+    return {"losses": [r["train_loss"] for r in train],
+            "sec_per_step": statistics.median(r["sec_per_step"] for r in train[1:]),
+            "secs": [r["sec_per_step"] for r in train],
+            "turns": {k: statistics.median(v) for k, v in turns.items()},
+            "launches": launched, "ckpt_dir": os.path.join(run, "ckpts"),
+            "nccl_device_events": on_device, "nccl_kernels": onerank}
+
+
+def md_onset(device, tmp: str) -> dict:
+    """16c: the full-width onset trainer over the one-rank mesh (DDP,
+    synchronised BatchNorm) against the single-process ``OnsetTrainer`` on
+    the same weights and batch, one bf16 step each; then phase 11's steps
+    through ``train_onset.fit_epoch`` on the rank, timed."""
+    from syncfusion_tpu_torch import train_onset
+    from syncfusion_tpu_torch.core.config import OnsetConfig
+    from syncfusion_tpu_torch.core.logging import MetricLogger
+    from syncfusion_tpu_torch.core.mesh import mesh_for_batch
+    from syncfusion_tpu_torch.data.prefetch import to_device
+
+    cfg = OnsetConfig.from_dict({"model": {"precision": "bf16"},
+                                 "trainer": {"seed": 0, "log_every_n_steps": 1}})
+    mesh = mesh_for_batch(ONSET_BATCH)
+    ranked = train_onset.build_trainer(cfg, device, mesh=mesh)
+    single = train_onset.build_trainer(cfg, device)
+    batch = next(onset_batches(1, 0))
+    out = {}
+    for name, trainer in (("ranked", ranked), ("single", single)):
+        state = trainer.create_state()
+        metrics, _ = trainer.train_step(state, to_device(batch, device, trainer.mesh))
+        out[name] = (metrics["loss/train"].item(),
+                     {k: v.clone() for k, v in trainer.model.named_buffers()})
+    (loss_r, buf_r), (loss_s, buf_s) = out["ranked"], out["single"]
+    rel_loss = abs(loss_r - loss_s) / abs(loss_s)
+    rel_buf = max(((buf_r[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+                  for k, v in buf_s.items())
+    check(rel_loss <= MD_ONSET_TOL and rel_buf <= MD_ONSET_TOL,
+          f"16c: loss {rel_loss:.3e}, buffers {rel_buf:.3e} against one process")
+    del single
+    state = ranked.create_state()
+    logger = MetricLogger(os.path.join(tmp, "onset_ddp"))
+    train_onset.fit_epoch(ranked, state, onset_batches(ONSET_WARMUP + ONSET_TIMED, 0),
+                          device, logger, 1, torch.Generator(device=device).manual_seed(1))
+    logger.close()
+    with open(os.path.join(tmp, "onset_ddp", "metrics.jsonl")) as f:
+        secs = [r["sec_per_step"] for r in map(json.loads, f)][ONSET_WARMUP:]
+    return {"rel_loss": rel_loss, "rel_buffers": rel_buf, "seconds": secs,
+            "sec_per_step": statistics.median(secs)}
+
+
+def multi_device_child(part: str, out: str, *args: str) -> int:
+    """One rank of phase 16 (under torchrun): joins NCCL on cuda:LOCAL_RANK,
+    runs ``part`` and writes its numbers to ``out``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+
+    from syncfusion_tpu_torch.core.mesh import init_distributed
+    from syncfusion_tpu_torch.device import set_exact_f32
+    from syncfusion_tpu_torch.ops import attention as attn
+    from syncfusion_tpu_torch.ops import fused_resblock as fr
+
+    set_exact_f32()
+    device = init_distributed()
+    want = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    check(dist.get_backend() == "nccl" and device == want,
+          f"rank on {device} over {dist.get_backend()}, not {want} over nccl")
+    if part == "sampler":
+        result = md_sampler(device, attn, fr)
+    elif part == "train":
+        result = md_train(device, attn, fr, *args)
+    else:
+        result = md_onset(device, *args)
+    result |= {"world_size": dist.get_world_size(), "backend": dist.get_backend(),
+               "device": str(device)}
+    with open(out, "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multi_device(tmp: str, serve_clips_per_min: float, train_losses: list,
+                       train_sec: float, onset_sec: float) -> dict:
+    """Phase 16: 16a-16c each under torchrun, 16d here: 16b's checkpoint
+    into a single-process ``DiffusionTrainer``, strictly."""
+    from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
+    from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
+    from syncfusion_tpu_torch.train.diffusion_trainer import DiffusionTrainer
+
+    t0 = time.perf_counter()
+    sampler = torchrun("sampler", tmp)
+    cpm = sampler["clips_per_min"]
+    print(f"  16a data-parallel sampler, serving configuration, B={SERVE_BATCH} on "
+          f"1 rank: s {spread(sampler['seconds'], 1)}, 8-s clips/min median "
+          f"{statistics.median(cpm):.3f} (range {min(cpm):.3f}-{max(cpm):.3f}; phase "
+          f"4c {serve_clips_per_min:.3f}); K1 {sampler['launches']['kernel_launches']} "
+          f"a run, rows against sample (2 f32 steps) {sampler['rel_vs_sample']:.3e} "
+          f"(tol {MD_SAMPLE_TOL:.0e})", flush=True)
+    phase("16a data-parallel sampler under torchrun", t0)
+
+    t0 = time.perf_counter()
+    train = torchrun("train", tmp, tmp)
+    first = abs(train["losses"][0] - train_losses[0]) / abs(train_losses[0])
+    later = max(abs(a - b) / abs(b) for a, b in zip(train["losses"][1:], train_losses[1:]))
+    print(f"  16b DDP training: losses {['%.6f' % x for x in train['losses']]} against "
+          f"phase 6's {['%.6f' % x for x in train_losses]}: first {first:.3e} (tol "
+          f"{MD_FIRST_TOL:.0e}), later {later:.3e} (tol {MD_LATER_TOL:.0e}); "
+          f"{train['sec_per_step']:.4f} s per micro-step (median of steps 2-"
+          f"{TRAIN_STEPS}, each {['%.4f' % x for x in train['secs']]}; phase 6: "
+          f"{train_sec:.4f}); on one batch in turns, median DDP "
+          f"{train['turns']['ddp']:.4f} s against one process "
+          f"{train['turns']['single']:.4f} s "
+          f"({train['turns']['ddp'] / train['turns']['single']:.4f}x); "
+          f"NCCL on the device: {train['nccl_device_events']}, kernels "
+          f"{train['nccl_kernels']}", flush=True)
+    check(len(train["losses"]) == len(train_losses), "16b: micro-steps logged")
+    check(first <= MD_FIRST_TOL and later <= MD_LATER_TOL,
+          "16b: the rank's losses disagree with the single process's")
+    phase("16b DDP training under torchrun", t0)
+
+    t0 = time.perf_counter()
+    onset = torchrun("onset", tmp, tmp)
+    print(f"  16c onset training, synchronised BatchNorm, bf16, B={ONSET_BATCH}: one "
+          f"step against one process: loss {onset['rel_loss']:.3e}, buffers "
+          f"{onset['rel_buffers']:.3e} (tol {MD_ONSET_TOL:.0e}); "
+          f"{onset['sec_per_step']:.4f} s per step (phase 11: {onset_sec:.4f}; steps "
+          f"{['%.4f' % x for x in onset['seconds']]})", flush=True)
+    phase("16c onset training under torchrun", t0)
+
+    t0 = time.perf_counter()
+    saved = Checkpointer(CheckpointConfig(train["ckpt_dir"])).restore()
+    state = DiffusionTrainer(SyncFusionDiffusion.from_config(
+        None, device="cuda", seed=1)).create_state()
+    state.load_state_dict(saved)
+    check(state.step == TRAIN_STEPS and all(
+        torch.equal(v.cpu(), saved["model"][k]) for k, v in state.model.state_dict().items()),
+        "16d: the restored state is not the checkpoint's")
+    print(f"  16d: 16b's checkpoint (step {state.step}) restored into one process "
+          f"with strict=True", flush=True)
+    del state, saved
+    torch.cuda.empty_cache()
+    phase("16d checkpoint into one process", t0)
+    print(json.dumps({"multi_device": {
+        "world_size": train["world_size"], "backend": train["backend"],
+        "launcher": "python -m torch.distributed.run --standalone --nproc_per_node 1",
+        "device": train["device"],
+        "ran": ["16a DataParallelSampler (serving)", "16b train_diffusion.main in DDP",
+                "16c OnsetTrainer with synchronised BatchNorm",
+                "16d the DDP checkpoint into one process"],
+        "not_run": "FSDP and model_parallel: a model axis needs 2 ranks, one card "
+                   "has 1 (tests/test_torch_parallel.py runs them over gloo)"}}))
+    return {"sampler": sampler["launches"], "train": train["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1883,7 +2214,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        state, train_launched, sec, peak = phase_train(attn, fr, tmp, "plain")
+        state, train_launched, sec, peak, train_losses = phase_train(attn, fr, tmp,
+                                                                      "plain")
         print(f"  training, f32, B={BATCH}, L={LENGTH}: {sec:.4f} s per micro-step "
               f"(median of steps 2-{TRAIN_STEPS}), peak memory {peak:.3f} GiB")
         phase("6 training at full width", t0)
@@ -1937,7 +2269,7 @@ def main() -> int:
         phase("9 fused cross-check", t0)
 
         t0 = time.perf_counter()
-        state, fused_train, sec_f, peak_f = phase_train(attn, fr, tmp, "fused",
+        state, fused_train, sec_f, peak_f, _ = phase_train(attn, fr, tmp, "fused",
                                                         fused_model_cfg())
         print(f"  fused training, f32, B={BATCH}, L={LENGTH}: {sec_f:.4f} s per "
               f"micro-step (plain UNet, phase 6: {sec:.4f}), peak memory "
@@ -1972,7 +2304,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        state, clap_train, sec_c, peak_c = phase_train(
+        state, clap_train, sec_c, peak_c, _ = phase_train(
             attn, fr, tmp, "clap", embedder=None, steps=CLAP_TRAIN_STEPS)
         print(f"  CLAP-conditioned training (default embedder), f32, B={BATCH}, "
               f"L={LENGTH}: {sec_c:.4f} s at micro-step {CLAP_TRAIN_STEPS} (phase 6, "
@@ -2007,6 +2339,10 @@ def main() -> int:
         eval_launched = phase_eval(attn, fr, tmp)
         phase("15 evaluation at full width", t0)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        md_launched = phase_multi_device(tmp, clips_per_min["serving B=8 K=4"],
+                                         train_losses, sec, step_s["bf16"])
+
     fwd16, fwd32 = total[torch.bfloat16, ROWS], total[torch.float32, ROWS]
     serve16 = total[torch.bfloat16, SERVE_ROWS]
     v2f16 = {rows: total[torch.bfloat16, rows] for rows in V2F_ROWS}
@@ -2016,7 +2352,9 @@ def main() -> int:
              "generate_fused": fused_launched, "train_fused": fused_train,
              "video_to_foley": v2f_launched, "train_clap": clap_train,
              "video_to_foley_cond_wav": v2f_clap["cond_wav"],
-             "video_to_foley_text": v2f_clap["text"], "evaluate": eval_launched}
+             "video_to_foley_text": v2f_clap["text"], "evaluate": eval_launched,
+             "sample_data_parallel": md_launched["sampler"],
+             "train_ddp": md_launched["train"]}
 
     def launched_by_path(key):
         return {p_: c_[key] for p_, c_ in paths.items()}
@@ -2159,4 +2497,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multi-device"]:
+        sys.exit(multi_device_child(*sys.argv[2:]))
     sys.exit(main())

@@ -5,7 +5,10 @@ Retention is Lightning's, as the JAX package keeps it: the best ``save_top_k``
 checkpoints by the monitored metric **and** always the latest
 (``save_last``).  Each checkpoint is one file, ``step_{step}.pt``, written to
 a temporary name and renamed, so a file that exists is whole; the metrics of
-every kept step are in ``metrics.json`` beside them.
+every kept step are in ``metrics.json`` beside them.  Under
+``torch.distributed`` rank 0 alone writes and reads the files; the state it
+writes is the full one, gathered by ``TrainState.state_dict`` at every world
+size, so a checkpoint restores at any other.
 
 ``load_torch_state_dict`` reads a state dict saved by another program
 (laion_clap's checkpoint), plain or nested under ``"state_dict"``.
@@ -20,6 +23,8 @@ from pathlib import Path
 from typing import Any, Mapping, Optional
 
 import torch
+
+from syncfusion_tpu_torch.core.mesh import Mesh, rank_zero
 
 
 @dataclasses.dataclass
@@ -40,10 +45,11 @@ class Checkpointer:
     tensors the card copies to the host at its own rate.)
     """
 
-    def __init__(self, config: CheckpointConfig):
+    def __init__(self, config: CheckpointConfig, mesh: Optional[Mesh] = None):
         if config.mode not in ("min", "max"):
             raise ValueError(f"mode must be 'min' or 'max', not {config.mode!r}")
         self.config = config
+        self.mesh = mesh or Mesh.single()
         self.directory = Path(config.directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self._index = self.directory / "metrics.json"
@@ -76,13 +82,17 @@ class Checkpointer:
     def save(self, step: int, state: Mapping[str, Any],
              metrics: Optional[Mapping[str, float]] = None) -> Path:
         """Write ``state`` (a mapping of tensors, numbers and nested state
-        dicts) as the checkpoint of ``step``, then prune."""
+        dicts) as the checkpoint of ``step``, then prune.  Under
+        ``torch.distributed`` rank 0 writes and every rank of the mesh waits
+        for it at a barrier."""
         path = self.path(step)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        torch.save(dict(state), tmp)
-        tmp.replace(path)
-        self._metrics[step] = {k: float(v) for k, v in (metrics or {}).items()}
-        self._prune()
+        if rank_zero():
+            self._metrics[step] = {k: float(v) for k, v in (metrics or {}).items()}
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            torch.save(dict(state), tmp)
+            tmp.replace(path)
+            self._prune()
+        self.mesh.barrier()
         return path
 
     def _prune(self) -> None:
@@ -101,10 +111,14 @@ class Checkpointer:
         tmp.replace(self._index)
 
     def restore(self, step: Optional[int] = None) -> dict:
-        """The saved state of ``step`` (the latest when None), on the CPU."""
+        """The saved state of ``step`` (the latest when None), on the CPU;
+        an empty dict on ranks other than 0, which ``TrainState.load_state_dict``
+        fills from rank 0."""
         step = self.latest_step() if step is None else step
         if step is None or not self.path(step).exists():
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        if not rank_zero():
+            return {}
         return torch.load(self.path(step), map_location="cpu", weights_only=True)
 
 

@@ -5,26 +5,38 @@ A thread runs the numpy pipeline, turns each array of a batch into a tensor,
 pins it when the target is a card and starts its copy with
 ``non_blocking=True``, so that reading shards and the copies overlap the
 training step.  The copies are issued on the device's current stream, so the
-step that consumes a batch is ordered after its copy.
+step that consumes a batch is ordered after its copy.  Under data
+parallelism every rank reads the same stream of global batches from the same
+seed and copies only its own rows (``mesh``: ``Mesh.rows``).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Mapping
+from typing import Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 
+from syncfusion_tpu_torch.core.mesh import Mesh
 
-def to_device(batch: Mapping, device: torch.device) -> dict:
+
+def to_device(batch: Mapping, device: torch.device,
+              mesh: Optional[Mesh] = None) -> dict:
     """numpy arrays of ``batch`` -> tensors on ``device``; other entries
     (tensors the embedder made on the device, texts, file names) pass
-    through."""
+    through.  With a distributed ``mesh``, only the rank's rows of every
+    array and tensor (``mesh.rows``)."""
     pin = device.type == "cuda"
+    rows = None
+    if mesh is not None and mesh.distributed:
+        arrays = [v for v in batch.values() if isinstance(v, (np.ndarray, torch.Tensor))]
+        rows = mesh.rows(len(arrays[0]))
     out = {}
     for key, val in batch.items():
+        if rows is not None and isinstance(val, (np.ndarray, torch.Tensor)):
+            val = val[rows]
         if isinstance(val, np.ndarray):
             val = torch.from_numpy(np.ascontiguousarray(val))
             if pin:
@@ -35,8 +47,9 @@ def to_device(batch: Mapping, device: torch.device) -> dict:
 
 
 def device_prefetch(batches: Iterator[Mapping], device: torch.device,
-                    buffer_size: int = 2) -> Iterator[dict]:
-    """Yield ``to_device`` batches, keeping ``buffer_size`` in flight.
+                    buffer_size: int = 2, mesh: Optional[Mesh] = None) -> Iterator[dict]:
+    """Yield ``to_device`` batches (the rank's rows of each, over
+    ``mesh``), keeping ``buffer_size`` in flight.
 
     An error of the pipeline is raised on the consumer's side.  Closing the
     generator (or leaving a loop over it) stops and joins the thread.
@@ -58,7 +71,7 @@ def device_prefetch(batches: Iterator[Mapping], device: torch.device,
     def worker():
         try:
             for batch in batches:
-                if not put(to_device(batch, device)):
+                if not put(to_device(batch, device, mesh)):
                     return
         except BaseException as e:  # raised again on the consumer side
             error.append(e)

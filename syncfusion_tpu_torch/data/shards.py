@@ -6,6 +6,8 @@ Shards are ``.tar`` files whose members are grouped by key:
 ``{key}.times.pred.csv``.  A generator yields samples ``{suffix: bytes}``;
 helpers decode the wav and csv members.  The JAX package's native C++ reader
 (``data/native.py``) is not ported: this reader is the one the port has.
+``shard_for_process`` splits a shard list over processes, so that each
+reads disjoint data.
 """
 
 from __future__ import annotations
@@ -37,6 +39,12 @@ def expand_shards(path: str | Sequence[str]) -> list[str]:
         parent = Path(path).parent
         return sorted(str(p) for p in parent.glob(Path(path).name))
     return [path]
+
+
+def shard_for_process(shards: Sequence[str], process_index: int,
+                      process_count: int) -> list[str]:
+    """Disjoint round-robin shard assignment per process."""
+    return [s for i, s in enumerate(shards) if i % process_count == process_index]
 
 
 def _iter_members(shard: str) -> Iterator[tuple[str, bytes]]:

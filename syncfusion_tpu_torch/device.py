@@ -5,12 +5,15 @@ does."""
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
 
 def default_device(device: str | torch.device | None = None) -> torch.device:
-    """``device`` when given, else the first CUDA device.
+    """``device`` when given, else the card: ``cuda:LOCAL_RANK`` in a
+    process that torchrun started (one process per card), ``cuda`` in any
+    other.
 
     Raises when no card is present and no device was asked for: an entry
     point never carries on silently on the CPU.
@@ -21,6 +24,8 @@ def default_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device: syncfusion_tpu_torch runs on the card; pass "
             "device='cpu' to run on the CPU")
+    if "LOCAL_RANK" in os.environ:
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return torch.device("cuda")
 
 

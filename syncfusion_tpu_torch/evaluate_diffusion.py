@@ -40,13 +40,12 @@ import numpy as np
 import torch
 
 from syncfusion_tpu_torch.convert import to_state_dict, unflatten
-from syncfusion_tpu_torch.core.config import model_configs
 from syncfusion_tpu_torch.data.sfx_dataset import create_sfx_dataset
 from syncfusion_tpu_torch.device import default_device, set_exact_f32
 from syncfusion_tpu_torch.eval.fad import evaluate_fad
 from syncfusion_tpu_torch.eval.generation import generate_dataset, prepare_gt_for_fad
 from syncfusion_tpu_torch.generate import restore_model
-from syncfusion_tpu_torch.models.embedder import build_embedder
+from syncfusion_tpu_torch.models.embedder import embedder_from_config
 from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
 
 log = logging.getLogger("syncfusion_tpu_torch.evaluate_diffusion")
@@ -222,10 +221,7 @@ def main(argv=None) -> dict:
     if args.model_config:
         with open(args.model_config) as f:
             model_cfg = json.load(f)
-    node = (model_cfg or {}).get("embedder", {"amodel": "HTSAT-tiny"})
-    embedder = build_embedder(
-        node.get("amodel") if node else None, model_configs(model_cfg)[0].embedding_features,
-        device, checkpoint_path=(model_cfg or {}).get("embedder_checkpoint"))
+    embedder = embedder_from_config(model_cfg, device)
     model = load_model(args, model_cfg, device)
     out["generation"] = generate_dataset(
         cfg["experiment_path"], model, dataset, embed_audio=embedder.embed_audio,

@@ -58,17 +58,19 @@ def same_padding(length: int, kernel: int, stride: int = 1) -> tuple[int, int]:
 
 
 class Linear(nn.Module):
-    """Flax ``Dense``: weight (out, in) in torch's layout."""
+    """Flax ``Dense``: weight (out, in) in torch's layout.  ``dtype=None``
+    computes, as a Flax ``Dense`` without ``dtype`` does, in the promoted
+    type of the input and the parameters."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
         self.dtype = dtype
 
     def forward(self, x):
-        dt = self.dtype
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
@@ -122,7 +124,8 @@ class ConvTranspose1d(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """Flax ``GroupNorm``: statistics in f32, eps 1e-6, output in ``dtype``."""
+    """Flax ``GroupNorm``: statistics in the parameters' type (f32; f64 for
+    a model cast to f64), eps 1e-6, output in ``dtype``."""
 
     def __init__(self, groups: int, channels: int,
                  dtype: torch.dtype = torch.float32):
@@ -133,7 +136,8 @@ class GroupNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        return F.group_norm(x.float(), self.groups, self.weight, self.bias,
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
+        return F.group_norm(x, self.groups, self.weight, self.bias,
                             GN_EPS).to(self.dtype)
 
 
@@ -204,7 +208,7 @@ class ResnetBlock1d(nn.Module):
         h = self.GroupNorm_0(x)
         if self.film is not None:
             scale, shift = self.film(F.silu(time_emb)).chunk(2, dim=-1)
-            h = h.float() * (1.0 + scale[:, :, None]) + shift[:, :, None]
+            h = h.to(scale.dtype) * (1.0 + scale[:, :, None]) + shift[:, :, None]
         h = self.conv1(F.silu(h))
         h = self.conv2(F.silu(self.GroupNorm_1(h)))
         return h + self._residual(x)

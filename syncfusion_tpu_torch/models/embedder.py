@@ -12,6 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from syncfusion_tpu_torch.core.config import model_configs
 from syncfusion_tpu_torch.device import default_device
 
 
@@ -48,3 +49,17 @@ def build_embedder(amodel: str | None, embedding_features: int = 512, device=Non
     from syncfusion_tpu_torch.models.clap import ClapEmbedder
 
     return ClapEmbedder(checkpoint_path, tokenizer_path, device=device)
+
+
+def embedder_from_config(model_cfg: Optional[dict], device=None,
+                         checkpoint_path: Optional[str] = None):
+    """The embedder of a diffusion config's model node (the JAX package's
+    ``build_embedder(cfg.model)``): ``embedder: null`` or ``amodel: none``
+    gives zeros and builds no CLAP; otherwise CLAP with ``checkpoint_path``,
+    else the node's ``embedder_checkpoint``.  No node (None, or a node
+    without ``embedder``) means the config's default, CLAP HTSAT-tiny."""
+    node = (model_cfg or {}).get("embedder", {"amodel": "HTSAT-tiny"})
+    return build_embedder(
+        node.get("amodel") if node else None,
+        model_configs(model_cfg)[0].embedding_features, device,
+        checkpoint_path=checkpoint_path or (model_cfg or {}).get("embedder_checkpoint"))

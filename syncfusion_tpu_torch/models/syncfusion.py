@@ -100,6 +100,12 @@ class SyncFusionDiffusion(nn.Module):
             sigma=sigma, noise=noise, embedding_cfg_mask=embedding_cfg_mask,
             generator=generator)
 
+    def forward(self, wav, onsets, embedding, embedding_mask_proba: float = 0.0,
+                **draws):
+        """The training loss, ``loss``: DDP and FSDP act through a module's
+        forward."""
+        return self.loss(wav, onsets, embedding, embedding_mask_proba, **draws)
+
     @torch.no_grad()
     def sample(self, noise, onsets, embedding, num_steps: int = 150,
                embedding_scale: float = 1.0,

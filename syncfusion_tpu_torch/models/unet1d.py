@@ -190,7 +190,7 @@ class UNet1d(nn.Module):
         is 1 use the fixed (unconditional) embedding.  Without a mask,
         ``embedding_mask_proba > 0`` is the training-time CFG dropout: each
         row takes the fixed embedding with that probability, drawn from
-        ``generator``.  Returns (B, L, out) in f32.
+        ``generator``.  Returns (B, L, out) in f32 (f64 for an f64 model).
 
         DeepCache (Ma et al. 2023, arXiv:2312.00858): ``deep_split=S`` in
         [1, n-1] splits the net at level S.  Without ``deep_cache`` the whole
@@ -255,5 +255,6 @@ class UNet1d(nn.Module):
                 deep = h
 
         out = self.head(F.silu(self.GroupNorm_0(h)))
-        out = out.transpose(1, 2).float()
+        out = out.transpose(1, 2)
+        out = out.to(torch.promote_types(out.dtype, torch.float32))
         return (out, deep) if return_deep else out

@@ -34,21 +34,28 @@ HEAD_DIM = 64  # the one head width the kernels are built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _up(x):
+    """``x`` in at least f32: the plain versions' arithmetic type (f64 for
+    f64 inputs, which only the CPU takes)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def attention_reference(q, k, v, causal: bool = False,
                         return_lse: bool = False):
-    """Plain attention, (B, L, H, D) layout, math in f32.
+    """Plain attention, (B, L, H, D) layout, math in f32 (f64 for f64
+    inputs).
 
     Returns O in ``q``'s dtype and, with ``return_lse``, the row logsumexp
     of the scaled logits as a (B, H, Lq) f32 tensor.  ``causal`` masks keys
     after the query's own index (top-left aligned, as the TPU kernel does).
     """
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("blhd,bmhd->bhlm", q.float() * scale, k.float())
+    s = torch.einsum("blhd,bmhd->bhlm", _up(q) * scale, _up(k))
     if causal:
         s = s.masked_fill(~_causal_keep(s), float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
-    o = torch.einsum("bhlm,bmhd->blhd", p, v.float()).to(q.dtype)
+    o = torch.einsum("bhlm,bmhd->blhd", p, _up(v)).to(q.dtype)
     return (o, lse) if return_lse else o
 
 
@@ -60,21 +67,21 @@ def _causal_keep(s):
 def _softmax_grad(q, k, v, lse, do, delta, causal):
     """(q·scale, P, dS) in f32 by recompute: P = exp(q kᵀ·scale - lse),
     dS = P∘(dO vᵀ - delta), masked pairs 0."""
-    qs = q.float() * (1.0 / math.sqrt(q.shape[-1]))
-    s = torch.einsum("blhd,bmhd->bhlm", qs, k.float())
+    qs = _up(q) * (1.0 / math.sqrt(q.shape[-1]))
+    s = torch.einsum("blhd,bmhd->bhlm", qs, _up(k))
     if causal:
         s = s.masked_fill(~_causal_keep(s), float("-inf"))
     p = torch.exp(s - lse[..., None])
-    dp = torch.einsum("blhd,bmhd->bhlm", do.float(), v.float())
+    dp = torch.einsum("blhd,bmhd->bhlm", _up(do), _up(v))
     return qs, p, p * (dp - delta[..., None])
 
 
 def flash_bwd_dq_reference(q, k, v, o, lse, do, causal: bool = False):
     """Plain version of K2a: ``(dq, delta)``, delta = rowsum(dO∘O) as a
     (B, H, Lq) f32 tensor, dq in ``q``'s dtype."""
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    delta = (_up(do) * _up(o)).sum(-1).transpose(1, 2)
     _, _, ds = _softmax_grad(q, k, v, lse, do, delta, causal)
-    dq = torch.einsum("bhlm,bmhd->blhd", ds, k.float()) / math.sqrt(q.shape[-1])
+    dq = torch.einsum("bhlm,bmhd->blhd", ds, _up(k)) / math.sqrt(q.shape[-1])
     return dq.to(q.dtype), delta
 
 
@@ -82,7 +89,7 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool = False):
     """Plain version of K2b: ``(dk, dv)`` in ``k``'s dtype."""
     qs, p, ds = _softmax_grad(q, k, v, lse, do, delta, causal)
     dk = torch.einsum("bhlm,blhd->bmhd", ds, qs)
-    dv = torch.einsum("bhlm,blhd->bmhd", p, do.float())
+    dv = torch.einsum("bhlm,blhd->bmhd", p, _up(do))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -13,8 +13,12 @@ Loss and metrics reproduce the reference ``BCLoss``
   * "OnsNumAcc": the share of chunks whose predicted onset count, after the
     reference's consecutive-onset zeroing loop, equals the target count.
 
-One device.  Data parallelism with synchronised BatchNorm waits for the
-multi-device slice (``MULTI_DEVICE_TODO``).
+Over a ``core.mesh.Mesh`` (one process per card under torchrun) each step
+takes the rank's rows of a global batch: the net is wrapped in DDP, its
+BatchNorms take the global batch's statistics (``onset_net.sync_batchnorm``,
+the reference's ``sync_batchnorm=True``), ``pos_weight`` comes from the
+global labels and the reported loss is the global mean, so that N ranks
+compute what one process computes on the whole batch.
 """
 
 from __future__ import annotations
@@ -23,14 +27,16 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from syncfusion_tpu_torch.core.mesh import DATA_AXIS, Mesh, all_reduce_mean_
 from syncfusion_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from syncfusion_tpu_torch.eval.onset_metrics import average_precision
-from syncfusion_tpu_torch.models.onset_net import VideoOnsetNet
-from syncfusion_tpu_torch.ops.augment import color_jitter_device
+from syncfusion_tpu_torch.models.onset_net import VideoOnsetNet, sync_batchnorm
+from syncfusion_tpu_torch.ops.augment import apply_color_jitter, draw_jitter
+from syncfusion_tpu_torch.train import sharding
 from syncfusion_tpu_torch.train.diffusion_trainer import (
-    MULTI_DEVICE_TODO,
     Optimizer,
     OptimizerConfig,
     TrainState,
@@ -39,14 +45,19 @@ from syncfusion_tpu_torch.train.diffusion_trainer import (
 THRESHOLD = 0.75  # reference main/module_onset.py:272
 
 
-def bc_loss(logits, targets):
+def bc_loss(logits, targets, group=None):
     """Pos-weighted BCE-with-logits, the mean over every frame (reference
     BCLoss.forward:274-286); ``pos_weight`` from the batch's labels, with
-    at least one positive counted."""
+    at least one positive counted.  With a process ``group``, the batch is
+    the global one: the count and the positives are summed over its ranks
+    (whose shares are equal), and the loss is this rank's frames' mean."""
     x = logits.reshape(-1)
     y = targets.reshape(-1).to(x.dtype)
-    pos = y.sum()
-    pos_weight = (y.shape[0] - pos) / pos.clamp_min(1.0)
+    pos, count = y.sum(), y.shape[0]
+    if group is not None:
+        dist.all_reduce(pos, group=group)
+        count *= dist.get_world_size(group)
+    pos_weight = (count - pos) / pos.clamp_min(1.0)
     losses = -(pos_weight * y * F.logsigmoid(x) + (1.0 - y) * F.logsigmoid(-x))
     return losses.mean()
 
@@ -88,29 +99,44 @@ def onset_metrics(logits, targets) -> dict[str, float]:
 
 
 class OnsetTrainer:
-    """AdamW trainer of a ``VideoOnsetNet`` on one device (reference
-    recipe, cfg/model/model-onset.yaml: lr 1e-4, betas (0.9, 0.999), eps
-    1e-8, weight decay 1e-3; no clipping, no accumulation).
+    """AdamW trainer of a ``VideoOnsetNet`` on one device or over a
+    ``mesh`` (reference recipe, cfg/model/model-onset.yaml: lr 1e-4, betas
+    (0.9, 0.999), eps 1e-8, weight decay 1e-3; no clipping, no
+    accumulation).
 
     ``jitter=(brightness, contrast, saturation, hue)`` turns on the device
     ColorJitter in ``train_step``.  ``train_step`` updates the state in
     place (parameters, BatchNorm buffers, AdamW) and returns device
-    tensors: reading them syncs the host.
+    tensors: reading them syncs the host.  Over a mesh, ``train_step`` and
+    ``forward`` take the rank's rows of a global batch (``Mesh.rows``), and
+    ``gather_rows`` joins the ranks' rows again.
     """
 
     def __init__(self, model: VideoOnsetNet, opt_cfg: Optional[OptimizerConfig] = None,
-                 jitter: Optional[tuple] = None, devices: int = 1):
-        if devices != 1:
-            raise NotImplementedError(MULTI_DEVICE_TODO)
+                 jitter: Optional[tuple] = None, mesh: Optional[Mesh] = None):
         self.model = model
         self.opt_cfg = opt_cfg or OptimizerConfig(
             lr_beta1=0.9, lr_eps=1e-8, gradient_clip_val=1e9,
             accumulate_grad_batches=1)
         self.jitter = tuple(jitter) if jitter else None
+        self.mesh = mesh or Mesh.single()
+        self.group = self.mesh.axis_group(DATA_AXIS)
+        sync_batchnorm(model, self.group)
+        self.module, _ = sharding.wrap(model, self.mesh)
 
     def create_state(self) -> TrainState:
-        return TrainState(step=0, model=self.model,
-                          optimizer=Optimizer(self.model.parameters(), self.opt_cfg))
+        return TrainState(step=0, model=self.module,
+                          optimizer=Optimizer(self.module.parameters(), self.opt_cfg),
+                          distributed=self.mesh.distributed)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The data ranks' rows of ``x``, joined in rank order (the global
+        batch's); ``x`` itself in a single process."""
+        if not self.mesh.distributed:
+            return x
+        parts = [torch.empty_like(x) for _ in range(self.mesh.data)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts)
 
     @staticmethod
     def yuv420_to_rgb(packed):
@@ -159,27 +185,35 @@ class OnsetTrainer:
     def train_frames(self, frames, generator: Optional[torch.Generator] = None):
         """Train-time prep: decode, the device jitter when configured, then
         normalise.  The jitter needs a quantised wire: f32 frames are
-        normalised already."""
+        normalised already.  Its factors are drawn for the global batch, and
+        the rank's rows of them taken."""
         if self.jitter is None:
             return self.prep_frames(frames)
         rgb = self.decode_wire(frames)
         if rgb is None:
             raise ValueError("OnsetTrainer(jitter=...) needs a uint8 or yuv420 "
                              f"frame wire, got {frames.dtype}")
-        return self.normalize(color_jitter_device(rgb, generator, *self.jitter))
+        b = rgb.shape[0] * self.mesh.data
+        drawn = draw_jitter(b, generator, *self.jitter, device=rgb.device)
+        rows = self.mesh.rows(b)
+        return self.normalize(apply_color_jitter(rgb, *(d[rows] for d in drawn)))
 
     def train_step(self, state: TrainState, batch: Mapping,
                    generator: Optional[torch.Generator] = None) -> tuple:
         """One step on ``batch`` (``frames`` in a wire format, ``label``
         (B, T)): train-mode forward (the BatchNorm buffers move), loss,
-        backward, AdamW.  Returns (``{"loss/train": loss}``, logits)."""
+        backward, AdamW.  Returns (``{"loss/train": loss}``, logits), the
+        loss the global batch's mean, the logits this rank's rows."""
         model = state.model.train()
         logits = model(self.train_frames(batch["frames"], generator))
-        loss = bc_loss(logits, batch["label"])
+        loss = bc_loss(logits, batch["label"], self.group)
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return {"loss/train": loss.detach()}, logits.detach()
+        loss = loss.detach().clone()
+        if self.mesh.distributed:
+            all_reduce_mean_(loss, self.group)
+        return {"loss/train": loss}, logits.detach()
 
     @torch.no_grad()
     def forward(self, state: TrainState, frames):

@@ -22,6 +22,19 @@ with the laion checkpoint ``--clap_ckpt``, else random weights and a
 warning), computed on the device in the feeder thread; ``--embedder none``
 conditions on zero embeddings.  Runs on the card; ``--device cpu`` runs on
 the CPU.
+
+On several cards, one process each:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m syncfusion_tpu_torch.train_diffusion ...
+
+trains over a ``(data, model)`` mesh as the JAX script does: ``--model_parallel
+M`` makes a model axis of M ranks (``--fsdp true`` shards the parameters
+over it), else the data axis is the largest divisor of ``--batch_size``
+that fits the world, and the launch must give the mesh all its ranks.  Each
+rank reads the same stream and trains on its rows of each global batch;
+rank 0 writes the metrics, samples and checkpoints, whose format is the
+same at every world size.
 """
 
 from __future__ import annotations
@@ -35,13 +48,24 @@ import logging
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
 from syncfusion_tpu_torch.core.config import TrainConfig, model_configs
-from syncfusion_tpu_torch.core.logging import MetricLogger
+from syncfusion_tpu_torch.core.logging import MetricLogger, configure_logging
+from syncfusion_tpu_torch.core.mesh import (
+    Mesh,
+    MeshSpec,
+    create_mesh,
+    init_distributed,
+    launched,
+    mesh_for_batch,
+    rank_zero,
+)
 from syncfusion_tpu_torch.data.prefetch import device_prefetch, to_device
 from syncfusion_tpu_torch.data.sfx_dataset import batched, collate, create_sfx_dataset
 from syncfusion_tpu_torch.device import default_device, set_exact_f32
@@ -84,15 +108,16 @@ def make_batches(path, cfg: TrainConfig, seed: int, embedder, train: bool = True
 
 
 def validate(trainer: DiffusionTrainer, state: TrainState, cfg: TrainConfig,
-             val_path, embedder, device) -> float:
+             val_path, embedder, device, mesh: Optional[Mesh] = None) -> float:
     """Mean loss over ``val_batches`` batches of the val dataset (no shift
     augmentation, no shard shuffle), each with sigma and noise from seed 0
-    (the JAX script's key 0)."""
+    (the JAX script's key 0); over a ``mesh``, each rank takes its rows and
+    each batch's loss is its global mean."""
     losses = []
     for vb in itertools.islice(make_batches(val_path, cfg, 0, embedder,
                                             train=False), cfg.val_batches):
         gen = torch.Generator(device=device).manual_seed(0)
-        m = trainer.eval_step(state, to_device(vb, device), gen)
+        m = trainer.eval_step(state, to_device(vb, device, mesh), gen)
         losses.append(float(m["valid_loss"]))
     return float(np.mean(losses)) if losses else float("nan")
 
@@ -182,11 +207,29 @@ def parse_args(argv=None):
     return args, cfg
 
 
+def make_mesh(cfg: TrainConfig) -> Mesh:
+    """The JAX script's mesh: ``model_parallel`` ranks on the model axis
+    and the rest on data, else the data axis ``mesh_for_batch`` gives;
+    every launched rank must be on it."""
+    if cfg.model_parallel > 1:
+        mesh = create_mesh(MeshSpec(data=-1, model=cfg.model_parallel))
+    else:
+        mesh = mesh_for_batch(cfg.batch_size)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if mesh.size != world:
+        raise ValueError(f"batch {cfg.batch_size} splits over at most {mesh.size} "
+                         f"ranks; launch {mesh.size} processes, not {world}")
+    return mesh
+
+
 def main(argv=None) -> TrainState:
     """Train until ``max_steps`` micro-steps; returns the final state."""
     args, cfg = parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
     device = default_device(args.device)
+    if launched():
+        init_distributed(device)
+    configure_logging()
+    mesh = make_mesh(cfg)
     dtype = PRECISIONS[cfg.precision]
     if cfg.precision == "32":
         set_exact_f32()
@@ -207,23 +250,34 @@ def main(argv=None) -> TrainState:
             lr_eps=cfg.lr_eps, lr_weight_decay=cfg.lr_weight_decay,
             gradient_clip_val=cfg.gradient_clip_val,
             accumulate_grad_batches=cfg.accumulate_grad_batches),
-        embedding_mask_proba=cfg.embedding_mask_proba, fsdp=cfg.fsdp,
-        model_parallel=cfg.model_parallel)
+        embedding_mask_proba=cfg.embedding_mask_proba, mesh=mesh, fsdp=cfg.fsdp)
+    # the sample logger's model: under FSDP a whole copy on rank 0, loaded
+    # from the gathered state at each validation
+    sampling_model = model
+    if trainer.fsdp and rank_zero():
+        sampling_model = SyncFusionDiffusion.from_config(model_cfg, dtype=dtype,
+                                                         device=device, seed=cfg.seed)
     state = trainer.create_state()
     if args.ckpt:
-        state.load_state_dict(Checkpointer(CheckpointConfig(args.ckpt)).restore())
+        state.load_state_dict(Checkpointer(CheckpointConfig(args.ckpt), mesh).restore())
         log.info("resumed from %s at step %d", args.ckpt, state.step)
-    log.info("params: %.1fM on %s, %s compute", model.param_count() / 1e6,
-             device, cfg.precision)
+    log.info("params: %.1fM on %s, %s compute, mesh (data %d, model %d)%s",
+             model.param_count() / 1e6, device, cfg.precision, mesh.data,
+             mesh.model, ", FSDP" if trainer.fsdp else "")
 
     runs = Path(args.logs_dir) / "runs"
-    runs.mkdir(parents=True, exist_ok=True)
-    run_dir = Path(tempfile.mkdtemp(prefix=time.strftime("%Y-%m-%d-%H-%M-%S-"),
-                                    dir=runs))
+    run_dir = [None]
+    if rank_zero():
+        runs.mkdir(parents=True, exist_ok=True)
+        run_dir = [Path(tempfile.mkdtemp(prefix=time.strftime("%Y-%m-%d-%H-%M-%S-"),
+                                         dir=runs))]
+    if mesh.distributed:
+        dist.broadcast_object_list(run_dir, src=0)
+    run_dir = run_dir[0]
     log.info("run dir: %s", run_dir)
     ckpt = Checkpointer(CheckpointConfig(
         directory=run_dir / "ckpts", monitor=cfg.monitor, mode=cfg.mode,
-        save_top_k=cfg.save_top_k, save_last=cfg.save_last))
+        save_top_k=cfg.save_top_k, save_last=cfg.save_last), mesh)
     samples = SampleLogger(cfg, args.val_path, embedder, device)
     gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     metrics_logger = MetricLogger(run_dir)
@@ -232,7 +286,8 @@ def main(argv=None) -> TrainState:
         for epoch in itertools.count():
             batches = make_batches(args.train_path, cfg, cfg.seed + epoch, embedder)
             seen = 0
-            with contextlib.closing(device_prefetch(batches, device)) as stream:
+            with contextlib.closing(device_prefetch(batches, device,
+                                                    mesh=mesh)) as stream:
                 for batch in stream:
                     seen += 1
                     metrics = trainer.train_step(state, batch, gen)
@@ -245,11 +300,15 @@ def main(argv=None) -> TrainState:
                         t0 = time.perf_counter()
                     if step % cfg.val_check_interval == 0:
                         valid_loss = validate(trainer, state, cfg, args.val_path,
-                                              embedder, device)
+                                              embedder, device, mesh)
                         metrics_logger.log({"valid_loss": valid_loss}, step=step)
                         log.info("step %d valid_loss %.4f", step, valid_loss)
-                        samples(model, metrics_logger, step)
-                        ckpt.save(step, state.state_dict(), {"valid_loss": valid_loss})
+                        full = state.state_dict()
+                        if rank_zero():
+                            if sampling_model is not model:
+                                sampling_model.load_state_dict(full["model"])
+                            samples(sampling_model, metrics_logger, step)
+                        ckpt.save(step, full, {"valid_loss": valid_loss})
                         t0 = time.perf_counter()
                     if step >= cfg.max_steps:
                         return state

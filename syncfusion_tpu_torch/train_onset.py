@@ -21,6 +21,14 @@ annotation CSVs and the label plots to ``media/``.  ``--ckpt_path DIR``
 restores the latest checkpoint of DIR.  Metrics go to
 ``<logs_dir>/<run>/metrics.jsonl``.  Runs on the card; ``--device cpu``
 runs on the CPU.
+
+On several cards, one process each (``python -m torch.distributed.run
+--nproc_per_node N -m syncfusion_tpu_torch.train_onset fit ...``), the data
+axis is the largest divisor of ``data.batch_size`` that fits the world (the
+launch must give it all its ranks): each rank trains on its rows of every
+global batch with synchronised BatchNorm, evaluation pads the last batch to
+a multiple of the ranks and gathers the logits, and rank 0 writes the
+metrics, annotations and checkpoints.
 """
 
 from __future__ import annotations
@@ -36,10 +44,18 @@ from typing import Iterable, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
 from syncfusion_tpu_torch.core.config import OnsetConfig
-from syncfusion_tpu_torch.core.logging import MetricLogger
+from syncfusion_tpu_torch.core.logging import MetricLogger, configure_logging
+from syncfusion_tpu_torch.core.mesh import (
+    Mesh,
+    init_distributed,
+    launched,
+    mesh_for_batch,
+    rank_zero,
+)
 from syncfusion_tpu_torch.data.onset_dataset import GreatestHitsDataset, loader
 from syncfusion_tpu_torch.data.prefetch import device_prefetch
 from syncfusion_tpu_torch.data.transforms import FrameTransform
@@ -98,11 +114,12 @@ def make_dataset(cfg: OnsetConfig, split: str,
     )
 
 
-def build_trainer(cfg: OnsetConfig, device, jitter: Optional[tuple] = None) -> OnsetTrainer:
+def build_trainer(cfg: OnsetConfig, device, jitter: Optional[tuple] = None,
+                  mesh: Optional[Mesh] = None) -> OnsetTrainer:
     """The onset net of ``cfg.model`` on ``device`` with parameters from
     ``cfg.trainer.seed`` (or the Kinetics backbone of ``pretrained_path``),
-    under its trainer.  ``precision: 32`` turns TF32 off for matmuls and
-    cuDNN (the JAX package computes exact f32)."""
+    under its trainer (over ``mesh`` when given).  ``precision: 32`` turns
+    TF32 off for matmuls and cuDNN (the JAX package computes exact f32)."""
     m = cfg.model
     if m.precision not in PRECISIONS:
         raise ValueError(f"model.precision {m.precision!r}: one of {sorted(PRECISIONS)}")
@@ -122,7 +139,7 @@ def build_trainer(cfg: OnsetConfig, device, jitter: Optional[tuple] = None) -> O
     return OnsetTrainer(net, OptimizerConfig(
         lr=m.lr, lr_beta1=m.lr_beta1, lr_beta2=m.lr_beta2, lr_eps=m.lr_eps,
         lr_weight_decay=m.lr_weight_decay, gradient_clip_val=1e9,
-        accumulate_grad_batches=1), jitter=jitter)
+        accumulate_grad_batches=1), jitter=jitter, mesh=mesh)
 
 
 def evaluate(trainer: OnsetTrainer, state: TrainState, dataset, cfg: OnsetConfig,
@@ -131,15 +148,26 @@ def evaluate(trainer: OnsetTrainer, state: TrainState, dataset, cfg: OnsetConfig
     """Means over the batches of ``dataset`` of the loss, AP, Acc and
     OnsNumAcc (``nan`` AP of a batch without positives skipped), eval-mode
     forward; the final batch may be short.  Writes the annotation CSVs and
-    the first ``label_plot_batches`` batches' label plots where asked."""
+    the first ``label_plot_batches`` batches' label plots where asked (on
+    rank 0).  Over a mesh each rank takes its rows of every batch, the last
+    one padded to a multiple of the data ranks, and the logits are gathered
+    (the padding dropped)."""
     losses, all_metrics = [], []
+    mesh = trainer.mesh
     for batch_idx, batch in enumerate(loader(dataset, cfg.data.batch_size,
                                              num_workers=cfg.data.num_workers)):
-        frames = torch.from_numpy(batch["frames"]).to(device)
-        logits = trainer.forward(state, frames).float().cpu().numpy()
+        frames, n = batch["frames"], batch["frames"].shape[0]
+        if mesh.distributed:
+            pad = -n % mesh.data
+            frames = np.pad(frames, ((0, pad),) + ((0, 0),) * (frames.ndim - 1))
+            frames = frames[mesh.rows(n + pad)]
+        logits = trainer.forward(state, torch.from_numpy(frames).to(device))
+        logits = trainer.gather_rows(logits)[:n].float().cpu().numpy()
         losses.append(float(bc_loss(torch.from_numpy(logits),
                                     torch.from_numpy(batch["label"]))))
         all_metrics.append(onset_metrics(logits, batch["label"]))
+        if not rank_zero():
+            continue
         if annotations_dir is not None:
             write_chunk_annotations(annotations_dir, batch, logits)
         if label_plots_dir is not None and batch_idx < label_plot_batches:
@@ -159,23 +187,25 @@ def fit_epoch(trainer: OnsetTrainer, state: TrainState, batches: Iterable[Mappin
               device, metrics_logger: MetricLogger, log_every_n_steps: int,
               generator: Optional[torch.Generator] = None) -> int:
     """One epoch over ``batches`` (host batches with ``frames`` in a wire
-    format and ``label``), copied to ``device`` by ``device_prefetch`` and
-    taken by ``trainer.train_step``.  Every ``log_every_n_steps``-th step
-    logs that step's loss, AP, Acc and OnsNumAcc and ``sec_per_step``, the
-    host time per step since the last log, each ended by reading the loss
-    (which syncs the card).  Returns the steps taken."""
+    format and ``label``), copied to ``device`` by ``device_prefetch`` (the
+    rank's rows, over the trainer's mesh) and taken by
+    ``trainer.train_step``.  Every ``log_every_n_steps``-th step logs that
+    step's loss, AP, Acc and OnsNumAcc (of the global batch) and
+    ``sec_per_step``, the host time per step since the last log, each ended
+    by reading the loss (which syncs the card).  Returns the steps taken."""
     steps, since, t0 = 0, 0, time.perf_counter()
     metrics = None
     host = ({"frames": b["frames"], "label": b["label"]} for b in batches)
-    with contextlib.closing(device_prefetch(host, torch.device(device))) as stream:
+    with contextlib.closing(device_prefetch(host, torch.device(device),
+                                            mesh=trainer.mesh)) as stream:
         for batch in stream:
             metrics, logits = trainer.train_step(state, batch, generator)
             steps += 1
             since += 1
             if state.step % log_every_n_steps == 0:
                 loss = float(metrics["loss/train"])
-                record = onset_metrics(logits.float().cpu().numpy(),
-                                       batch["label"].cpu().numpy())
+                record = onset_metrics(trainer.gather_rows(logits).float().cpu().numpy(),
+                                       trainer.gather_rows(batch["label"]).cpu().numpy())
                 record["loss/train"] = loss
                 record["sec_per_step"] = (time.perf_counter() - t0) / since
                 metrics_logger.log(record, step=state.step)
@@ -188,22 +218,35 @@ def fit_epoch(trainer: OnsetTrainer, state: TrainState, batches: Iterable[Mappin
 def main(argv=None) -> TrainState:
     """Returns the state after ``fit`` (or the evaluated one)."""
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
     cfg = OnsetConfig.from_files(args.config)
     device = default_device(args.device)
+    if launched():
+        init_distributed(device)
+    configure_logging()
+    mesh = mesh_for_batch(cfg.data.batch_size)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if mesh.size != world:
+        raise ValueError(f"batch {cfg.data.batch_size} splits over at most "
+                         f"{mesh.size} ranks; launch {mesh.size} processes, not {world}")
     logs = Path(cfg.trainer.logs_dir)
-    logs.mkdir(parents=True, exist_ok=True)
-    run_dir = Path(tempfile.mkdtemp(prefix=time.strftime("%Y-%m-%d-%H-%M-%S-"), dir=logs))
-    (run_dir / "config.json").write_text(json.dumps(cfg.to_dict(), indent=1))
+    run_dir = [None]
+    if rank_zero():
+        logs.mkdir(parents=True, exist_ok=True)
+        run_dir = [Path(tempfile.mkdtemp(prefix=time.strftime("%Y-%m-%d-%H-%M-%S-"),
+                                         dir=logs))]
+        (run_dir[0] / "config.json").write_text(json.dumps(cfg.to_dict(), indent=1))
+    if mesh.distributed:
+        dist.broadcast_object_list(run_dir, src=0)
+    run_dir = run_dir[0]
     log.info("run dir: %s", run_dir)
 
     train_tf = make_transform(cfg, augment=cfg.data.augment)
     jitter = (train_tf.jitter_params if train_tf.augment and train_tf.device_jitter
               and args.subcommand == "fit" else None)
-    trainer = build_trainer(cfg, device, jitter)
+    trainer = build_trainer(cfg, device, jitter, mesh)
     state = trainer.create_state()
     if args.ckpt_path:
-        state.load_state_dict(Checkpointer(CheckpointConfig(args.ckpt_path)).restore())
+        state.load_state_dict(Checkpointer(CheckpointConfig(args.ckpt_path), mesh).restore())
         log.info("restored step %d of %s", state.step, args.ckpt_path)
     log.info("params: %.1fM on %s, precision %s", trainer.model.param_count() / 1e6,
              device, cfg.model.precision)
@@ -217,17 +260,19 @@ def main(argv=None) -> TrainState:
             plots_dir = run_dir / "media/labels" if split == "test" else None
             agg = evaluate(trainer, state, dataset, cfg, device,
                            annotations_dir=ann_dir, label_plots_dir=plots_dir)
-            if ann_dir is not None:
+            if ann_dir is not None and rank_zero():
                 concat_annotations(ann_dir)
             metrics_logger.log({f"{k}/{split}": v for k, v in agg.items()})
-            print({f"{k}/{split}": round(v, 4) for k, v in agg.items()})
+            if rank_zero():
+                print({f"{k}/{split}": round(v, 4) for k, v in agg.items()})
             return state
 
         train_ds = make_dataset(cfg, "train")
         val_ds = make_dataset(cfg, "val", augment_override=False)
-        train_ds.print()
+        if rank_zero():
+            train_ds.print()
         ckpt = Checkpointer(CheckpointConfig(run_dir / "ckpts", monitor="loss/val",
-                                             save_top_k=1, save_last=True))
+                                             save_top_k=1, save_last=True), mesh)
         gen = torch.Generator(device=device).manual_seed(cfg.trainer.seed + 1)
         for epoch in range(cfg.trainer.max_epochs):
             t0 = time.perf_counter()

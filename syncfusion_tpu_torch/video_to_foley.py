@@ -37,7 +37,7 @@ import math
 import tempfile
 import time
 from pathlib import Path
-from typing import Iterable, Mapping
+from typing import Iterable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -49,7 +49,7 @@ from syncfusion_tpu_torch.device import default_device, set_exact_f32
 from syncfusion_tpu_torch.eval.mux import attach_audio_to_frames, attach_audio_to_video
 from syncfusion_tpu_torch.eval.onset_annotations import dedup_consecutive
 from syncfusion_tpu_torch.generate import LENGTH, SR, onset_track, restore_model
-from syncfusion_tpu_torch.models.embedder import build_embedder
+from syncfusion_tpu_torch.models.embedder import embedder_from_config
 from syncfusion_tpu_torch.models.onset_net import VideoOnsetNet
 from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
 from syncfusion_tpu_torch.ops.resample import resample
@@ -108,15 +108,18 @@ def load_onset_net(onset_ckpt, layers, device, seed: int = 0) -> VideoOnsetNet:
 
 
 def conditioning(text: str | None, cond_wav: str | None, clap_ckpt: str | None,
-                 features: int, device) -> torch.Tensor:
-    """The (1, 1, ``features``) embedding of the clip: CLAP's of ``text``,
-    else of the wav file ``cond_wav`` (mean over channels, resampled to 48
-    kHz), else zeros."""
+                 model_cfg: Optional[dict], device) -> torch.Tensor:
+    """The (1, 1, features) embedding of the clip: the model config's
+    embedder's (``embedder_from_config``: CLAP, or zeros under ``amodel:
+    none``) of ``text``, else of the wav file ``cond_wav`` (mean over
+    channels, resampled to 48 kHz), else zeros.  ``clap_ckpt`` takes the
+    place of the node's ``embedder_checkpoint``."""
     if not (text or cond_wav):
+        features = model_configs(model_cfg)[0].embedding_features
         return torch.zeros((1, 1, features), device=device)
-    embedder = build_embedder("HTSAT-tiny", features, device, checkpoint_path=clap_ckpt)
-    if not clap_ckpt:
-        log.warning("no --clap_ckpt: the CLAP weights are random")
+    embedder = embedder_from_config(model_cfg, device, checkpoint_path=clap_ckpt)
+    if not (clap_ckpt or (model_cfg or {}).get("embedder_checkpoint")):
+        log.warning("no CLAP checkpoint: the embedder is zero or random-weight")
     if text:
         return embedder.embed_text([text])
     wav, sr = read_wav(cond_wav)
@@ -204,8 +207,7 @@ def main(argv=None, chunks=None) -> dict:
     if args.model_config:
         with open(args.model_config) as f:
             model_cfg = json.load(f)
-    features = model_configs(model_cfg)[0].embedding_features
-    embedding = conditioning(args.text, args.cond_wav, args.clap_ckpt, features, device)
+    embedding = conditioning(args.text, args.cond_wav, args.clap_ckpt, model_cfg, device)
     _sync(device)
     seconds["clap"] = time.perf_counter() - t0
 

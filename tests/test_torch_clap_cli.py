@@ -122,3 +122,60 @@ def test_video_to_foley_text_and_cond_wav(tmp_path, monkeypatch, clap,
     assert np.abs(n(text) - n(wav)).max() > 1e-2
     for name in ("text", "cond_wav"):
         assert np.abs(clips[name] - clips["zero"]).max() > 1e-4
+
+
+def test_video_to_foley_builds_the_config_embedder(tmp_path, monkeypatch):
+    """The model config's embedder node decides the conditioning, as
+    ``script/video_to_foley.py`` builds ``build_embedder(cfg.model)``: under
+    ``embedder.amodel: none`` the ``--text`` embedding is the JAX script's
+    (zeros) and no CLAP is built; without ``--clap_ckpt`` CLAP reads the
+    node's ``embedder_checkpoint``."""
+    from pathlib import Path
+
+    from syncfusion_tpu.core.config import load_config
+    from syncfusion_tpu.models.embedder import build_embedder as jax_build_embedder
+
+    built = []
+
+    class Recorder:
+        def __init__(self, checkpoint_path=None, tokenizer_path=None, device=None):
+            built.append(checkpoint_path)
+
+        def embed_text(self, texts):
+            return torch.ones((len(texts), 1, CLAP_FEATURES))
+
+    monkeypatch.setattr("syncfusion_tpu_torch.models.clap.ClapEmbedder", Recorder)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    chunks = [{"frames": rng.integers(0, 256, (10, 112, 112, 3), dtype=np.uint8),
+               "start_frame": 0, "frame_rate": 5.0}]
+    model = {**UNET, "embedding_features": CLAP_FEATURES}
+    cfg = tmp_path / "none.json"
+    cfg.write_text(json.dumps({"model": model, "onsets_encoder": ENC,
+                               "embedder": {"amodel": "none"}}))
+    embeddings = []
+    sample = SyncFusionDiffusion.sample
+
+    def spy(self, noise, onsets, embedding, **kw):
+        embeddings.append(embedding)
+        return sample(self, noise, onsets, embedding, **kw)
+
+    monkeypatch.setattr(SyncFusionDiffusion, "sample", spy)
+    video_to_foley.main([
+        "--video_dir", str(tmp_path / "unused"), "--onset_layers", "1", "1", "1", "1",
+        "--model_config", str(cfg), "--length", str(V2F_L), "--num_steps", "1",
+        "--output", str(tmp_path / "out.wav"), "--device", "cpu",
+        "--text", "hit wood"], chunks=chunks)
+    jcfg = load_config(Path(__file__).resolve().parents[1] / "config.yaml",
+                       ["exp=train_diffusion_gh", "model.embedder.amodel=none"])
+    want = np.asarray(jax_build_embedder(jcfg.model).embed_text(["hit wood"]))
+    (got,) = embeddings
+    assert built == [] and got.shape == want.shape == (1, 1, CLAP_FEATURES)
+    np.testing.assert_array_equal(n(got), want)
+
+    node = {"model": model, "onsets_encoder": ENC, "embedder": {"amodel": "HTSAT-tiny"},
+            "embedder_checkpoint": "630k-audioset-best.pt"}
+    emb = video_to_foley.conditioning("hit wood", None, None, node, "cpu")
+    assert built == ["630k-audioset-best.pt"] and torch.equal(emb, torch.ones((1, 1, 512)))
+    video_to_foley.conditioning("hit wood", None, "other.pt", node, "cpu")
+    assert built[-1] == "other.pt"

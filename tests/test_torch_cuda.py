@@ -578,3 +578,97 @@ def test_vggish_on_card_matches_cpu(card):
     back = resample_torch(torch.from_numpy(x).to(card), 48000, 22050)
     assert back.device.type == "cuda"
     assert np.abs(back.cpu().numpy() - resample(x, 48000, 22050)).max() <= 1e-5
+
+
+@pytest.fixture(scope="module")
+def nccl_rank():
+    """This process as rank 0 of a one-rank NCCL group, as torchrun would
+    start it (its environment, a free localhost port); the device
+    ``init_distributed`` picked."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from syncfusion_tpu_torch.core.mesh import init_distributed
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield init_distributed()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def test_init_distributed_picks_nccl_and_the_local_card(nccl_rank):
+    import torch.distributed as dist
+
+    assert nccl_rank == torch.device("cuda", 0) and dist.get_backend() == "nccl"
+    assert torch.cuda.current_device() == 0
+
+
+def test_data_parallel_sampler_rows_equal_sample_on_card(nccl_rank):
+    """The sampler's rows at world size 1, 2 f32 steps in the band, equal
+    ``SyncFusionDiffusion.sample`` on the same noise: the same kernels on
+    the same batch (chip_smoke.py's MD_SAMPLE_TOL)."""
+    from syncfusion_tpu_torch import device
+    from syncfusion_tpu_torch.core.mesh import create_mesh
+    from syncfusion_tpu_torch.parallel.sampling import DataParallelSampler
+
+    with device.exact_f32():
+        model = SyncFusionDiffusion.from_config(SMALL_MODEL, device=nccl_rank, seed=0)
+        onsets = torch.zeros((2, 2048, 1), device=nccl_rank)
+        onsets[:, [100, 900], 0] = 1.0
+        emb = torch.randn((2, 1, 16), device=nccl_rank,
+                          generator=torch.Generator(device=nccl_rank).manual_seed(1))
+        kw = dict(num_steps=2, embedding_scale=2.0, guidance_interval=(0.2, 0.8))
+        sampler = DataParallelSampler(model, create_mesh(), per_chip_batch=2,
+                                      length=2048, **kw)
+        ta.reset_counts()
+        rows = sampler(onsets, emb, torch.Generator(device=nccl_rank).manual_seed(4))
+        assert ta.flash_attention.kernel_launches > 0
+        assert ta.flash_attention.plain_calls == 0
+        noise = torch.randn((2, 2048, 1), device=nccl_rank,
+                            generator=torch.Generator(device=nccl_rank).manual_seed(4))
+        want = model.sample(noise, onsets, emb, **kw)[:, :, 0]
+    assert sampler.local_indices().tolist() == [0, 1]
+    assert _rel(rows, want) <= 1e-6
+
+
+def test_ddp_micro_step_runs_nccl_on_card(nccl_rank):
+    """One micro-step of the trainer over the one-rank mesh: the model in
+    DDP, whose gradient average NCCL runs on the device (its one-rank
+    average kernel inside an ``nccl:all_reduce`` range)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from syncfusion_tpu_torch.core.mesh import create_mesh
+    from syncfusion_tpu_torch.train.diffusion_trainer import DiffusionTrainer
+
+    model = SyncFusionDiffusion.from_config(SMALL_MODEL, device=nccl_rank, seed=0)
+    trainer = DiffusionTrainer(model, mesh=create_mesh())
+    assert isinstance(trainer.module, torch.nn.parallel.DistributedDataParallel)
+    state = trainer.create_state()
+    gen = torch.Generator(device=nccl_rank).manual_seed(0)
+    batch = {"wav": torch.randn((2, 2048, 1), device=nccl_rank, generator=gen),
+             "onsets": torch.zeros((2, 2048, 1), device=nccl_rank, dtype=torch.uint8),
+             "embedding": torch.randn((2, 1, 16), device=nccl_rank, generator=gen)}
+    trainer.train_step(state, batch, gen)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        metrics = trainer.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+    assert math.isfinite(metrics["train_loss"].item())
+    names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+    assert any("nccl" in name.lower() for name in names), sorted(names)[:20]

@@ -22,8 +22,9 @@ ROOT = Path(__file__).resolve().parents[1]
 # pandas: the JAX evaluation script writes metrics.csv with it; the card's
 # machine does not promise it, the port writes the CSV with ``csv``
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "syncfusion_tpu", "pandas"}
+# and the ranks of the multi-process tests, which run the port alone
 PORT_FILES = sorted(Path(syncfusion_tpu_torch.__file__).parent.rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_workers.py"]
 
 
 def _imports(tree):
@@ -50,6 +51,13 @@ def test_guards_cover_the_evaluation_modules():
         "eval/onset_detect", "eval/onset_metrics", "eval/fad", "eval/generation",
         "eval/mp4", "eval/mux", "evaluate_diffusion", "evaluate_onset",
         "evaluate_onset_baseline")} <= names
+
+
+def test_guards_cover_the_multi_device_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"syncfusion_tpu_torch/core/mesh.py", "syncfusion_tpu_torch/train/sharding.py",
+            "syncfusion_tpu_torch/parallel/sampling.py",
+            "syncfusion_tpu_torch/data/shards.py", "tests/torch_dist_workers.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -85,6 +93,21 @@ def test_default_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SyncFusionDiffusion.from_config(None)
     assert port_device.default_device("cpu") == torch.device("cpu")
+
+
+def test_default_device_is_the_local_rank_card_under_torchrun(monkeypatch):
+    """One process per card: torchrun's LOCAL_RANK names the card; without
+    a card the rule is unchanged (it raises unless a device is named)."""
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert port_device.default_device() == torch.device("cuda", 3)
+    assert port_device.default_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_device.default_device()
+    monkeypatch.delenv("LOCAL_RANK")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert port_device.default_device() == torch.device("cuda")
 
 
 def test_config_defaults_are_the_yaml():

@@ -270,14 +270,6 @@ def test_wire_formats_are_dequantized():
     assert not a["valid_loss"].requires_grad
 
 
-@pytest.mark.parametrize("kw", [dict(fsdp=True), dict(model_parallel=2)])
-def test_multi_device_training_raises(kw):
-    model = SyncFusionDiffusion.from_config(
-        {"model": TRAIN_UNET, "onsets_encoder": TRAIN_ENC}, device="cpu")
-    with pytest.raises(NotImplementedError, match="port queue: 'Multi-device sampling and training'"):
-        DiffusionTrainer(model, **kw)
-
-
 def test_resume_continues_bit_identically(tmp_path):
     """Save mid-accumulation (after 3 micro-steps), restore into a fresh
     state and take the same 3 micro-steps as the original: the parameters,
