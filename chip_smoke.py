@@ -125,6 +125,21 @@ Phases, each printed with its seconds; any failure exits non-zero:
      takes one rank a device, so FSDP and ``model_parallel`` (a model axis
      of at least 2 ranks) do not run here: tests/test_torch_parallel.py
      runs them on the CPU over gloo.
+ 17. the CondFoleyGen baseline's generation at the full width of
+     cfg/condfoleygen/*.yaml (the GPT 24 x 1024, SpecVQGAN ch 128, MelGAN
+     ngf 32, the R(2+1)D-18 video net at 112 x 112), seeded weights, f32
+     without TF32: (a) B = 4 seeded 2-s 22.05 kHz wavs and 60 frames, one
+     warm-up and 3 runs, each stage between CUDA events (wav_to_spec, VQ
+     encode, video features, 50 KV-cached GPT steps at top-k 512, VQ
+     decode, MelGAN, 32 Griffin-Lim iterations), clips/s, peak memory; (b)
+     the card against the CPU on one item (spectrogram, VQ codes under the
+     tie rule, video features, teacher-forced logits, top-k 1 tokens, the
+     cached decode against the uncached one on the card, the decoded mel,
+     MelGAN, Griffin-Lim from one phase), gated; (c) where PIL is
+     importable, ``generate_audio.main`` on a 4-item processed root of
+     GREY_JPEG frames and ``evaluate_onset_baseline.main --gt_root`` on its
+     output; the phase prints whether (c) ran.  No hand-written kernel
+     launches in it (gated): no TPU kernel lies on this path.
 Phase 3 also holds the backward kernels K2a and K2b against their plain
 versions at the training shapes (with the time of SDPA's backward), times
 K1's f32 kernel per forward beside SDPA's f32 forward, and holds K3 and K4
@@ -2054,6 +2069,314 @@ def phase_multi_device(tmp: str, serve_clips_per_min: float, train_losses: list,
     return {"sampler": sampler["launches"], "train": train["launches"]}
 
 
+# phase 17: the CondFoleyGen baseline's generation (generate_audio) at the
+# full width of cfg/condfoleygen/*.yaml: the GPT 24 x 1024 (16 heads, block
+# 160), SpecVQGAN ch 128 (1, 1, 2, 2, 4), MelGAN ngf 32, the R(2+1)D-18
+# video net on 112 x 112 frames; seeded weights, f32 without TF32; B = 4
+# (generate_audio's --batch_size), 2-s 22.05 kHz clips and 60 frames
+CFG_BATCH = 4
+CFG_TOP_K = 512
+CFG_SAMPLES = 44100
+CFG_FRAMES = 60
+CFG_GL_ITERS = 32
+CFG_STAGES = ("wav_to_spec", "vq_encode", "video_features", "gpt_50_cached_steps",
+              "vq_decode", "melgan", "griffin_lim_32")
+# card against CPU, same weights and inputs (one item), f32 without TF32:
+# the spectrogram in [-1, 1] absolute; the VQ latent, the video features,
+# the teacher-forced logits, the decoded mel and MelGAN's wav relative to
+# their largest magnitude (sums of up to 9216 products in other orders); a
+# code or token may differ only where the CPU's two best lie within
+# CFG_GAP_TOL of the largest distance or logit; Griffin-Lim from one phase
+# after 32 momentum iterations (which amplify each one's rounding) over the
+# mel's 160 x 256 samples, relative to its largest sample, as
+# tests/test_torch_condfoleygen.py holds it against the JAX package
+CFG_SPEC_TOL = 1e-5
+CFG_REL_TOL = 1e-4
+CFG_GAP_TOL = 2 * CFG_REL_TOL
+CFG_GL_TOL = 1e-3
+
+
+def baseline_inputs(batch: int, seed: int = 17) -> tuple:
+    """Seeded 2-s 22.05 kHz wavs (B, 44100) and 60 normalised frames (B,
+    60, 112, 112, 3), numpy f32."""
+    rng = np.random.default_rng(seed)
+    wav = (0.1 * rng.standard_normal((batch, CFG_SAMPLES))).astype(np.float32)
+    frames = rng.standard_normal((batch, CFG_FRAMES, 112, 112, 3)).astype(np.float32)
+    return wav, frames
+
+
+def first_flip_gap(got, want, scores, pre: int) -> float:
+    """0 where ``got`` equals ``want`` (rows of ints); else the largest, over
+    the rows that differ, of |scores[want] - scores[got]| at the row's first
+    differing step after ``pre``; ``scores`` (B, steps, V) are the logits
+    or distances of the run that gave ``want``."""
+    gap = 0.0
+    for b in torch.nonzero((got != want).any(dim=1)).flatten().tolist():
+        i = int(torch.nonzero(got[b] != want[b])[0])
+        row = scores[b, i - pre]
+        gap = max(gap, float((row[want[b, i]] - row[got[b, i]]).abs()))
+    return gap
+
+
+def baseline_cross_check(model, vocoder, wav: np.ndarray, frames: np.ndarray) -> dict:
+    """The full-width baseline on the card against a CPU copy of it, on one
+    item: the spectrogram; the VQ latent and codes (on the CPU's
+    spectrogram); the video features; 50 cached top-k 1 GPT steps on both
+    and the uncached ``sample_tokens`` on the card (on the CPU's tokens and
+    features), with the teacher-forced logits on the CPU's buffer; the
+    decoded mel, MelGAN and 32 Griffin-Lim iterations from one phase, on the
+    CPU's grid.  Returns the errors (relative where CFG_REL_TOL applies) and
+    the gaps at flipped codes or tokens over their scale."""
+    import copy
+
+    from syncfusion_tpu_torch.device import exact_f32
+    from syncfusion_tpu_torch.generate_audio import spec01
+    from syncfusion_tpu_torch.models.mingpt import sample_tokens
+    from syncfusion_tpu_torch.models.mingpt_decode import sample_tokens_cached
+    from syncfusion_tpu_torch.models.transformer_av import column_major, column_major_inverse
+    from syncfusion_tpu_torch.models.vqgan.model import wav_to_spec
+    from syncfusion_tpu_torch.ops.mel import mel01_to_waveform_gl
+
+    def rel(card, cpu):
+        return float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+
+    cpu = copy.deepcopy(model).cpu()
+    cpu_voc = copy.deepcopy(vocoder.net).cpu()
+    out = {}
+    with torch.inference_mode(), exact_f32():
+        x = torch.from_numpy(wav)
+        spec = wav_to_spec(x)[:, None]
+        out["spec"] = float((wav_to_spec(x.cuda())[:, None].cpu() - spec).abs().max())
+        h = cpu.vq.quant_conv(cpu.vq.encoder(spec))
+        out["vq_latent"] = rel(model.vq.quant_conv(model.vq.encoder(spec.cuda())), h)
+        codes = cpu.vq.encode_indices(spec)
+        dist = cpu.vq.quantize.distances(h.permute(0, 2, 3, 1).reshape(-1, h.shape[1]))
+        out["code_gap"] = first_flip_gap(model.vq.encode_indices(spec.cuda()).cpu().reshape(1, -1),
+                                         codes.reshape(1, -1), dist[None], 0
+                                         ) / float(dist.abs().max())
+        feats = cpu.encode_to_c(torch.from_numpy(frames))
+        out["video_features"] = rel(model.encode_to_c(torch.from_numpy(frames).cuda()), feats)
+        zp = column_major(codes)[:, :model.clip]
+        steps = model.clip
+        buf = sample_tokens_cached(cpu.gpt, feats, zp, steps, top_k=1)
+        buf_card = sample_tokens_cached(model.gpt, feats.cuda(), zp.cuda(), steps, top_k=1).cpu()
+        buf_plain = sample_tokens(model.gpt, feats.cuda(), zp.cuda(), steps, top_k=1).cpu()
+        pos = feats.shape[1] + zp.shape[1] - 1
+        logits = cpu.gpt(buf[:, :-1], feats)[:, pos:]
+        logits_card = model.gpt(buf_card[:, :-1].cuda(), feats.cuda())[:, pos:].cpu()
+        out["logits"] = rel(model.gpt(buf[:, :-1].cuda(), feats.cuda())[:, pos:], logits)
+        scale = float(logits.abs().max())
+        out["token_gap"] = first_flip_gap(buf_card, buf, logits, zp.shape[1]) / scale
+        out["uncached_gap"] = first_flip_gap(buf_plain, buf_card, logits_card,
+                                             zp.shape[1]) / scale
+        out["tokens_flipped"] = int((buf_card != buf).sum())
+        out["uncached_flipped"] = int((buf_plain != buf_card).sum())
+        out["tokens_in_range"] = bool(((buf_card >= 0) & (buf_card < cpu.gpt.cfg.vocab_size)).all())
+        grid = column_major_inverse(buf[:, zp.shape[1]:])
+        mel = spec01(cpu, grid)
+        out["decoded_mel"] = rel(spec01(model, grid.cuda()), mel)
+        out["melgan"] = rel(vocoder.net(mel.cuda()), cpu_voc(mel))
+        theta = 2.0 * math.pi * torch.rand((1, 513, mel.shape[-1]),
+                                           generator=torch.Generator().manual_seed(0))
+        span = mel.shape[-1] * 256
+        gl = mel01_to_waveform_gl(mel, 22050, n_iter=CFG_GL_ITERS, theta=theta)[:, :span]
+        out["griffin_lim"] = rel(mel01_to_waveform_gl(mel.cuda(), 22050, n_iter=CFG_GL_ITERS,
+                                                      theta=theta.cuda())[:, :span], gl)
+    del cpu, cpu_voc
+    return out
+
+
+def baseline_failed_gates(err: dict) -> list:
+    """The names of ``baseline_cross_check``'s errors over their tolerance."""
+    tol = {"spec": CFG_SPEC_TOL, "griffin_lim": CFG_GL_TOL,
+           **{k_: CFG_REL_TOL for k_ in ("vq_latent", "video_features", "logits",
+                                          "decoded_mel", "melgan")},
+           **{k_: CFG_GAP_TOL for k_ in ("code_gap", "token_gap", "uncached_gap")}}
+    failed = [k_ for k_, t_ in tol.items() if not err[k_] <= t_]
+    return failed + ([] if err["tokens_in_range"] else ["tokens_in_range"])
+
+
+def time_baseline(model, vocoder, wav: np.ndarray, frames: np.ndarray, gen) -> dict:
+    """One pass of the generation over a batch, each stage between CUDA
+    events: ms per stage, the host's seconds, and the outputs' checks."""
+    from syncfusion_tpu_torch.generate_audio import spec01
+    from syncfusion_tpu_torch.models.mingpt_decode import sample_tokens_cached
+    from syncfusion_tpu_torch.models.transformer_av import column_major_inverse
+    from syncfusion_tpu_torch.models.vqgan.model import wav_to_spec
+    from syncfusion_tpu_torch.ops.mel import mel01_to_waveform_gl
+
+    x, f = torch.from_numpy(wav).cuda(), torch.from_numpy(frames).cuda()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(CFG_STAGES) + 1)]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with torch.inference_mode():
+        events[0].record()
+        spec = wav_to_spec(x)[:, None]
+        events[1].record()
+        zp = model.encode_to_z(spec)[:, :model.clip]
+        events[2].record()
+        feats = model.encode_to_c(f)
+        events[3].record()
+        buf = sample_tokens_cached(model.gpt, feats, zp, model.clip, gen, top_k=CFG_TOP_K)
+        events[4].record()
+        mel = spec01(model, column_major_inverse(buf[:, model.clip:]))
+        events[5].record()
+        wav_mg = vocoder(mel)
+        events[6].record()
+        wav_gl = mel01_to_waveform_gl(mel, 22050, n_iter=CFG_GL_ITERS)
+        events[7].record()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - start
+    ms = {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(CFG_STAGES)}
+    b = wav.shape[0]
+    check(tuple(spec.shape) == (b, 1, 80, 160) and tuple(feats.shape) == (b, CFG_FRAMES, 512)
+          and tuple(mel.shape) == (b, 80, 160), "baseline: stage shapes")
+    check(bool(((buf >= 0) & (buf < model.gpt.cfg.vocab_size)).all()), "baseline: token range")
+    check(tuple(wav_mg.shape) == (b, 160 * 256) and tuple(wav_gl.shape) == (b, 512 + 256 * 159)
+          and all(bool(torch.isfinite(a).all()) for a in (mel, wav_mg, wav_gl)),
+          f"baseline: wavs {tuple(wav_mg.shape)}, {tuple(wav_gl.shape)}")
+    return {"ms": ms, "host_s": host}
+
+
+def write_baseline_root(root: str) -> str:
+    """A processed Greatest Hits root of 4 items: 2 videos of 3 s at 15 fps
+    (GREY_JPEG frames 1-46), each with onsets at 0.5 s and 1.0 s (30 frames
+    a chunk) and a 22.05 kHz track of noise with a burst at each onset; its
+    split file is test.txt.  Returns a JSON config of it."""
+    from syncfusion_tpu_torch.ops.wav import write_wav
+
+    rng = np.random.default_rng(18)
+    names = ["clip_a", "clip_b"]
+    for name in names:
+        d = os.path.join(root, name)
+        os.makedirs(os.path.join(d, "audio"))
+        os.makedirs(os.path.join(d, "frames"))
+        with open(os.path.join(d, f"{name}.metadata.json"), "w") as f:
+            json.dump({"processed": {"video_frame_rate": 15, "video_duration": 3.0}}, f)
+        with open(os.path.join(d, f"{name}.times.csv"), "w") as f:
+            f.write("0.5,hit\n1.0,hit\n")
+        wav = 0.01 * rng.standard_normal(3 * 22050)
+        for onset in (0.5, 1.0):
+            i = int(onset * 22050)
+            wav[i:i + 2205] += 0.8 * rng.standard_normal(2205) * np.exp(-np.arange(2205) / 400)
+        write_wav(os.path.join(d, "audio", f"{name}.resampled.wav"), wav.astype(np.float32),
+                  22050)
+        for i in range(1, 47):
+            with open(os.path.join(d, "frames", f"{name}.frame_{i:06d}.jpg"), "wb") as f:
+                f.write(GREY_JPEG)
+    with open(os.path.join(root, "test.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    cfg = os.path.join(root, "baseline.json")
+    with open(cfg, "w") as f:
+        json.dump({"data": {"root_dir": root,
+                            "test_split_file_path": os.path.join(root, "test.txt")}}, f)
+    return cfg
+
+
+def phase_condfoleygen(attn, fr, tmp: str) -> dict:
+    """Phase 17: the CondFoleyGen baseline's generation at full width, f32
+    without TF32: (a) the parts' parameter counts, then one warm-up and
+    ``TIMED_RUNS`` runs at B = 4 timed stage by stage (CUDA events), with
+    the peak memory, and the device time of the GPT's decode and the video
+    features by torch.profiler; (b) the card against the CPU on one item
+    (``baseline_cross_check``), gated; (c) ``generate_audio.main`` on a
+    4-item processed root written to ``tmp`` and
+    ``evaluate_onset_baseline.main --gt_root`` on its output, where PIL is
+    importable (it decodes the frames).  No hand-written kernel launches:
+    the counts are zeroed before and gated at 0 after.  Returns the
+    counts."""
+    from syncfusion_tpu_torch import evaluate_onset_baseline, generate_audio
+    from syncfusion_tpu_torch.core.config import BaselineConfig
+    from syncfusion_tpu_torch.models.melgan import Vocoder
+    from syncfusion_tpu_torch.models.mingpt_decode import sample_tokens_cached
+    from syncfusion_tpu_torch.models.vqgan.model import wav_to_spec
+    from syncfusion_tpu_torch.ops.wav import read_wav
+
+    reset_counts(attn, fr)
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    model = generate_audio.build_model(BaselineConfig(), "cuda", seed=0)
+    vocoder = Vocoder(device="cuda")
+    torch.cuda.synchronize()
+    sizes = {name: sum(p_.numel() for p_ in getattr(model, name).parameters())
+             for name in ("vq", "video", "gpt")}
+    sizes["melgan"] = sum(p_.numel() for p_ in vocoder.net.parameters())
+    print(f"  full-width baseline built in {time.perf_counter() - start:.3f} s: parameters "
+          + ", ".join(f"{k_} {v_:,}" for k_, v_ in sizes.items()), flush=True)
+
+    wav, frames = baseline_inputs(CFG_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    runs = [time_baseline(model, vocoder, wav, frames, gen) for _ in range(TIMED_RUNS + 1)][1:]
+    ms = {name: [r["ms"][name] for r in runs] for name in CFG_STAGES}
+    common = [sum(r["ms"][n_] for n_ in CFG_STAGES[:5]) for r in runs]
+    for label, stage in (("MelGAN", "melgan"), ("Griffin-Lim", "griffin_lim_32")):
+        total = [c + m for c, m in zip(common, ms[stage])]
+        print(f"  B={CFG_BATCH}, top-k {CFG_TOP_K}, {label}: ms a batch {spread(total, 1)} "
+              f"(CUDA events), {CFG_BATCH / statistics.median(total) * 1e3:.3f} clips/s")
+    print("  stages, ms a batch over " + f"{TIMED_RUNS} runs: " + "; ".join(
+        f"{name} {spread(v_, 1)}" for name, v_ in ms.items()))
+    print(f"  host s a pass (all stages, both vocoders): {spread([r['host_s'] for r in runs], 1)}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    with torch.inference_mode():
+        f = torch.from_numpy(frames).cuda()
+        zp = model.encode_to_z(wav_to_spec(torch.from_numpy(wav).cuda())[:, None])[:, :model.clip]
+        feats = model.encode_to_c(f)
+        _, gpt_dev, gpt_kernels = device_ms(lambda: sample_tokens_cached(
+            model.gpt, feats, zp, model.clip, gen, top_k=CFG_TOP_K), "", calls=2)
+        _, video_dev, video_kernels = device_ms(lambda: model.encode_to_c(f), "", calls=2)
+    gpt_ms = statistics.median(ms["gpt_50_cached_steps"])
+    print(f"  device time (torch.profiler) a batch: GPT 50 cached steps {gpt_dev:.3f} ms in "
+          f"{gpt_kernels:.0f} kernels and copies, against {gpt_ms:.3f} ms between CUDA events "
+          f"(idle share {1 - gpt_dev / gpt_ms:.3f}); video features {video_dev:.3f} ms in "
+          f"{video_kernels:.0f}", flush=True)
+
+    err = baseline_cross_check(model, vocoder, wav[:1], frames[:1])
+    print(f"  card vs CPU, one item: spectrogram {err['spec']:.3e} (tol {CFG_SPEC_TOL:.0e}); "
+          f"VQ latent {err['vq_latent']:.3e}, video features {err['video_features']:.3e}, "
+          f"teacher-forced logits {err['logits']:.3e}, decoded mel {err['decoded_mel']:.3e}, "
+          f"MelGAN {err['melgan']:.3e} (tol {CFG_REL_TOL:.0e}); Griffin-Lim "
+          f"{CFG_GL_ITERS} iterations {err['griffin_lim']:.3e} (tol {CFG_GL_TOL:.0e}); "
+          f"codes flipped at gap {err['code_gap']:.3e}, top-k 1 tokens card vs CPU "
+          f"{err['tokens_flipped']} flipped (gap {err['token_gap']:.3e}), cached vs "
+          f"uncached on the card {err['uncached_flipped']} flipped (gap "
+          f"{err['uncached_gap']:.3e}; tol {CFG_GAP_TOL:.0e})", flush=True)
+    failed = baseline_failed_gates(err)
+    check(not failed, f"baseline: card against CPU fails {failed}")
+    del model, vocoder
+    torch.cuda.empty_cache()
+
+    if importlib.util.find_spec("PIL") is None:
+        print("  generate_audio.main on a processed root: not run (PIL, which decodes "
+              "the frames, is not importable here)")
+    else:
+        root, out = os.path.join(tmp, "gh"), os.path.join(tmp, "gen")
+        os.makedirs(root)
+        cfg = write_baseline_root(root)
+        start = time.perf_counter()
+        summary = generate_audio.main(["--gh_testset", "-c", cfg, "--output_dir", out])
+        seconds = time.perf_counter() - start
+        wavs = sorted(os.listdir(os.path.join(out, "generated_audio")))
+        check(summary["clips"] == len(wavs) == 4, f"generate_audio wrote {wavs}")
+        for name in wavs:
+            w, sr = read_wav(os.path.join(out, "generated_audio", name))
+            check(sr == 22050 and w.shape == (1, 512 + 256 * 159) and bool(np.isfinite(w).all()),
+                  f"generate_audio: {name} {w.shape} at {sr} Hz")
+        for sub in ("generated_video", "orig_video", "cond_video"):
+            check(len([n_ for n_ in os.listdir(os.path.join(out, sub)) if n_.endswith(".mp4")])
+                  >= 2, f"generate_audio: {sub}")
+        metrics = evaluate_onset_baseline.main(["--gen_dir", out, "--gt_root", root])
+        check(metrics["num_files"] == 4 and all(math.isfinite(v) for v in metrics.values()),
+              f"evaluate_onset_baseline: {metrics}")
+        print(f"  generate_audio.main ran (PIL importable): 4 clips with the artifact set in "
+              f"{seconds:.3f} s (model build, PIL frames, Griffin-Lim, muxing); "
+              f"evaluate_onset_baseline --gt_root {metrics}", flush=True)
+    launched = counts(attn, fr)
+    check(not any(launched.values()), f"baseline: a hand-written kernel or its plain "
+          f"version ran: {launched}")
+    print(f"  launch counts over the phase: {launched} (no TPU kernel lies on this path)")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2342,6 +2665,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         md_launched = phase_multi_device(tmp, clips_per_min["serving B=8 K=4"],
                                          train_losses, sec, step_s["bf16"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        phase_condfoleygen(attn, fr, tmp)
+        phase("17 CondFoleyGen generation at full width", t0)
 
     fwd16, fwd32 = total[torch.bfloat16, ROWS], total[torch.float32, ROWS]
     serve16 = total[torch.bfloat16, SERVE_ROWS]

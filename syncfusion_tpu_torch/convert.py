@@ -17,7 +17,13 @@ is the leaf's layout:
   * ``GroupNorm``, ``BatchNorm`` and ``LayerNorm`` scale -> weight;
     BatchNorm's ``batch_stats`` mean and var -> the buffers running_mean and
     running_var (``onset_state_dict``);
-  * ``Embed`` embedding -> ``nn.Embedding`` weight (``clap_state_dict``).
+  * ``Embed`` embedding -> ``nn.Embedding`` weight (``clap_state_dict``);
+    a VQ codebook's ``embedding`` keeps its name (``vqgan_state_dict``).
+
+The CondFoleyGen baseline's ``{"vq", "video", "gpt"}`` tree goes through
+``av_transformer_state_dict``: the VQGAN's 1 x 1 attention convs are named
+``q``, ``k`` and ``v`` like DenseGeneral layers, so ``vqgan_state_dict``
+takes every 4-D kernel as a 2-D conv's.
 """
 
 from __future__ import annotations
@@ -129,3 +135,39 @@ def vggish_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     ``eval.fad.VGGish.load_state_dict(strict=True)``.  ``fc1_1`` keeps its
     rows' order: both flatten the 6 x 4 x 512 map as (H, W, C)."""
     return clap_state_dict(variables)
+
+
+def vqgan_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``VQModel``'s ``{"params"}`` tree (numpy or JAX arrays) -> a
+    ``state_dict`` for the port's ``VQModel.load_state_dict(strict=True)``."""
+    sd = {}
+    for path, leaf in flatten(variables.get("params", variables)).items():
+        if path[-1] == "kernel" and leaf.ndim == 4:  # every 2-D conv, q/k/v too
+            key = ".".join([*path[:-1], "weight"])
+            a = np.array(leaf.transpose(3, 2, 0, 1), dtype=np.float32, order="C")
+        elif path[-1] == "embedding":  # the codebook
+            key, a = ".".join(path), np.array(leaf, dtype=np.float32)
+        else:
+            key, a = convert_leaf(path, leaf)
+        sd[key] = torch.from_numpy(a)
+    return sd
+
+
+def gpt_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``GPTFeats``'s ``{"params"}`` tree -> a ``state_dict`` for
+    the port's ``GPTFeats.load_state_dict(strict=True)``."""
+    return clap_state_dict(variables)
+
+
+def av_transformer_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``AVCondTransformer``'s ``{"vq", "video", "gpt"}`` tree (as
+    ``AVCondTransformer.init`` returns it; numpy or JAX arrays) -> a
+    ``state_dict`` for the port's ``AVCondTransformer.load_state_dict(
+    strict=True)``; the video net's ``{"params", "batch_stats"}`` subtree
+    goes by ``onset_state_dict``'s rule."""
+    sd = {}
+    for prefix, part in (("vq", vqgan_state_dict(tree["vq"])),
+                         ("video", onset_state_dict(tree["video"])),
+                         ("gpt", gpt_state_dict(tree["gpt"]))):
+        sd.update({f"{prefix}.{k}": v for k, v in part.items()})
+    return sd

@@ -5,7 +5,10 @@ The model defaults are the values of ``exp/model/diffusion.yaml`` (the
 reference's hyperparameters); ``TrainConfig``'s are those of
 ``exp/train_diffusion_gh.yaml``; ``OnsetConfig``'s those of
 ``cfg/data/data-onset-greatesthit.yaml``, ``cfg/model/model-onset.yaml`` and
-``cfg/trainer/trainer-onset.yaml``.  ``from_dict`` reads an already-loaded
+``cfg/trainer/trainer-onset.yaml``; ``BaselineConfig``'s those of
+``cfg/condfoleygen/greatesthit_transformer.yaml`` and, for the VQGAN, the
+``model`` node of ``cfg/condfoleygen/greatesthit_codebook.yaml``.
+``from_dict`` reads an already-loaded
 config node; ``from_yaml`` reads the file itself and needs PyYAML, which only
 the callers that use it must have.
 """
@@ -229,18 +232,24 @@ class OnsetConfig:
         """``-c`` files merged in order, a later key over an earlier one (as
         ``script/train_onset_model.py`` merges them): JSON, or YAML through
         ``from_yaml`` where PyYAML is installed."""
-        node: dict = {}
-        for path in paths:
-            if str(path).endswith((".yaml", ".yml")):
-                overlay = from_yaml(path, raw=True) or {}
-            else:
-                with open(path) as f:
-                    overlay = json.load(f)
-            node = merge(node, overlay)
-        return cls.from_dict(node)
+        return cls.from_dict(read_files(paths))
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def read_files(paths) -> dict:
+    """Config files merged in order, a later key over an earlier one: JSON,
+    or YAML through ``from_yaml`` where PyYAML is installed."""
+    node: dict = {}
+    for path in paths:
+        if str(path).endswith((".yaml", ".yml")):
+            overlay = from_yaml(path, raw=True) or {}
+        else:
+            with open(path) as f:
+                overlay = json.load(f)
+        node = merge(node, overlay)
+    return node
 
 
 def merge(base: Mapping, overlay: Mapping) -> dict:
@@ -251,3 +260,69 @@ def merge(base: Mapping, overlay: Mapping) -> dict:
             v = merge(out[k], v)
         out[k] = v
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class VQConfig:
+    """SpecVQGAN's geometry: ``embed_dim`` and ``n_embed`` with the
+    ``ddconfig`` keys that ``VQModel`` takes, the values of
+    ``cfg/condfoleygen/greatesthit_codebook.yaml``'s ``model`` node."""
+
+    embed_dim: int = 256
+    n_embed: int = 1024
+    ch: int = 128
+    ch_mult: tuple[int, ...] = (1, 1, 2, 2, 4)
+    num_res_blocks: int = 2
+    attn_resolutions: tuple[int, ...] = (10,)
+    resolution: int = 160
+    z_channels: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    """The CondFoleyGen GPT's geometry, the ``transformer`` node of
+    ``cfg/condfoleygen/greatesthit_transformer.yaml``."""
+
+    vocab_size: int = 1024
+    block_size: int = 160
+    n_layer: int = 24
+    n_head: int = 16
+    n_embd: int = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class BaselineDataConfig:
+    """The keys of the ``data`` node that ``generate_audio`` reads (the
+    test split; ``frame_size`` with its default, as
+    ``script/generate_audio.py`` reads it)."""
+
+    root_dir: str = "data/greatest-hits/mic-mp4-processed"
+    test_split_file_path: str = "data/greatest-hits/mic-mp4-processed/test.txt"
+    chunk_length_in_seconds: float = 2.0
+    sample_rate: int = 22050
+    frame_size: int = 112
+
+
+@dataclasses.dataclass(frozen=True)
+class BaselineConfig:
+    """The CondFoleyGen baseline as ``generate_audio`` reads its config:
+    ``model`` (with ``ddconfig``), ``transformer`` and ``data``; a missing
+    key keeps its default, a key nothing reads is ignored."""
+
+    model: VQConfig = VQConfig()
+    transformer: GPTConfig = GPTConfig()
+    data: BaselineDataConfig = BaselineDataConfig()
+
+    @classmethod
+    def from_dict(cls, node: Mapping[str, Any]) -> "BaselineConfig":
+        model = dict(node.get("model", {}))
+        model = {**model.pop("ddconfig", {}), **model}
+        return cls(model=_from_dict(VQConfig, model),
+                   transformer=_from_dict(GPTConfig,
+                                          node.get("transformer", {})),
+                   data=_from_dict(BaselineDataConfig, node.get("data", {})))
+
+    @classmethod
+    def from_files(cls, paths) -> "BaselineConfig":
+        """Files merged in order, as ``OnsetConfig.from_files`` reads them."""
+        return cls.from_dict(read_files(paths))

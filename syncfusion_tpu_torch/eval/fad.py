@@ -29,6 +29,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from syncfusion_tpu_torch.device import default_device, exact_f32
+from syncfusion_tpu_torch.models.init import flax_init
 from syncfusion_tpu_torch.ops.mel import mel_filterbank
 from syncfusion_tpu_torch.ops.resample import resample
 from syncfusion_tpu_torch.ops.wav import read_wav
@@ -149,25 +150,10 @@ def torchvggish_to_state_dict(state_dict) -> dict[str, torch.Tensor]:
     return out
 
 
-@torch.no_grad()
-def vggish_init(model: VGGish) -> VGGish:
-    """Random parameters from seed 0 with Flax's distributions: kernels
-    lecun-normal (a normal of variance 1/fan_in truncated at two standard
-    deviations), zero biases.  The numbers differ from JAX's ``key(0)``;
-    load converted parameters to match."""
-    gen = torch.Generator(device=model.fc2.weight.device).manual_seed(0)
-    for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=gen)
-            m.bias.zero_()
-    return model
-
-
 class VGGishEmbedder:
     """VGGish on ``device`` (default: the card): torchvggish's state dict
-    from ``checkpoint_path`` (a ``.pth`` of its keys), else ``vggish_init``.
+    from ``checkpoint_path`` (a ``.pth`` of its keys), else ``flax_init`` at
+    seed 0.
     ``embed`` returns numpy (num_patches, 128)."""
 
     def __init__(self, checkpoint_path: Optional[str] = None, device=None):
@@ -180,7 +166,7 @@ class VGGishEmbedder:
             net.load_state_dict(torchvggish_to_state_dict(
                 load_torch_state_dict(checkpoint_path)), strict=True)
         else:
-            vggish_init(net)
+            flax_init(net, 0)
         self.net = net.eval().requires_grad_(False)
 
     @torch.no_grad()

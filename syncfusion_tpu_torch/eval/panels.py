@@ -1,7 +1,10 @@
-"""Spectrogram panels of the diffusion trainer's sample logger and label
+"""Spectrogram panels of the diffusion trainer's sample logger, label
 line plots of the onset model's test run (port of ``write_spec_panel``,
 ``spec_to_image``, ``_colormap`` and ``write_label_plot`` of
-``syncfusion_tpu/eval/panels.py``).  PIL is imported inside the functions
+``syncfusion_tpu/eval/panels.py``) and the baseline generation's coolwarm
+spectrogram images (``write_spec_image``, for the matplotlib ``imshow`` of
+``script/generate_audio.py``: the card's machine has no matplotlib).  PIL
+is imported inside the functions
 that draw, so the module imports without it: PIL is not among the card
 machine's promised packages."""
 
@@ -18,16 +21,25 @@ _VIRIDIS = np.array(
 )
 
 
-def _colormap(x: np.ndarray) -> np.ndarray:
-    """x in [0, 1] -> (..., 3) uint8 viridis-like colours."""
-    x = np.clip(x, 0.0, 1.0) * (len(_VIRIDIS) - 1)
-    i = np.clip(x.astype(int), 0, len(_VIRIDIS) - 2)
+# matplotlib's coolwarm at 9 anchors (blue -> grey -> red)
+_COOLWARM = np.array(
+    [[59, 76, 192], [98, 130, 234], [141, 176, 254], [184, 208, 249],
+     [221, 221, 221], [245, 196, 173], [244, 154, 123], [222, 96, 77],
+     [180, 4, 38]], np.float32,
+)
+
+
+def _colormap(x: np.ndarray, table: np.ndarray = _VIRIDIS) -> np.ndarray:
+    """x in [0, 1] -> (..., 3) uint8 colours, ``table``'s anchors linearly
+    interpolated (viridis-like by default)."""
+    x = np.clip(x, 0.0, 1.0) * (len(table) - 1)
+    i = np.clip(x.astype(int), 0, len(table) - 2)
     frac = (x - i)[..., None]
-    rgb = _VIRIDIS[i] * (1 - frac) + _VIRIDIS[i + 1] * frac
+    rgb = table[i] * (1 - frac) + table[i + 1] * frac
     return rgb.astype(np.uint8)
 
 
-def spec_to_image(spec: np.ndarray, upscale: int = 3):
+def spec_to_image(spec: np.ndarray, upscale: int = 3, table: np.ndarray = _VIRIDIS):
     """(H, W) spectrogram (any range) -> PIL image, min-max scaled, low
     frequencies at the bottom, each bin ``upscale`` pixels square."""
     from PIL import Image
@@ -35,7 +47,7 @@ def spec_to_image(spec: np.ndarray, upscale: int = 3):
     s = np.asarray(spec, np.float32)
     rng = s.max() - s.min()
     s = (s - s.min()) / rng if rng > 0 else np.zeros_like(s)
-    img = Image.fromarray(_colormap(s[::-1]))
+    img = Image.fromarray(_colormap(s[::-1], table))
     return img.resize((img.width * upscale, img.height * upscale), Image.NEAREST)
 
 
@@ -56,6 +68,16 @@ def write_spec_panel(out_dir: str | Path, name: str, specs: dict[str, np.ndarray
     path = out_dir / f"{name}_step{step:08d}.png"
     panel.save(path)
     return path
+
+
+def write_spec_image(spec: np.ndarray, dest: str | Path) -> Path:
+    """One (H, W) spectrogram as a coolwarm image at ``dest`` (its suffix
+    names the format, ``.jpg`` in the generation's artifact set), low
+    frequencies at the bottom, one pixel a bin."""
+    dest = Path(dest)
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    spec_to_image(spec, upscale=1, table=_COOLWARM).save(dest)
+    return dest
 
 
 def write_label_plot(

@@ -33,6 +33,7 @@ from syncfusion_tpu_torch.models.clap.htsat import (
     reshape_mel_to_image,
 )
 from syncfusion_tpu_torch.models.clap.roberta import RobertaModel, tokenize
+from syncfusion_tpu_torch.models.init import flax_init
 from syncfusion_tpu_torch.ops.quantize import float32_to_int16
 
 BN_EPS = 1e-5
@@ -95,22 +96,7 @@ def clap_init(model: ClapModel, seed: int) -> ClapModel:
     normal of variance 1/width, bias tables normal(0.02) truncated at two
     standard deviations, the mel BatchNorm the identity.  The numbers differ
     from JAX's for the same seed; load converted parameters to match."""
-    gen = torch.Generator(device=model.mel_bn_scale.device).manual_seed(seed)
-    for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=gen)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.LayerNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-        elif isinstance(m, nn.Embedding):
-            m.weight.normal_(0.0, m.weight.shape[1] ** -0.5, generator=gen)
-        if hasattr(m, "relative_position_bias_table"):
-            nn.init.trunc_normal_(m.relative_position_bias_table, 0.0, 0.02, -0.04, 0.04,
-                                  generator=gen)
+    flax_init(model, seed)
     for buf, val in (("mel_bn_scale", 1.0), ("mel_bn_bias", 0.0),
                      ("mel_bn_mean", 0.0), ("mel_bn_var", 1.0)):
         getattr(model, buf).fill_(val)

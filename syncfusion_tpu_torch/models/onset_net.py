@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from syncfusion_tpu_torch.models.blocks import Linear
+from syncfusion_tpu_torch.models.init import flax_init
 
 BN_MOMENTUM = 0.9  # Flax's convention: the share of the old running value
 BN_EPS = 1e-5
@@ -258,32 +259,6 @@ class VideoOnsetNet(nn.Module):
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
-
-
-@torch.no_grad()
-def flax_init(model: nn.Module, seed: int) -> nn.Module:
-    """Random parameters from ``seed`` with Flax's distributions: conv and
-    Dense kernels from a normal of variance 1/fan_in truncated at two
-    standard deviations (``lecun_normal``), zero biases, unit BN scales,
-    running statistics 0 and 1.  The numbers differ from JAX's for the same
-    seed; load converted parameters to match.  Returns ``model``."""
-    gen = torch.Generator(device=next(model.parameters()).device)
-    gen.manual_seed(seed)
-    for m in model.modules():
-        if isinstance(m, (Conv3d, Linear)):
-            # variance_scaling's truncated normal: the std of the
-            # untruncated normal, divided by the truncation's shrink
-            std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=gen)
-            if getattr(m, "bias", None) is not None:
-                m.bias.zero_()
-        elif isinstance(m, BatchNorm):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-            m.running_mean.zero_()
-            m.running_var.fill_(1.0)
-    return model
 
 
 class ReluTape:

@@ -1,0 +1,35 @@
+"""The vector quantizer's inference side (port of ``VectorQuantizer`` of
+``syncfusion_tpu/models/vqgan/quantize.py``): nearest code by the distance
+in its expanded form ``|z|² − 2 z·e + |e|²``, as the JAX module computes it,
+so that near-ties resolve alike (``torch.cdist`` rounds otherwise).  The
+commitment loss and the perplexity belong to training and are not ported
+yet."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class VectorQuantizer(nn.Module):
+    def __init__(self, n_e: int = 1024, e_dim: int = 256):
+        super().__init__()
+        # the codebook, under its Flax name (U(-1/n_e, 1/n_e))
+        self.embedding = nn.Parameter(torch.empty(n_e, e_dim))
+
+    def distances(self, flat: torch.Tensor) -> torch.Tensor:
+        """(N, e_dim) -> (N, n_e) squared distances to every code."""
+        e = self.embedding
+        return ((flat ** 2).sum(1, keepdim=True) - 2.0 * flat @ e.T
+                + (e ** 2).sum(1)[None, :])
+
+    def forward(self, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """z (B, e_dim, H, W) -> (z_q (B, e_dim, H, W), indices (B, H, W))."""
+        b, c, h, w = z.shape
+        flat = z.permute(0, 2, 3, 1).reshape(-1, c)
+        indices = self.distances(flat).argmin(dim=1).reshape(b, h, w)
+        return self.lookup(indices), indices
+
+    def lookup(self, indices: torch.Tensor) -> torch.Tensor:
+        """Code indices (B, h, w) -> their embeddings (B, e_dim, h, w)."""
+        return self.embedding[indices].permute(0, 3, 1, 2)

@@ -1,10 +1,14 @@
-"""Mel filterbanks, mel spectrograms and dB scaling (port of
-``_hz_to_mel``, ``_mel_to_hz``, ``mel_filterbank``, ``mel_spectrogram`` and
-``power_to_db`` of ``syncfusion_tpu/ops/mel.py``).
+"""Mel filterbanks, mel spectrograms, dB scaling and the SpecVQGAN
+scaling chain (port of ``_hz_to_mel``, ``_mel_to_hz``, ``mel_filterbank``,
+``mel_spectrogram``, ``power_to_db``, ``specvqgan_scale``,
+``specvqgan_unscale`` and ``mel01_to_waveform_gl`` of
+``syncfusion_tpu/ops/mel.py``).
 
-Consumers: CLAP's HTSAT front end (48 kHz, slaney scale and norm) and the
-training sample logger's panels.  The filterbank is numpy (float64, then
-float32), as the JAX package builds it.
+Consumers: CLAP's HTSAT front end (48 kHz, slaney scale and norm), the
+training sample logger's panels, and the CondFoleyGen baseline (22.05 kHz,
+htk scale with slaney norm, 125-7600 Hz; its [0, 1] scaling chain and the
+Griffin-Lim decode without a vocoder).  The filterbank is numpy (float64,
+then float32), as the JAX package builds it.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from syncfusion_tpu_torch.ops.stft import spectrogram
+from syncfusion_tpu_torch.ops.stft import griffin_lim, spectrogram
 
 
 def _hz_to_mel(f, scale: str):
@@ -94,3 +98,43 @@ def power_to_db(s: torch.Tensor, ref: float = 1.0, amin: float = 1e-10,
     if top_db is not None:
         log_spec = torch.maximum(log_spec, log_spec.max() - top_db)
     return log_spec
+
+
+def specvqgan_scale(mel: torch.Tensor) -> torch.Tensor:
+    """The CondFoleyGen [0, 1] chain: floor at 1e-5, log10, ×20, −20,
+    +100, ÷100, clip to [0, 1]."""
+    x = torch.log10(torch.clamp(mel, min=1e-5))
+    x = (x * 20.0 - 20.0 + 100.0) / 100.0
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def specvqgan_unscale(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`specvqgan_scale` (up to its clip)."""
+    return torch.pow(10.0, (x * 100.0 + 20.0 - 100.0) / 20.0)
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_pinv_t(sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
+    """The pseudo-inverse of the baseline's filterbank, transposed: (n_mels,
+    n_fft//2+1) float32, as numpy computes it for the JAX package."""
+    fb = mel_filterbank(sample_rate, n_fft, n_mels, 125, 7600, scale="htk",
+                        norm="slaney")
+    return np.linalg.pinv(fb).T.copy()
+
+
+def mel01_to_waveform_gl(spec01: torch.Tensor, sample_rate: int = 22050,
+                         n_fft: int = 1024, hop_length: int = 256, n_iter: int = 32,
+                         theta: torch.Tensor | None = None) -> torch.Tensor:
+    """[0, 1]-scaled mel ``(..., n_mels, T)`` -> waveform: the inverse
+    scaling chain, the filterbank's pseudo-inverse (negative bins floored at
+    0), then ``n_iter`` Griffin-Lim iterations.  The initial phase is
+    ``theta`` where given, else drawn from a generator seeded 0 on the
+    input's device: every call without one starts from the same phase, as
+    the JAX function does with its fixed key."""
+    mel = specvqgan_unscale(spec01)
+    pinv_t = torch.from_numpy(_mel_pinv_t(sample_rate, n_fft, mel.shape[-2])).to(mel.device)
+    lin = torch.einsum("mf,...mt->...ft", pinv_t, mel).clamp_min(0.0)
+    generator = None if theta is not None else torch.Generator(
+        device=mel.device).manual_seed(0)
+    return griffin_lim(lin, n_fft, hop_length, n_iter=n_iter, generator=generator,
+                       theta=theta)

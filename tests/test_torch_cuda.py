@@ -3,8 +3,9 @@ K1 (the flash-attention forward), K2a and K2b (its backward), all on the
 tensor cores with f32 as 3xTF32, and K3 and K4 (the fused resnet chain, on
 the tensor cores too: bf16 with hi + lo bf16 activations, f32 as 3xTF32);
 the DeepCache samplers through K1 against the plain attention; the onset
-net and its train step, the CLAP embedder and VGGish (with the on-device
-resampler), on the card against the CPU.
+net and its train step, the CLAP embedder, VGGish (with the on-device
+resampler) and the full-width CondFoleyGen baseline, on the card against
+the CPU.
 
 Every test here is marked ``cuda`` and skips without a card.  The file
 imports nothing of JAX, so that it also runs where JAX is not installed:
@@ -672,3 +673,21 @@ def test_ddp_micro_step_runs_nccl_on_card(nccl_rank):
     assert math.isfinite(metrics["train_loss"].item())
     names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
     assert any("nccl" in name.lower() for name in names), sorted(names)[:20]
+
+
+def test_condfoleygen_baseline_on_card_matches_cpu(card):
+    """The full-width baseline of cfg/condfoleygen/*.yaml (seeded) on the
+    card against a CPU copy on one item: chip_smoke.py's phase-17 cross
+    check (spectrogram, VQ codes under the tie rule, video features,
+    teacher-forced logits, top-k 1 tokens cached and uncached, decoded mel,
+    MelGAN, Griffin-Lim from one phase) under its tolerances."""
+    import chip_smoke
+    from syncfusion_tpu_torch.core.config import BaselineConfig
+    from syncfusion_tpu_torch.generate_audio import build_model
+    from syncfusion_tpu_torch.models.melgan import Vocoder
+
+    model = build_model(BaselineConfig(), card, seed=0)
+    vocoder = Vocoder(device=card)
+    wav, frames = chip_smoke.baseline_inputs(1)
+    err = chip_smoke.baseline_cross_check(model, vocoder, wav, frames)
+    assert chip_smoke.baseline_failed_gates(err) == [], err

@@ -21,7 +21,10 @@ from torch_port_helpers import ENC, UNET, L, tiny_pair, to_numpy
 ROOT = Path(__file__).resolve().parents[1]
 # pandas: the JAX evaluation script writes metrics.csv with it; the card's
 # machine does not promise it, the port writes the CSV with ``csv``
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "syncfusion_tpu", "pandas"}
+# matplotlib: the JAX generation script draws its spectrograms with it; the
+# card's machine has none, the port draws them with PIL
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "syncfusion_tpu", "pandas",
+             "matplotlib"}
 # and the ranks of the multi-process tests, which run the port alone
 PORT_FILES = sorted(Path(syncfusion_tpu_torch.__file__).parent.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_workers.py"]
@@ -58,6 +61,25 @@ def test_guards_cover_the_multi_device_modules():
     assert {"syncfusion_tpu_torch/core/mesh.py", "syncfusion_tpu_torch/train/sharding.py",
             "syncfusion_tpu_torch/parallel/sampling.py",
             "syncfusion_tpu_torch/data/shards.py", "tests/torch_dist_workers.py"} <= names
+
+
+def test_guards_cover_the_baseline_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"syncfusion_tpu_torch/{m}.py" for m in (
+        "models/vqgan/autoencoder", "models/vqgan/quantize", "models/vqgan/model",
+        "models/mingpt", "models/mingpt_decode", "models/transformer_av",
+        "models/melgan", "models/init", "data/baseline_dataset", "generate_audio")} <= names
+
+
+def test_nothing_of_the_port_imports_the_exporter():
+    """script/export_params_npz.py imports the JAX package; the port and
+    chip_smoke.py reach it by no import, and it lies outside the package."""
+    exporter = ROOT / "script" / "export_params_npz.py"
+    assert exporter.is_file() and exporter not in PORT_FILES
+    for path in PORT_FILES:
+        mods = {mod for mod, _ in _imports(ast.parse(path.read_text()))}
+        assert "export_params_npz" not in mods and "script" not in mods, path.name
+    assert "syncfusion_tpu" in {mod for mod, _ in _imports(ast.parse(exporter.read_text()))}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -137,6 +159,31 @@ def test_onset_config_defaults_are_the_yaml():
                                  + [ROOT / "cfg/model/model-onset-f32.yaml"])
     assert f32.model.precision == "32" and f32.model.lr == 1e-4
     assert f32.data == cfg.data and f32.trainer == cfg.trainer
+
+
+def test_baseline_config_defaults_are_the_yaml():
+    """BaselineConfig's defaults hold the transformer YAML's ``transformer``
+    and the ``data`` keys that generation reads (``frame_size``, absent
+    there, at the JAX generation script's default 112), and the codebook
+    YAML's model geometry (that script's VQ defaults); reading the
+    transformer YAML gives them back."""
+    import dataclasses
+
+    from syncfusion_tpu_torch.core.config import BaselineConfig, from_yaml
+
+    cfg = BaselineConfig()
+    tr = from_yaml(ROOT / "cfg/condfoleygen/greatesthit_transformer.yaml", raw=True)
+    cb = from_yaml(ROOT / "cfg/condfoleygen/greatesthit_codebook.yaml", raw=True)
+    assert dataclasses.asdict(cfg.transformer) == tr["transformer"]
+    for key, val in dataclasses.asdict(cfg.data).items():
+        assert tr["data"].get(key, 112) == val, key
+    model = {**cb["model"]["ddconfig"], "embed_dim": cb["model"]["embed_dim"],
+             "n_embed": cb["model"]["n_embed"]}
+    for key, val in dataclasses.asdict(cfg.model).items():
+        want = model[key]
+        assert val == (tuple(want) if isinstance(want, list) else want), key
+    path = ROOT / "cfg/condfoleygen/greatesthit_transformer.yaml"
+    assert BaselineConfig.from_files([path]) == cfg
 
 
 def test_generate_end_to_end_on_cpu(tmp_path, monkeypatch):
