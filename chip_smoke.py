@@ -140,6 +140,22 @@ Phases, each printed with its seconds; any failure exits non-zero:
      GREY_JPEG frames and ``evaluate_onset_baseline.main --gt_root`` on its
      output; the phase prints whether (c) ran.  No hand-written kernel
      launches in it (gated): no TPU kernel lies on this path.
+ 18. the CondFoleyGen baseline's training at the same full width, seeded
+     weights, f32 without TF32: (a) ``VQGANTrainer`` at the codebook
+     YAML's B = 40 x 80 x 160 with a seeded LPAPS and an ``n_layers=3``
+     discriminator, ``disc_start`` 3 (both regimes), 5 steps timed (the
+     median of steps 3-5), peak memory, one step's device time; (b)
+     ``TransformerTrainer`` on the 305 M GPT at B = 4 with 60 frames of
+     112 x 112, timed alike, then one ``log_images``; (c) the card against
+     the CPU for one VQGAN step at B = 2 (G's and D's losses and
+     gradients, D's new running statistics) and one GPT step at B = 1
+     (loss, gradients), codes under phase 17's tie rule, gated; (d) where
+     PIL is importable, ``train_codebook``, ``train_transformer --vq_ckpt``
+     (the GPT cut to 2 layers) and ``generate_audio --vq_ckpt
+     --transformer_ckpt_path``, one epoch each on phase 17's 4-item root:
+     metrics, checkpoints, every media file and the generated wavs checked.
+     No hand-written kernel launches and no trainer logs a caught failure
+     (gated): no TPU kernel lies on this path.
 Phase 3 also holds the backward kernels K2a and K2b against their plain
 versions at the training shapes (with the time of SDPA's backward), times
 K1's f32 kernel per forward beside SDPA's f32 forward, and holds K3 and K4
@@ -157,6 +173,7 @@ import dataclasses
 import importlib.util
 import io
 import json
+import logging
 import math
 import os
 import re
@@ -2377,6 +2394,414 @@ def phase_condfoleygen(attn, fr, tmp: str) -> dict:
     return launched
 
 
+# phase 18: the baseline's training at the full width of
+# cfg/condfoleygen/greatesthit_{codebook,transformer}.yaml, f32 without TF32
+VQT_BATCH = 40  # the codebook YAML's batch
+VQT_DISC_START = 3  # both regimes inside the timed steps
+GPT_BATCH = 4  # the transformer YAML's batch
+TRAIN_STEPS_18 = 5  # timed; the median of steps 3-5
+# card against CPU, same weights and batch (VQGAN B = 2, GPT B = 1): losses
+# and D's new running statistics CFG_REL_TOL relative; gradients of the
+# trained parameters as phase 7 holds gradients (TRAIN_GRAD_TOL of each
+# tensor's largest, floored at GRAD_FLOOR of the largest of all); a code may
+# flip only within CFG_GAP_TOL of the largest distance (phase 17's rule),
+# and where one flips the losses and gradients are printed, not gated (a
+# flipped code moves them by far more than rounding).  The VQGAN's f32
+# gradients are held against the CPU's f64 ones, beside the CPU's own f32
+# ones as a witness (phase 18c says why): each tensor's gap on the card may
+# be WITNESS_FACTOR times the CPU f32's, and TRAIN_GRAD_TOL in any case
+WITNESS_FACTOR = 4.0
+
+
+def baseline_specs(batch: int, seed: int, device) -> torch.Tensor:
+    """Seeded 2-s 22.05 kHz wavs -> spectrograms (B, 1, 80, 160) made on
+    ``device``."""
+    from syncfusion_tpu_torch.models.vqgan.model import wav_to_spec
+
+    wav = 0.1 * np.random.default_rng(seed).standard_normal((batch, CFG_SAMPLES))
+    return wav_to_spec(torch.from_numpy(wav.astype(np.float32)).to(device))[:, None]
+
+
+def step_seconds(fn, steps: int) -> list:
+    """``fn`` called ``steps`` times, each on the host clock up to
+    ``torch.cuda.synchronize()``."""
+    secs = []
+    for _ in range(steps):
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - start)
+    return secs
+
+
+def code_flips(vq_card, vq_cpu, spec_cpu: torch.Tensor) -> tuple:
+    """(codes ``vq_card`` picks otherwise than ``vq_cpu``, the largest gap at
+    a flip over the largest distance) of one spectrogram batch, each VQ on
+    its own device and in its own type."""
+    with torch.no_grad():
+        h = vq_cpu.quant_conv(vq_cpu.encoder(spec_cpu))
+        flat = h.permute(0, 2, 3, 1).reshape(-1, h.shape[1])
+        dist = vq_cpu.quantize.distances(flat)
+        want = dist.argmin(dim=1)
+        p = next(vq_card.parameters())
+        got = vq_card.encode_indices(spec_cpu.to(p.device, p.dtype)).cpu().reshape(-1)
+    gap = first_flip_gap(got[None], want[None], dist[None], 0) / float(dist.abs().max())
+    return int((got != want).sum()), gap
+
+
+def stat_gap(card: dict, cpu: dict) -> float:
+    return max(float((card[k].cpu() - v).abs().max() / v.abs().max()) for k, v in cpu.items())
+
+
+def vqgan_step_parts(trainer, state, spec: torch.Tensor, dev: str, dtype) -> tuple:
+    """One VQGAN step's parts on ``dev`` in ``dtype``, on copies of the
+    trained weights and the discriminator on (factor 1): G's loss and its
+    gradients over the VQ, D's loss, its gradients and its running
+    statistics after the real and fake calls.  Returns (parts, the VQ)."""
+    import copy
+
+    from syncfusion_tpu_torch.train.vqgan_trainer import VQGANTrainer
+
+    model, lpaps, disc = (copy.deepcopy(m_).to(dev, dtype)
+                          for m_ in (state.model, trainer.lpaps, state.disc))
+    tr = VQGANTrainer(model, trainer.cfg, trainer.learning_rate, lpaps, disc)
+    model, disc, x = tr.model.train(), tr.disc, spec.to(dev, dtype)
+    loss, xrec, _ = tr.g_loss(model, disc, x, 1.0)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    d = tr.d_loss(disc, x, xrec, 1.0)
+    dgrads = torch.autograd.grad(d, list(disc.parameters()))
+    return {"g": loss.item(), "d": d.item(),
+            "g_grads": {k: g_.cpu() for (k, _), g_ in zip(model.named_parameters(), grads)},
+            "d_grads": {k: g_.cpu() for (k, _), g_ in zip(disc.named_parameters(), dgrads)},
+            "stats": {k: v.detach().cpu().clone() for k, v in disc.state_dict().items()
+                      if "running" in k}}, model
+
+
+def step_gaps(card: dict, ref: dict) -> dict:
+    return {"g_loss": abs(card["g"] - ref["g"]) / abs(ref["g"]),
+            "d_loss": abs(card["d"] - ref["d"]) / abs(ref["d"]),
+            "g_grads": grad_gaps(card["g_grads"], ref["g_grads"]),
+            "d_grads": grad_gaps(card["d_grads"], ref["d_grads"]),
+            "stats": stat_gap(card["stats"], ref["stats"])}
+
+
+def witness_rows(card_rows: list, cpu_rows: list) -> list:
+    """Per tensor, worst first: (the card's floored gap over its tolerance
+    max(TRAIN_GRAD_TOL, WITNESS_FACTOR x the CPU's), the card's gap, the
+    CPU's, name); both gaps ``grad_gaps``'s, to the same reference."""
+    cpu = {row[2]: row[0] for row in cpu_rows}
+    return sorted((row[0] / max(TRAIN_GRAD_TOL, WITNESS_FACTOR * cpu[row[2]]), row[0],
+                   cpu[row[2]], row[2]) for row in card_rows)[::-1]
+
+
+def vqgan_cross_check(trainer, state) -> tuple:
+    """One VQGAN step's parts (``vqgan_step_parts``) at B = 2, same batch,
+    on the card and on the CPU in f32 and in f64, and on the card in f32
+    with cuDNN off (its own convolutions, no FFT or Winograd algorithm).
+    Returns (f32 errors: the losses and statistics card against CPU, the
+    gradients of each f32 run against the CPU's f64 ones with the CPU f32's
+    as witness; f64 errors: card against CPU)."""
+    spec = baseline_specs(2, 31, "cpu")
+    parts, vqs = {}, {}
+    for side, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("card64", "cuda", torch.float64),
+                             ("cpu64", "cpu", torch.float64)):
+        parts[side], vqs[side] = vqgan_step_parts(trainer, state, spec, dev, dtype)
+    with torch.backends.cudnn.flags(enabled=False):
+        no_cudnn, _ = vqgan_step_parts(trainer, state, spec, "cuda", torch.float32)
+    f32 = step_gaps(parts["card"], parts["cpu"])
+    f32["flips"], f32["gap"] = code_flips(vqs["card"], vqs["cpu"], spec)
+    ref = parts["cpu64"]
+    for key in ("g_grads", "d_grads"):
+        cpu_rows = grad_gaps(parts["cpu"][key], ref[key])
+        f32[key] = witness_rows(grad_gaps(parts["card"][key], ref[key]), cpu_rows)
+        f32[key + "_no_cudnn"] = witness_rows(grad_gaps(no_cudnn[key], ref[key]), cpu_rows)
+    f64 = step_gaps(parts["card64"], ref)
+    f64["flips"], f64["gap"] = code_flips(vqs["card64"], vqs["cpu64"], spec.double())
+    return f32, f64
+
+
+def gpt_cross_check(model) -> dict:
+    """One GPT step's loss and gradients at B = 1 on the card and on a CPU
+    copy of the whole model (frozen stages too), same batch; the flips of
+    the ref and cond codes."""
+    import copy
+
+    spec, cond = baseline_specs(1, 32, "cpu"), baseline_specs(1, 33, "cpu")
+    _, frames = baseline_inputs(1, seed=34)
+    frames = torch.from_numpy(frames)
+    cpu = copy.deepcopy(model).cpu()
+    out = {}
+    for side, m, dev in (("card", model, "cuda"), ("cpu", cpu, "cpu")):
+        loss = m.loss(spec.to(dev), cond.to(dev), frames.to(dev))
+        grads = torch.autograd.grad(loss, list(m.gpt.parameters()))
+        out[side] = {"loss": loss.item(), "grads": {
+            k: g_.cpu() for (k, _), g_ in zip(m.gpt.named_parameters(), grads)}}
+    flips = [code_flips(model.vq, cpu.vq, x) for x in (spec, cond)]
+    del cpu
+    return {"loss": abs(out["card"]["loss"] - out["cpu"]["loss"]) / abs(out["cpu"]["loss"]),
+            "grads": grad_gaps(out["card"]["grads"], out["cpu"]["grads"]),
+            "flips": sum(f[0] for f in flips), "gap": max(f[1] for f in flips)}
+
+
+def gate_cross_check(label: str, err: dict, gated: tuple, shown: tuple = (),
+                     witnessed: tuple = ()) -> None:
+    """Print ``err`` and gate it: the code gap always; the entries named in
+    ``gated`` (losses and statistics at CFG_REL_TOL, gradients, lists of
+    ``grad_gaps`` rows, at TRAIN_GRAD_TOL; those also named in ``witnessed``
+    are ``witness_rows``, each within its own tolerance) where no code
+    flipped; those in ``shown`` are printed only."""
+    def fmt(k):
+        v = err[k]
+        if k in witnessed:
+            big = max(v, key=lambda row: row[1])
+            return (f"{k} worst over tolerance {v[0][0]:.3f} ({v[0][3]}: {v[0][1]:.3e}, CPU "
+                    f"f32 {v[0][2]:.3e}), largest {big[1]:.3e} ({big[3]}, CPU f32 "
+                    f"{big[2]:.3e})")
+        return f"{k} worst floored {v[0][0]:.3e} ({v[0][2]})" if isinstance(v, list) \
+            else f"{k} {v:.3e}"
+
+    print(f"  {label} card vs CPU: gated " + ", ".join(fmt(k) for k in gated)
+          + ("; not gated " + ", ".join(fmt(k) for k in shown) if shown else "")
+          + f"; codes flipped {err['flips']} (gap {err['gap']:.3e}, tol {CFG_GAP_TOL:.0e}); "
+          f"tolerances: losses and statistics {CFG_REL_TOL:.0e}, gradients "
+          f"{TRAIN_GRAD_TOL:.0e}" + (f" or {WITNESS_FACTOR:g} x the CPU f32's against f64"
+                                     if witnessed else ""), flush=True)
+    check(err["gap"] <= CFG_GAP_TOL, f"{label}: a code flips beyond the tie tolerance")
+    if err["flips"]:
+        print(f"  {label}: {err['flips']} codes flipped within the tie tolerance: the "
+              "losses and gradients above are not gated")
+        return
+    failed = [k for k in gated if not (
+        err[k][0][0] <= 1.0 if k in witnessed
+        else err[k][0][0] <= TRAIN_GRAD_TOL if isinstance(err[k], list)
+        else err[k] <= CFG_REL_TOL)]
+    check(not failed, f"{label}: card against CPU fails {failed}")
+
+
+class WarningRecords(logging.Handler):
+    """Collects the WARNING records of the port's loggers (a media failure
+    that a trainer catches and logs)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+
+def phase_baseline_train_clis(tmp: str) -> dict:
+    """Phase 18d: ``train_codebook``, then ``train_transformer --vq_ckpt``,
+    then ``generate_audio --vq_ckpt --transformer_ckpt_path``, one epoch
+    each on phase 17's 4-item root (batch 4: one step), both at the YAMLs'
+    full size: the GPT's checkpoint (its weights and AdamW's moments) is
+    written by ``train_transformer`` and loaded by ``generate_audio``.
+    Checks each run's metrics, checkpoint and media files and the generated
+    wavs; returns the seconds of each."""
+    from syncfusion_tpu_torch import generate_audio, train_codebook, train_transformer
+    from syncfusion_tpu_torch.ops.wav import read_wav
+
+    root = os.path.join(tmp, "gh18")
+    os.makedirs(root)
+    with open(write_baseline_root(root)) as f:
+        cfg = json.load(f)
+    split = os.path.join(root, "test.txt")
+    cfg["data"].update(train_split_file_path=split, val_split_file_path=split, batch_size=4)
+    cfg.update(trainer={"max_epochs": 1})
+    seconds = {}
+
+    def run(name, main, argv):
+        cfg["logs_dir"] = os.path.join(tmp, f"logs_{name}")
+        path = os.path.join(tmp, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        start = time.perf_counter()
+        out = main(["-c", path] + argv)
+        seconds[name] = time.perf_counter() - start
+        return out, path
+
+    def check_run(out, metric, media):
+        run_dir = out["run_dir"]
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        check(len(lines) == 1 and math.isfinite(lines[0][metric]), f"{run_dir}: {lines}")
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpts")))
+        check(ckpts == ["metrics.json", "step_1.pt"], f"{run_dir}: ckpts {ckpts}")
+        names = sorted(os.listdir(os.path.join(run_dir, "media")))
+        check(names == sorted(media), f"{run_dir}: media {names}")
+        for name in names:
+            if name.endswith(".wav"):
+                w, sr = read_wav(os.path.join(run_dir, "media", name))
+                check(sr == 22050 and bool(np.isfinite(w).all()), f"{name}: {w.shape}")
+        return lines[0][metric]
+
+    step = "step00000001"
+    cb, _ = run("codebook", train_codebook.main, [])
+    rec = check_run(cb, "val/rec_loss", [f"reconstructions_{step}.png"] + [
+        f"val_{k}_{i}_{step}.wav" for k in ("inputs", "reconstructions") for i in (0, 1)])
+    vq_ckpt = os.path.join(cb["run_dir"], "ckpts")
+    tr, path = run("transformer", train_transformer.main, ["--vq_ckpt", vq_ckpt])
+    val = check_run(tr, "val/loss", [f"val_{step}.png"] + [
+        f"val_att_{k}_{step}.png" for k in ("half", "nopix", "det")] + [
+        f"val_samples_nopix_{i}_{step}.wav" for i in (0, 1)])
+    gpt_ckpt = os.path.join(tr["run_dir"], "ckpts", "step_1.pt")
+    ckpt_gb = os.path.getsize(gpt_ckpt) / 1e9
+    out = os.path.join(tmp, "gen18")
+    start = time.perf_counter()
+    summary = generate_audio.main(["--gh_testset", "-c", path, "--vq_ckpt", vq_ckpt,
+                                   "--transformer_ckpt_path",
+                                   os.path.join(tr["run_dir"], "ckpts"),
+                                   "--output_dir", out, "--audio_only"])
+    seconds["generate_audio"] = time.perf_counter() - start
+    wavs = sorted(os.listdir(os.path.join(out, "generated_audio")))
+    check(summary["clips"] == len(wavs) == 4, f"generate_audio wrote {wavs}")
+    for name in wavs:
+        w, sr = read_wav(os.path.join(out, "generated_audio", name))
+        check(sr == 22050 and w.shape == (1, 512 + 256 * 159) and bool(np.isfinite(w).all()),
+              f"generate_audio: {name} {w.shape} at {sr} Hz")
+    print(f"  CLIs on the 4-item root, one epoch each: train_codebook {seconds['codebook']:.3f} s "
+          f"(val/rec_loss {rec:.4f}), train_transformer --vq_ckpt "
+          f"{seconds['transformer']:.3f} s (GPT at full depth, val/loss {val:.4f}, checkpoint "
+          f"{ckpt_gb:.3f} GB), "
+          f"generate_audio from both checkpoints {seconds['generate_audio']:.3f} s (4 clips)",
+          flush=True)
+    return seconds
+
+
+def phase_baseline_train(attn, fr, tmp: str) -> dict:
+    """Phase 18: the baseline's training at full width, f32 without TF32,
+    seeded weights: (a) ``VQGANTrainer`` at B = 40 x 80 x 160 with LPAPS and
+    an ``n_layers=3`` discriminator, ``disc_start`` 3, TRAIN_STEPS_18 steps
+    timed (the median of steps 3-5), peak memory, one step's device time;
+    (b) ``TransformerTrainer`` on the 305 M GPT at B = 4 with 60 frames of
+    112 x 112, timed alike, then one ``log_images``; (c) the card against
+    the CPU for one VQGAN step at B = 2 (the f32 gradients against the
+    CPU's f64 ones beside the CPU's f32 ones) and one GPT step at B = 1
+    (gated);
+    (d) the three CLIs on a processed root where PIL is importable (it
+    decodes the frames and writes the panels).  No hand-written kernel or
+    plain version runs (gated), and no trainer logs a caught failure
+    (gated).  Returns the launch counts."""
+    import dataclasses
+
+    from syncfusion_tpu_torch.core.config import BaselineConfig
+    from syncfusion_tpu_torch.generate_audio import build_model
+    from syncfusion_tpu_torch.models.vqgan.model import VQModel
+    from syncfusion_tpu_torch.train.transformer_trainer import TransformerTrainer
+    from syncfusion_tpu_torch.train.vqgan_trainer import VQGANTrainer
+
+    warnings = WarningRecords()
+    logging.getLogger("syncfusion_tpu_torch").addHandler(warnings)
+    reset_counts(attn, fr)
+    cfg = BaselineConfig()
+    part_s, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        part_s[name] = round(time.perf_counter() - t_part, 3)
+        t_part = time.perf_counter()
+
+    # (a) the codebook's step
+    torch.cuda.reset_peak_memory_stats()
+    trainer = VQGANTrainer(
+        VQModel(**dataclasses.asdict(cfg.model)).cuda(),
+        dataclasses.replace(cfg.lossconfig, disc_start=VQT_DISC_START),
+        learning_rate=cfg.vq_learning_rate)
+    trainer.disc.cuda()
+    state = trainer.init(0)
+    spec = baseline_specs(VQT_BATCH, 30, "cuda")
+    metrics = []
+    secs = step_seconds(lambda: metrics.append(trainer.train_step(state, spec)), TRAIN_STEPS_18)
+    values = [{k: float(v) for k, v in m.items()} for m in metrics]
+    check(all(math.isfinite(v) for m in values for v in m.values()), f"VQGAN metrics {values}")
+    check(values[2]["loss/disc"] == 0.0 and values[3]["loss/disc"] > 0.0,
+          f"the discriminator joins at step {VQT_DISC_START}: {values}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, dev_ms, kernels = device_ms(lambda: trainer.train_step(state, spec), "", calls=1)
+    med = statistics.median(secs[2:])
+    print(f"  VQGAN step, B={VQT_BATCH} x 80 x 160 (LPAPS, n_layers=3 D, disc_start "
+          f"{VQT_DISC_START}): s {', '.join(f'{s_:.4f}' for s_ in secs)}; median of steps "
+          f"3-{TRAIN_STEPS_18} {med:.4f} s, {VQT_BATCH / med:.2f} spectrograms/s; peak "
+          f"memory {peak:.3f} GiB; one step's device time {dev_ms:.3f} ms in {kernels:.0f} "
+          f"kernels and copies (idle share {1 - dev_ms / 1e3 / med:.3f}); losses {values}",
+          flush=True)
+    part("a VQGAN steps")
+
+    # (c), VQGAN half, on the state (a) trained: the f32 gradients against
+    # the CPU's f64 ones, each tensor within WITNESS_FACTOR of the CPU f32's
+    # own gap, the cuDNN-off run shown beside them; f64 on both sides
+    f32, f64 = vqgan_cross_check(trainer, state)
+    witnessed = ("g_grads", "d_grads", "g_grads_no_cudnn", "d_grads_no_cudnn")
+    gate_cross_check("VQGAN step, B=2, f32", f32, ("g_loss", "d_loss", "stats", "g_grads",
+                                                   "d_grads"),
+                     ("g_grads_no_cudnn", "d_grads_no_cudnn"), witnessed)
+    gate_cross_check("VQGAN step, B=2, f64", f64, ("g_loss", "d_loss", "stats", "g_grads",
+                                                   "d_grads"))
+    del trainer, state, spec
+    part("c VQGAN card vs CPU")
+    torch.cuda.empty_cache()
+
+    # (b) the GPT's step
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, "cuda", seed=0)
+    gpt_trainer = TransformerTrainer(model, learning_rate=cfg.learning_rate,
+                                     weight_decay=cfg.weight_decay)
+    gstate = gpt_trainer.create_state()
+    _, frames = baseline_inputs(GPT_BATCH, seed=35)
+    batch = {"spec": baseline_specs(GPT_BATCH, 36, "cuda"),
+             "cond_spec": baseline_specs(GPT_BATCH, 37, "cuda"),
+             "frames": torch.from_numpy(frames).cuda()}
+    losses = []
+    secs = step_seconds(lambda: losses.append(gpt_trainer.train_step(gstate, batch)),
+                        TRAIN_STEPS_18)
+    losses = [float(m["train/loss"]) for m in losses]
+    check(all(math.isfinite(v) for v in losses), f"GPT losses {losses}")
+    peak_g = torch.cuda.max_memory_allocated() / 2**30
+    _, dev_g, kernels_g = device_ms(lambda: gpt_trainer.train_step(gstate, batch), "", calls=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    start = time.perf_counter()
+    media = model.log_images(batch["spec"], batch["cond_spec"], batch["frames"], gen)
+    torch.cuda.synchronize()
+    media_s = time.perf_counter() - start
+    check(all(bool(torch.isfinite(v).all()) for v in media.values())
+          and tuple(media["att_det"].shape) == (GPT_BATCH, 16, 160, 160)
+          and tuple(media["samples_nopix"].shape) == (GPT_BATCH, 1, 80, 160),
+          "log_images: shapes or values")
+    med_g = statistics.median(secs[2:])
+    n_gpt = sum(p_.numel() for p_ in model.gpt.parameters())
+    print(f"  GPT step, B={GPT_BATCH} ({n_gpt:,} trained parameters, 60 frames of 112 x 112, "
+          f"frozen VQ and video net): s {', '.join(f'{s_:.4f}' for s_ in secs)}; median of "
+          f"steps 3-{TRAIN_STEPS_18} {med_g:.4f} s; peak memory {peak_g:.3f} GiB; one step's "
+          f"device time {dev_g:.3f} ms in {kernels_g:.0f} kernels and copies (idle share "
+          f"{1 - dev_g / 1e3 / med_g:.3f}); losses {[round(v_, 4) for v_ in losses]}; "
+          f"log_images (3 samplings, 3 attention forwards, 5 decodes) {media_s:.3f} s",
+          flush=True)
+    part("b GPT steps and log_images")
+    err = gpt_cross_check(model)
+    gate_cross_check("GPT step, B=1, f32", err, ("loss", "grads"))
+    del gpt_trainer, gstate, model, media, batch
+    torch.cuda.empty_cache()
+    part("c GPT card vs CPU")
+
+    # (d) the command lines
+    if importlib.util.find_spec("PIL") is None:
+        print("  the CLIs on a processed root: not run (PIL, which decodes the frames and "
+              "writes the panels, is not importable here)")
+    else:
+        phase_baseline_train_clis(tmp)
+    part("d CLIs")
+    print(f"  phase 18's seconds by part (with the model builds): {part_s}")
+    logging.getLogger("syncfusion_tpu_torch").removeHandler(warnings)
+    failures = [m_ for m_ in warnings.records if "failed" in m_]
+    check(not failures, f"a trainer caught and logged a failure: {failures}")
+    launched = counts(attn, fr)
+    check(not any(launched.values()), f"baseline training: a hand-written kernel or its "
+          f"plain version ran: {launched}")
+    print(f"  launch counts over the phase: {launched} (no TPU kernel lies on this path)")
+    return {"launched": launched, "vqgan_step_s": med, "gpt_step_s": med_g}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2670,6 +3095,11 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_condfoleygen(attn, fr, tmp)
         phase("17 CondFoleyGen generation at full width", t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        phase_baseline_train(attn, fr, tmp)
+        phase("18 CondFoleyGen training at full width", t0)
 
     fwd16, fwd32 = total[torch.bfloat16, ROWS], total[torch.float32, ROWS]
     serve16 = total[torch.bfloat16, SERVE_ROWS]

@@ -4,6 +4,7 @@ the card.
     python -m syncfusion_tpu_torch.breakdown [--batch 8] [--length 262144]
         [--model_config model.json] [--deep_split S]
     python -m syncfusion_tpu_torch.breakdown --onset bf16|32 [--batch 16]
+    python -m syncfusion_tpu_torch.breakdown --baseline vqgan|gpt [--batch 40|4]
 
 Builds the full-width model of exp/model/diffusion.yaml, or of
 ``--model_config`` (JSON of the diffusion config's model node, as in
@@ -15,7 +16,12 @@ clips) with ``torch.profiler``; with ``--deep_split S``, the DeepCache
 forward on a deep feature taken once from a whole forward.  With
 ``--onset``, the full-width onset net (seeded, cfg/model/model-onset.yaml's
 recipe in that precision) takes ``--iters`` training steps of ``--batch``
-chunks (default 16) of 30 frames at 112x112 on the uint8 wire.  Prints the
+chunks (default 16) of 30 frames at 112x112 on the uint8 wire.  With
+``--baseline``, a CondFoleyGen training step at the full width of
+cfg/condfoleygen/*.yaml, seeded, f32 without TF32: ``vqgan`` the codebook's
+(LPAPS, an ``n_layers=3`` discriminator on, batch default 40 spectrograms
+of 80 x 160), ``gpt`` the transformer's (batch default 4, 60 frames of
+112 x 112, the frozen VQ and video net included).  Prints the
 device time per forward by kernel class and the top kernels, the host wall
 time per forward and the device's idle share, and a last JSON line with the
 same numbers.  Needs the card.
@@ -36,10 +42,18 @@ CLASSES = (("flash_fwd", ("flash_fwd",)),
            ("fused_resblock", ("fused_resblock",)),
            ("group_norm", ("RowwiseMoments", "GroupNorm", "group_norm",
                            "ComputeFusedParams")),
-           ("conv", ("convolve", "cudnn", "xmma", "nchwToNhwc", "nhwcToNchw")),
+           ("batch_norm", ("bn_fw", "bn_bw")),
+           # cuDNN's FFT algorithms: its transforms, complex products and sums
+           ("conv_fft", ("fft", "pointwise_mult_and_sum_complex", "gemm_cf32")),
+           ("conv", ("convolve", "cudnn", "fprop", "dgrad", "wgrad", "implicit_gemm",
+                     "winograd", "nchwToNhwc", "nhwcToNchw")),
            ("reduce", ("reduce_kernel",)),
            ("gemm", ("gemm", "Gemm", "cutlass")),
            ("copy/cast/cat/fill", ("copy_kernel", "CatArray", "FillFunctor")),
+           ("optimizer", ("multi_tensor_apply",)),
+           ("layer_norm", ("layer_norm", "LayerNorm")),
+           ("softmax", ("softmax", "Softmax")),
+           ("max_pool", ("max_pool",)),
            ("elementwise", ("elementwise", "Functor", "silu")))
 
 
@@ -68,6 +82,46 @@ def onset_step(args):
              "label": torch.from_numpy((rng.random((b, 30)) < 0.07).astype(np.float32)).cuda()}
     return (lambda: trainer.train_step(state, batch),
             f"onset training step, {args.onset}, batch {b} x 30 x 112 x 112")
+
+
+def baseline_step(args):
+    """(one CondFoleyGen training step, its label)."""
+    import dataclasses
+
+    import numpy as np
+
+    from syncfusion_tpu_torch.core.config import BaselineConfig
+    from syncfusion_tpu_torch.device import set_exact_f32
+    from syncfusion_tpu_torch.generate_audio import build_model
+    from syncfusion_tpu_torch.models.vqgan.model import VQModel, wav_to_spec
+    from syncfusion_tpu_torch.train.transformer_trainer import TransformerTrainer
+    from syncfusion_tpu_torch.train.vqgan_trainer import VQGANTrainer
+
+    set_exact_f32()
+    cfg = BaselineConfig()
+    rng = np.random.default_rng(0)
+
+    def specs(b):
+        wav = (0.1 * rng.standard_normal((b, 44100))).astype(np.float32)
+        return wav_to_spec(torch.from_numpy(wav).cuda())[:, None]
+
+    if args.baseline == "vqgan":
+        b = args.batch or 40
+        trainer = VQGANTrainer(VQModel(**dataclasses.asdict(cfg.model)).cuda(),
+                               dataclasses.replace(cfg.lossconfig, disc_start=0),
+                               learning_rate=cfg.vq_learning_rate)
+        trainer.disc.cuda()
+        state = trainer.init(0)
+        spec = specs(b)
+        return (lambda: trainer.train_step(state, spec),
+                f"VQGAN training step, batch {b} x 80 x 160, f32")
+    b = args.batch or 4
+    trainer = TransformerTrainer(build_model(cfg, "cuda", seed=0))
+    state = trainer.create_state()
+    frames = rng.standard_normal((b, 60, 112, 112, 3)).astype(np.float32)
+    batch = {"spec": specs(b), "cond_spec": specs(b), "frames": torch.from_numpy(frames).cuda()}
+    return (lambda: trainer.train_step(state, batch),
+            f"GPT training step, batch {b}, 60 frames of 112 x 112, f32")
 
 
 def unet_forward(args):
@@ -114,10 +168,13 @@ def main(argv=None) -> None:
                     help="profile the cached forward at this split (0: whole)")
     ap.add_argument("--onset", choices=("bf16", "32"), default=None,
                     help="profile an onset training step in this precision")
+    ap.add_argument("--baseline", choices=("vqgan", "gpt"), default=None,
+                    help="profile a CondFoleyGen training step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: needs the card")
-    forward, label = onset_step(args) if args.onset else unet_forward(args)
+    forward, label = (onset_step(args) if args.onset else baseline_step(args)
+                      if args.baseline else unet_forward(args))
 
     for _ in range(2):
         forward()
@@ -151,6 +208,7 @@ def main(argv=None) -> None:
         print(f"  {ms:9.3f} {count:5d}  {name[:110]}")
     print(json.dumps({"what": label, "model_config": args.model_config,
                       "deep_split": args.deep_split, "onset": args.onset,
+                      "baseline": args.baseline,
                       "wall_ms": wall, "device_ms": device, "by_class_ms": by_class}))
 
 

@@ -23,7 +23,10 @@ is the leaf's layout:
 The CondFoleyGen baseline's ``{"vq", "video", "gpt"}`` tree goes through
 ``av_transformer_state_dict``: the VQGAN's 1 x 1 attention convs are named
 ``q``, ``k`` and ``v`` like DenseGeneral layers, so ``vqgan_state_dict``
-takes every 4-D kernel as a 2-D conv's.
+takes every 4-D kernel as a 2-D conv's.  The VQGAN trainer's frozen LPAPS
+and its discriminator go through ``lpaps_state_dict`` and
+``discriminator_state_dict``: their ``shift``/``scale`` and ActNorm's
+``loc``/``scale`` keep their names.
 """
 
 from __future__ import annotations
@@ -170,4 +173,42 @@ def av_transformer_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
                          ("video", onset_state_dict(tree["video"])),
                          ("gpt", gpt_state_dict(tree["gpt"]))):
         sd.update({f"{prefix}.{k}": v for k, v in part.items()})
+    return sd
+
+
+def _keep_names(variables: Mapping, keep: tuple) -> dict[str, torch.Tensor]:
+    """``convert_leaf`` over ``{"params"}``, except that a leaf named in
+    ``keep`` keeps its name and layout."""
+    sd = {}
+    for path, leaf in flatten(variables.get("params", variables)).items():
+        if path[-1] in keep:
+            key, a = ".".join(path), np.array(leaf, dtype=np.float32, order="C")
+        else:
+            key, a = convert_leaf(path, leaf)
+        sd[key] = torch.from_numpy(a)
+    return sd
+
+
+def lpaps_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``LPAPS``'s ``{"params"}`` tree -> a ``state_dict`` for the
+    port's ``models.vqgan.lpaps.LPAPS.load_state_dict(strict=True)``."""
+    return _keep_names(variables, ("shift", "scale"))
+
+
+def discriminator_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX ``NLayerDiscriminator``'s ``{"params", "batch_stats"}`` tree
+    -> a ``state_dict`` for the port's ``NLayerDiscriminator.
+    load_state_dict(strict=True)``: BatchNorm's ``batch_stats`` mean and var
+    become its running buffers, ActNorm's ``initialized`` flag its buffer,
+    its ``loc`` and ``scale`` keep their names."""
+    sd = _keep_names(variables, ("loc",))
+    for key in [k for k in sd if k.startswith("an") and k.endswith(".weight")]:
+        sd[key[:-len("weight")] + "scale"] = sd.pop(key)
+    for path, leaf in flatten(variables.get("batch_stats", {})).items():
+        *mods, name = path
+        if name == "initialized":
+            sd[".".join(path)] = torch.tensor(bool(np.asarray(leaf)))
+        else:
+            sd[".".join([*mods, _BN_STATS[name]])] = torch.from_numpy(
+                np.array(leaf, dtype=np.float32, order="C"))
     return sd

@@ -122,6 +122,16 @@ class Checkpointer:
         return torch.load(self.path(step), map_location="cpu", weights_only=True)
 
 
+def restore_best(directory: str | Path, monitor: str, mode: str = "min") -> dict:
+    """The saved state of a checkpoint directory's best step by ``monitor``
+    (from its ``metrics.json``), else of its latest."""
+    if not Path(directory).is_dir():
+        raise FileNotFoundError(f"no checkpoint directory {directory}")
+    ckpt = Checkpointer(CheckpointConfig(directory, monitor=monitor, mode=mode))
+    step = ckpt.best_step()
+    return ckpt.restore(ckpt.latest_step() if step is None else step)
+
+
 def load_torch_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
     """A ``.pt``/``.ckpt`` file -> ``{name: tensor}`` on the CPU: a plain
     state dict, or a Lightning or laion_clap checkpoint that nests it under

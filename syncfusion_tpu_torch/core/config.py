@@ -292,37 +292,109 @@ class GPTConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BaselineDataConfig:
-    """The keys of the ``data`` node that ``generate_audio`` reads (the
-    test split; ``frame_size`` with its default, as
-    ``script/generate_audio.py`` reads it)."""
+    """The ``data`` node: the test split and ``frame_size``, which
+    ``generate_audio`` reads, and the train and val splits with the keys
+    that ``script/train_codebook.py`` and ``script/train_transformer.py``
+    read with a default (``batch_size`` has none there: None here, and the
+    trainers raise without it).  ``p_audio_aug`` is the transformer
+    trainer's share of augmented wavs, 0.5 by default (the GH YAML does not
+    set it); ``rand_shift`` is the codebook trainer's (the transformer's
+    train split always shifts, as the JAX script's does)."""
 
     root_dir: str = "data/greatest-hits/mic-mp4-processed"
     test_split_file_path: str = "data/greatest-hits/mic-mp4-processed/test.txt"
     chunk_length_in_seconds: float = 2.0
     sample_rate: int = 22050
     frame_size: int = 112
+    train_split_file_path: str = "data/greatest-hits/mic-mp4-processed/train.txt"
+    val_split_file_path: str = "data/greatest-hits/mic-mp4-processed/val.txt"
+    train_data_to_use: float = 1.0
+    val_data_to_use: float = 1.0
+    batch_size: Optional[int] = None
+    rand_shift: bool = True
+    p_outside_cond: float = 0.0
+    p_audio_aug: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class VQGANLossConfig:
+    """The VQGAN's ``model.lossconfig`` (the values of
+    ``cfg/condfoleygen/greatesthit_codebook.yaml``): the discriminator
+    joins at step ``disc_start`` with weight ``disc_weight`` times the
+    adaptive weight, clipped to [``min_adapt_weight``,
+    ``max_adapt_weight``] (a constant when the two are equal, as there).
+    The discriminator's factor once it has joined is not a config value:
+    ``train.vqgan_trainer.DISC_FACTOR``, as the JAX script fixes it."""
+
+    disc_start: int = 30001
+    disc_weight: float = 0.8
+    codebook_weight: float = 1.0
+    perceptual_weight: float = 1.0
+    min_adapt_weight: float = 1.0
+    max_adapt_weight: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class BaselineTrainerConfig:
+    """The ``trainer`` node: ``max_epochs`` (None: the entry point's
+    default, 1000 epochs of the codebook, 100 of the transformer, as the JAX
+    scripts read it), the transformer's ``model_parallel`` and ``fsdp``."""
+
+    max_epochs: Optional[int] = None
+    model_parallel: int = 1
+    fsdp: bool = False
+
+
+# BaselineConfig's fields read from the config's top level
+_BASELINE_TOP = ("seed", "logs_dir", "learning_rate", "weight_decay", "pkeep", "log_media")
 
 
 @dataclasses.dataclass(frozen=True)
 class BaselineConfig:
-    """The CondFoleyGen baseline as ``generate_audio`` reads its config:
-    ``model`` (with ``ddconfig``), ``transformer`` and ``data``; a missing
-    key keeps its default, a key nothing reads is ignored."""
+    """The CondFoleyGen baseline's config as ``generate_audio``,
+    ``train_codebook`` and ``train_transformer`` read it: ``model`` (the
+    VQGAN's geometry with its ``ddconfig``; its ``learning_rate`` and
+    ``lossconfig`` go to ``vq_learning_rate`` and ``lossconfig``),
+    ``transformer``, ``data``, ``trainer`` and the top-level keys.  A
+    missing key keeps its default, the one the JAX scripts read with
+    ``.get``; a key nothing reads is ignored.  ``logs_dir`` None is the
+    entry point's own default (``logs/specvqgan`` or ``logs/transformer``);
+    ``learning_rate`` is the GPT's.  The JAX script's ``n_frames`` sizes its
+    init only: the port's parameters do not depend on it, so it is not read."""
 
     model: VQConfig = VQConfig()
     transformer: GPTConfig = GPTConfig()
     data: BaselineDataConfig = BaselineDataConfig()
+    trainer: BaselineTrainerConfig = BaselineTrainerConfig()
+    lossconfig: VQGANLossConfig = VQGANLossConfig()
+    vq_learning_rate: float = 4.5e-6
+    seed: int = 0
+    logs_dir: Optional[str] = None
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.01
+    pkeep: float = 1.0
+    log_media: bool = True
 
     @classmethod
     def from_dict(cls, node: Mapping[str, Any]) -> "BaselineConfig":
         model = dict(node.get("model", {}))
+        lossconfig = model.pop("lossconfig", {}) or {}
+        vq_lr = model.pop("learning_rate", cls.vq_learning_rate)
         model = {**model.pop("ddconfig", {}), **model}
-        return cls(model=_from_dict(VQConfig, model),
-                   transformer=_from_dict(GPTConfig,
-                                          node.get("transformer", {})),
-                   data=_from_dict(BaselineDataConfig, node.get("data", {})))
+        top = _from_dict(cls, {k: v for k, v in node.items() if k in _BASELINE_TOP})
+        return dataclasses.replace(
+            top, model=_from_dict(VQConfig, model),
+            transformer=_from_dict(GPTConfig, node.get("transformer", {})),
+            data=_from_dict(BaselineDataConfig, node.get("data", {})),
+            trainer=_from_dict(BaselineTrainerConfig, node.get("trainer", {}) or {}),
+            lossconfig=_from_dict(VQGANLossConfig, lossconfig),
+            vq_learning_rate=float(vq_lr))
 
     @classmethod
     def from_files(cls, paths) -> "BaselineConfig":
         """Files merged in order, as ``OnsetConfig.from_files`` reads them."""
         return cls.from_dict(read_files(paths))
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+

@@ -1,7 +1,9 @@
 """Spectrogram panels of the diffusion trainer's sample logger, label
-line plots of the onset model's test run (port of ``write_spec_panel``,
-``spec_to_image``, ``_colormap`` and ``write_label_plot`` of
-``syncfusion_tpu/eval/panels.py``) and the baseline generation's coolwarm
+line plots of the onset model's test run, the CondFoleyGen trainers'
+attention panels and vocoded wavs (port of ``write_spec_panel``,
+``spec_to_image``, ``_colormap``, ``write_label_plot``,
+``visualize_attention``, ``write_attention_panel`` and ``write_media_wavs``
+of ``syncfusion_tpu/eval/panels.py``) and the baseline generation's coolwarm
 spectrogram images (``write_spec_image``, for the matplotlib ``imshow`` of
 ``script/generate_audio.py``: the card's machine has no matplotlib).  PIL
 is imported inside the functions
@@ -117,3 +119,69 @@ def write_label_plot(
     path = out_dir / f"{name}_step{step:08d}.png"
     img.save(path)
     return path
+
+
+def visualize_attention(att, scale_by_prior: bool = True) -> np.ndarray:
+    """(B, H, T, T) attention probabilities -> (B, T, T) maps: with
+    ``scale_by_prior`` the causal uniform prior 1/(row + 1) subtracted below
+    the diagonal, then summed over heads."""
+    att = np.asarray(att, np.float32)
+    t = att.shape[-1]
+    if scale_by_prior:
+        prior = np.tril(1.0 / np.arange(1, t + 1, dtype=np.float32)[:, None]
+                        * np.ones((t, t), np.float32))
+        att = att - prior[None, None]
+    return att.sum(axis=1)
+
+
+def write_attention_panel(out_dir: str | Path, name: str, att, step: int = 0,
+                          scale_by_prior: bool = True, max_maps: int = 4) -> Path:
+    """``{name}_step{step:08d}.png``: the first ``max_maps`` items' maps
+    (``visualize_attention``) side by side, min-max scaled over the whole
+    grid, viridis, each upscaled by whole pixels to about 256 wide, 2-pixel
+    gaps."""
+    from PIL import Image
+
+    maps = visualize_attention(att, scale_by_prior)[:max_maps]
+    lo, hi = maps.min(), maps.max()
+    maps = (maps - lo) / (hi - lo) if hi > lo else np.zeros_like(maps)
+    tiles = [Image.fromarray(_colormap(m)) for m in maps]
+    upscale = max(1, 256 // tiles[0].width)
+    tiles = [t.resize((t.width * upscale, t.height * upscale), Image.NEAREST) for t in tiles]
+    pad = 2
+    panel = Image.new("RGB", (sum(t.width for t in tiles) + pad * (len(tiles) - 1),
+                              tiles[0].height))
+    x = 0
+    for t in tiles:
+        panel.paste(t, (x, 0))
+        x += t.width + pad
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{name}_step{step:08d}.png"
+    panel.save(path)
+    return path
+
+
+def write_media_wavs(out_dir: str | Path, name: str, specs01: dict, step: int = 0,
+                     sample_rate: int = 22050, n_iter: int = 16,
+                     max_items: int = 2) -> list[Path]:
+    """Vocode [0, 1] mel panels (B, 80, T), numpy or tensors (on their
+    device), by ``n_iter`` Griffin-Lim iterations (``ops.mel.
+    mel01_to_waveform_gl``) and write ``{name}_{key}_{i}_step{step:08d}.wav``
+    for the first ``max_items`` items of each; returns the paths."""
+    import torch
+
+    from syncfusion_tpu_torch.ops.mel import mel01_to_waveform_gl
+    from syncfusion_tpu_torch.ops.wav import write_wav
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for key, spec in specs01.items():
+        spec = torch.as_tensor(spec, dtype=torch.float32)[:max_items]
+        wavs = mel01_to_waveform_gl(spec, sample_rate, n_iter=n_iter).cpu().numpy()
+        for i in range(wavs.shape[0]):
+            path = out_dir / f"{name}_{key}_{i}_step{step:08d}.wav"
+            write_wav(path, wavs[i], sample_rate)
+            paths.append(path)
+    return paths

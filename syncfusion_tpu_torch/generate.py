@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from syncfusion_tpu_torch.convert import to_state_dict, unflatten
-from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
+from syncfusion_tpu_torch.core.checkpoint import restore_best
 from syncfusion_tpu_torch.device import default_device
 from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
 from syncfusion_tpu_torch.ops.wav import write_wav
@@ -55,14 +55,8 @@ def restore_model(directory, monitor: str = "valid_loss") -> dict:
     (``train_diffusion``'s; ``train_onset``'s with ``monitor="loss/val"``):
     its best step by ``monitor``, else its latest (the reference's
     ``restore_params``)."""
-    if not Path(directory).is_dir():
-        raise FileNotFoundError(f"no checkpoint directory {directory}")
-    ckpt = Checkpointer(CheckpointConfig(directory, monitor=monitor))
-    step = ckpt.best_step()
-    if step is None:
-        step = ckpt.latest_step()
-    log.info("parameters of step %s of %s", step, directory)
-    return ckpt.restore(step)["model"]
+    log.info("parameters of %s (best by %s, else the latest)", directory, monitor)
+    return restore_best(directory, monitor)["model"]
 
 
 def main(argv=None) -> None:

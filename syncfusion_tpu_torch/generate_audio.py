@@ -3,7 +3,8 @@ counterpart of ``script/generate_audio.py``).
 
     python -m syncfusion_tpu_torch.generate_audio --gh_testset \\
         -c cfg/condfoleygen/greatesthit_transformer.yaml \\
-        [--params_npz params.npz] [--melgan_ckpt best_netG.pt] \\
+        [--params_npz params.npz | --vq_ckpt DIR --transformer_ckpt_path DIR] \\
+        [--melgan_ckpt best_netG.pt] \\
         [--output_dir output/condfoleygen] [--W_scale 1] [--batch_size 4] \\
         [--top_k 512] [--temperature 1.0] [--audio_only] [--seed 0]
 
@@ -25,7 +26,12 @@ The config (``-c``, JSON, or YAML where PyYAML is installed) is read as
 ``core.config.BaselineConfig``; its defaults are
 ``cfg/condfoleygen/*.yaml``'s.  ``--params_npz`` is the JAX ``{"vq",
 "video", "gpt"}`` tree as ``script/export_params_npz.py --kind
-condfoleygen`` writes it; without it the weights are seeded random ones.
+condfoleygen`` writes it.  ``--vq_ckpt`` and ``--transformer_ckpt_path``
+take the port's own runs instead (``train_codebook``'s and
+``train_transformer``'s checkpoint directories, each its best step by
+``val/rec_loss`` or ``val/loss``, else its latest); the frozen video net
+is then the one the transformer trainer had, seeded from the config's
+``seed``.  Without either the weights are seeded random ones.
 Runs on the card; ``--device cpu`` runs on the CPU.
 """
 
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 from syncfusion_tpu_torch.convert import av_transformer_state_dict, unflatten
+from syncfusion_tpu_torch.core.checkpoint import restore_best
 from syncfusion_tpu_torch.core.config import BaselineConfig
 from syncfusion_tpu_torch.data.baseline_dataset import (
     CondGreatestHitsWaveCondOnImage,
@@ -65,7 +72,7 @@ def build_model(cfg: BaselineConfig, device, seed: Optional[int] = 0) -> AVCondT
     """The baseline at ``cfg``'s widths in eval mode, with seeded random
     weights; ``seed=None`` leaves them unset, for parameters to be loaded."""
     vq = VQModel(**dataclasses.asdict(cfg.model))
-    model = AVCondTransformer(vq, GPTFeats(cfg.transformer)).to(device)
+    model = AVCondTransformer(vq, GPTFeats(cfg.transformer), pkeep=cfg.pkeep).to(device)
     return (model if seed is None else model.init(seed)).eval()
 
 
@@ -75,6 +82,17 @@ def load_params_npz(model: AVCondTransformer, path) -> None:
     with np.load(path) as npz:
         model.load_state_dict(av_transformer_state_dict(unflatten(dict(npz))),
                               strict=True)
+
+
+def load_runs(model: AVCondTransformer, vq_ckpt=None, transformer_ckpt_path=None) -> None:
+    """The VQ of a ``train_codebook`` run and the GPT of a
+    ``train_transformer`` run into ``model``, strictly: each directory's
+    best step by its monitored metric, else its latest."""
+    if vq_ckpt:
+        model.vq.load_state_dict(restore_best(vq_ckpt, "val/rec_loss")["vq"], strict=True)
+    if transformer_ckpt_path:
+        model.gpt.load_state_dict(restore_best(transformer_ckpt_path, "val/loss")["model"],
+                                  strict=True)
 
 
 def spec01(model: AVCondTransformer, grid: torch.Tensor) -> torch.Tensor:
@@ -96,6 +114,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--params_npz", default=None,
                     help="the JAX {vq, video, gpt} tree as .npz with '/'-joined "
                          "keys (script/export_params_npz.py)")
+    ap.add_argument("--vq_ckpt", default=None,
+                    help="a train_codebook run's ckpts directory (not with --params_npz)")
+    ap.add_argument("--transformer_ckpt_path", default=None,
+                    help="a train_transformer run's ckpts directory (not with "
+                         "--params_npz)")
     ap.add_argument("--melgan_ckpt", default=None,
                     help="the reference MelGAN's best_netG.pt (without it: "
                          "Griffin-Lim)")
@@ -122,16 +145,22 @@ def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO)
     if args.style_transfer:
         raise NotImplementedError(STYLE_TRANSFER_TODO)
+    runs = args.vq_ckpt or args.transformer_ckpt_path
+    if args.params_npz and runs:
+        ap.error("--params_npz excludes --vq_ckpt and --transformer_ckpt_path")
 
     cfg = BaselineConfig.from_files([args.config])
     device = default_device(args.device)
     set_exact_f32()
-    model = build_model(cfg, device, seed=None if args.params_npz else args.seed)
+    model = build_model(cfg, device, seed=None if args.params_npz else
+                        cfg.seed if runs else args.seed)
     if args.params_npz:
         load_params_npz(model, args.params_npz)
-    else:
-        log.warning("no --params_npz: the weights are random, the output is "
-                    "noise-shaped")
+    elif runs:
+        load_runs(model, args.vq_ckpt, args.transformer_ckpt_path)
+    if not (args.params_npz or args.transformer_ckpt_path):
+        log.warning("no --params_npz or --transformer_ckpt_path: the GPT's weights "
+                    "are random, the output is noise-shaped")
     vocoder = Vocoder(args.melgan_ckpt, device) if args.melgan_ckpt else None
 
     d = cfg.data

@@ -26,16 +26,12 @@ from __future__ import annotations
 from typing import Mapping, Sequence
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from syncfusion_tpu_torch.models.batchnorm import BN_EPS, BN_MOMENTUM, BatchNorm  # noqa: F401
 from syncfusion_tpu_torch.models.blocks import Linear
 from syncfusion_tpu_torch.models.init import flax_init
-
-BN_MOMENTUM = 0.9  # Flax's convention: the share of the old running value
-BN_EPS = 1e-5
-
 
 def midplanes(c_in: int, c_out: int) -> int:
     """torchvision's (2+1)D factorisation width."""
@@ -60,107 +56,6 @@ class Conv3d(nn.Module):
         dt = self.dtype
         return F.conv3d(x.to(dt), self.weight.to(dt), None, stride=self.stride,
                         padding=self.padding)
-
-
-class _BatchNormTrain(torch.autograd.Function):
-    """Train-mode normalisation over dims (0, 2, 3, 4) with Flax's batch
-    statistics: mean, and the biased variance as mean(x^2) - mean^2
-    floored at 0; y = (x - mean)·(rsqrt(var + eps)·weight) + bias.  The
-    backward is batch norm's closed form, (weight·rstd)·(gy - mean(gy) -
-    x̂·mean(gy·x̂)), from the saved input alone: autograd through the
-    formula would keep x - mean as well, a second activation-sized tensor
-    per BatchNorm (both give the same gradients within f32 rounding).
-    Returns (y, mean, var).
-
-    With a process ``group`` the statistics are the global batch's
-    (synchronised BatchNorm, the reference's ``sync_batchnorm=True``): the
-    ranks' shares of the batch are equal (``core.mesh.local_batch_size``),
-    so each rank's mean(x) and mean(x^2), times 1/ranks, are all-reduced
-    into the global ones; the backward all-reduces sum(gy) and sum(gy·x̂)
-    before ``gx``.  The weight's and bias's gradients stay the rank's own,
-    which DDP averages.  At one rank the all-reduces leave every number as
-    the single-process path computes it."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, group=None):
-        dims = (0, 2, 3, 4)
-        mean, meansq = x.mean(dims), (x * x).mean(dims)
-        ranks = 1
-        if group is not None:
-            ranks = dist.get_world_size(group)
-            stats = torch.cat([mean, meansq]) * (1.0 / ranks)
-            dist.all_reduce(stats, group=group)
-            mean, meansq = stats.chunk(2)
-        var = (meansq - mean * mean).clamp_min(0.0)
-        rstd = torch.rsqrt(var + BN_EPS)
-        ctx.save_for_backward(x, mean, rstd, weight)
-        ctx.group, ctx.count = group, x.numel() // x.shape[1] * ranks
-        y = (x - mean.view(_CH)) * (rstd * weight).view(_CH) + bias.view(_CH)
-        return y, mean, var
-
-    @staticmethod
-    def backward(ctx, gy, _gmean, _gvar):
-        x, mean, rstd, weight = ctx.saved_tensors
-        dims = (0, 2, 3, 4)
-        n = ctx.count
-        xhat = (x - mean.view(_CH)) * rstd.view(_CH)
-        gbias = gy.sum(dims)
-        gweight = (gy * xhat).sum(dims)
-        sum_gy, sum_gy_xhat = gbias, gweight
-        if ctx.group is not None:
-            sums = torch.cat([gbias, gweight])
-            dist.all_reduce(sums, group=ctx.group)
-            sum_gy, sum_gy_xhat = sums.chunk(2)
-        gx = (weight * rstd).view(_CH) * (
-            gy - (sum_gy / n).view(_CH) - xhat * (sum_gy_xhat / n).view(_CH))
-        return gx, gweight, gbias, None
-
-
-_CH = (1, -1, 1, 1, 1)
-
-
-class BatchNorm(nn.Module):
-    """Flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channels of
-    (B, C, T, H, W), in at least f32 (a bf16 input is promoted, as Flax
-    promotes it to its f32 parameters' type).
-
-    Training normalises with the batch's statistics as Flax computes them
-    (``_BatchNormTrain``) and moves the running statistics by ``0.9·old +
-    0.1·batch`` with the *biased* variance, as Flax does;
-    ``torch.nn.BatchNorm3d`` moves ``running_var`` by the unbiased one,
-    n/(n-1) times larger.  Eval normalises with the running statistics.
-    ``process_group`` (set by ``sync_batchnorm``) makes the training
-    statistics, and so the running ones, the global batch's.
-    """
-
-    def __init__(self, channels: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-        self.process_group = None
-
-    def forward(self, x):
-        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
-        if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, BN_EPS)
-        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias,
-                                             self.process_group)
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, 1.0 - BN_MOMENTUM)
-            self.running_var.lerp_(var, 1.0 - BN_MOMENTUM)
-        return y
-
-
-def sync_batchnorm(model: nn.Module, group) -> nn.Module:
-    """Every ``BatchNorm`` of ``model`` takes its training statistics over
-    ``group``'s ranks (None: its own batch).  Returns ``model``."""
-    for m in model.modules():
-        if isinstance(m, BatchNorm):
-            m.process_group = group
-    return model
 
 
 class Conv2Plus1D(nn.Module):

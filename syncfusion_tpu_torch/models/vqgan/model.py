@@ -2,7 +2,7 @@
 decoder (port of ``wav_to_spec``, ``VQModel`` and the ``SpecVQGAN``
 facade of ``syncfusion_tpu/models/vqgan/model.py``; the facade's
 ``encode_indices``, ``decode_indices`` and ``reconstruct`` are methods of
-``VQModel`` here).
+``VQModel`` here; ``train_forward`` is the JAX module's ``__call__``).
 
 The spectrogram is the reference chain: 22.05 kHz wav -> magnitude STFT
 (n_fft 1024, hop 256, power 1) -> mel (80 bands, 125-7600 Hz, htk scale,
@@ -73,6 +73,13 @@ class VQModel(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(x)[0])
+
+    def train_forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, dict]:
+        """The training forward, JAX ``VQModel.__call__``: (B, 1, 80, 160)
+        -> (reconstruction, commitment loss, ``{"perplexity", "indices"}``),
+        the gradient through the quantizer's straight-through output."""
+        quant, qloss, info = self.quantize.train_forward(self.quant_conv(self.encoder(x)))
+        return self.decode(quant), qloss, info
 
     def encode_indices(self, spec: torch.Tensor) -> torch.Tensor:
         """(B, 1, 80, 160) -> token grid (B, 5, 10)."""

@@ -1,7 +1,13 @@
-"""ColorJitter of frame batches on the device (port of the frame half of
-``syncfusion_tpu/ops/augment.py``; its audio augments belong to the
-CondFoleyGen trainer and are not ported yet).
+"""Augments of the port's trainers (port of ``syncfusion_tpu/ops/augment.py``).
 
+The audio augments of the CondFoleyGen transformer's training, on the host
+in numpy as the JAX module computes them: ``normalize_audio`` (scale to an
+RMS of 0.1), ``pitch_shift`` (a phase-vocoder ``time_stretch`` then linear
+resampling back to the length) and ``random_audio_augment`` (with
+probability ``p`` both, by a uniform ±12 semitones), all from an explicit
+``np.random.Generator``: the same generator gives the JAX functions' draws.
+
+ColorJitter of frame batches on the device, the onset trainer's.
 torchvision semantics, one draw per chunk: uniform brightness, contrast and
 saturation factors, a uniform hue shift and a random order of the four ops,
 each per sample.  ``draw_jitter`` draws them from an explicit
@@ -15,6 +21,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 _LUMA = (0.299, 0.587, 0.114)
@@ -127,3 +134,89 @@ def color_jitter_device(frames, generator: Optional[torch.Generator],
     drawn = draw_jitter(frames.shape[0], generator, brightness, contrast,
                         saturation, hue, device=frames.device)
     return apply_color_jitter(frames, *drawn)
+
+
+# --------------------------------------------------------------------------
+# Audio augments (host, numpy)
+# --------------------------------------------------------------------------
+
+def normalize_audio(y: np.ndarray, desired_rms: float = 0.1,
+                    eps: float = 1e-4) -> np.ndarray:
+    rms = max(float(np.sqrt(np.mean(np.square(y)))), eps)
+    return (y * (desired_rms / rms)).astype(np.float32)
+
+
+def _hann(n_fft: int) -> np.ndarray:
+    return 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n_fft) / n_fft)
+
+
+def _stft_np(y, n_fft=1024, hop=256):
+    """Centred (reflect-padded) periodic-Hann STFT -> (freq, frames)."""
+    pad = n_fft // 2
+    y = np.pad(y, (pad, pad), mode="reflect")
+    n = 1 + (len(y) - n_fft) // hop
+    idx = np.arange(n)[:, None] * hop + np.arange(n_fft)[None, :]
+    return np.fft.rfft(y[idx] * _hann(n_fft), axis=-1).T
+
+
+def _istft_np(spec, hop=256, length=None):
+    """Windowed overlap-add inverse of ``_stft_np``, cut or padded to
+    ``length``."""
+    n_fft = 2 * (spec.shape[0] - 1)
+    window = _hann(n_fft)
+    frames = np.fft.irfft(spec.T, n=n_fft, axis=-1) * window
+    total = n_fft + hop * (frames.shape[0] - 1)
+    y = np.zeros(total)
+    wsum = np.zeros(total)
+    for i, fr in enumerate(frames):
+        y[i * hop:i * hop + n_fft] += fr
+        wsum[i * hop:i * hop + n_fft] += window ** 2
+    y = (y / np.maximum(wsum, 1e-10))[n_fft // 2:]
+    if length is not None:
+        y = y[:length] if len(y) >= length else np.pad(y, (0, length - len(y)))
+    return y.astype(np.float32)
+
+
+def time_stretch(y: np.ndarray, rate: float, n_fft: int = 1024,
+                 hop: int = 256) -> np.ndarray:
+    """Phase-vocoder time stretch by ``rate`` (> 1: faster, shorter)."""
+    spec = _stft_np(y, n_fft, hop)
+    n_freq, n_frames = spec.shape
+    steps = np.arange(0, n_frames, rate)
+    phi_advance = np.linspace(0, np.pi * hop, n_freq)
+    out = np.zeros((n_freq, len(steps)), complex)
+    phase_acc = np.angle(spec[:, 0])
+    for t, step in enumerate(steps):
+        i = int(step)
+        frac = step - i
+        cols = spec[:, i:i + 2]
+        if cols.shape[1] < 2:
+            cols = np.pad(cols, ((0, 0), (0, 2 - cols.shape[1])))
+        mag = (1 - frac) * np.abs(cols[:, 0]) + frac * np.abs(cols[:, 1])
+        out[:, t] = mag * np.exp(1j * phase_acc)
+        dphase = np.angle(cols[:, 1]) - np.angle(cols[:, 0]) - phi_advance
+        dphase = dphase - 2 * np.pi * np.round(dphase / (2 * np.pi))
+        phase_acc = phase_acc + phi_advance + dphase
+    return _istft_np(out, hop, length=int(round(len(y) / rate)))
+
+
+def pitch_shift(y: np.ndarray, sr: int, n_steps: float) -> np.ndarray:
+    """Shift the pitch by ``n_steps`` semitones, keeping the length: time
+    stretch by 2^(−n/12), then linear interpolation back to ``len(y)``."""
+    if n_steps == 0:
+        return np.asarray(y, np.float32)
+    rate = 2.0 ** (-n_steps / 12.0)
+    stretched = time_stretch(y, rate)
+    src = np.arange(len(stretched)) * rate
+    tgt = np.arange(len(y), dtype=np.float64)
+    return np.interp(tgt, src, stretched).astype(np.float32)
+
+
+def random_audio_augment(y: np.ndarray, sr: int, rng: np.random.Generator,
+                         p: float = 0.5, max_semitones: float = 12.0) -> np.ndarray:
+    """The transformer's train-time augment: with probability ``p``, RMS
+    normalisation and a uniform ±``max_semitones`` pitch shift."""
+    if rng.random() >= p:
+        return y
+    y = normalize_audio(y)
+    return pitch_shift(y, sr, float(rng.uniform(-max_semitones, max_semitones)))

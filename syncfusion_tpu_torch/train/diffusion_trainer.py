@@ -76,14 +76,21 @@ class Optimizer:
     first, so that AdamW decays it by ``lr·wd`` as optax does (torch's AdamW
     skips a parameter whose ``.grad`` is None).  optax takes Adam's bias
     correction ``1 - beta^t`` in f32 and torch in f64: each update differs
-    by up to ~``lr·1e-5`` relative.
+    by up to ~``lr·1e-5`` relative.  ``no_decay`` names parameters that
+    take no weight decay (a second parameter group).
     """
 
-    def __init__(self, params: Iterable[nn.Parameter], cfg: OptimizerConfig):
+    def __init__(self, params: Iterable[nn.Parameter], cfg: OptimizerConfig,
+                 no_decay: Iterable[nn.Parameter] = ()):
         self.cfg = cfg
         self.params = list(params)
+        skip = {id(p) for p in no_decay}
+        groups = [{"params": [p for p in self.params if id(p) not in skip]}]
+        if skip:  # optax's decay mask: these take no weight decay
+            groups.append({"params": [p for p in self.params if id(p) in skip],
+                           "weight_decay": 0.0})
         self.adamw = torch.optim.AdamW(
-            self.params, lr=cfg.lr, betas=(cfg.lr_beta1, cfg.lr_beta2),
+            groups, lr=cfg.lr, betas=(cfg.lr_beta1, cfg.lr_beta2),
             eps=cfg.lr_eps, weight_decay=cfg.lr_weight_decay)
         self.mini_step = 0
 

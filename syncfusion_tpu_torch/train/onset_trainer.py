@@ -15,7 +15,7 @@ Loss and metrics reproduce the reference ``BCLoss``
 
 Over a ``core.mesh.Mesh`` (one process per card under torchrun) each step
 takes the rank's rows of a global batch: the net is wrapped in DDP, its
-BatchNorms take the global batch's statistics (``onset_net.sync_batchnorm``,
+BatchNorms take the global batch's statistics (``batchnorm.sync_batchnorm``,
 the reference's ``sync_batchnorm=True``), ``pos_weight`` comes from the
 global labels and the reported loss is the global mean, so that N ranks
 compute what one process computes on the whole batch.
@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from syncfusion_tpu_torch.core.mesh import DATA_AXIS, Mesh, all_reduce_mean_
 from syncfusion_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from syncfusion_tpu_torch.eval.onset_metrics import average_precision
-from syncfusion_tpu_torch.models.onset_net import VideoOnsetNet, sync_batchnorm
+from syncfusion_tpu_torch.models.batchnorm import sync_batchnorm
+from syncfusion_tpu_torch.models.onset_net import VideoOnsetNet
 from syncfusion_tpu_torch.ops.augment import apply_color_jitter, draw_jitter
 from syncfusion_tpu_torch.train import sharding
 from syncfusion_tpu_torch.train.diffusion_trainer import (

@@ -18,6 +18,11 @@ GSPMD insert the gradient reductions.  Here the model is wrapped once:
     rank, their gradients averaged by ``average_grads``.  It wraps each of
     the model's top-level blocks and the root.
 
+Frozen modules (the CondFoleyGen GPT's VQ and video net) are sharded by
+the same rule with ``shard_frozen``, as one unit: their parameters are
+all-gathered around each call of the module's ``forward`` and resharded
+after it, the JAX package's ``place_frozen``.
+
 A single process is left as it is.
 """
 
@@ -66,7 +71,7 @@ def wrap(model: nn.Module, mesh: Mesh, fsdp: bool = False,
     return ddp, []
 
 
-def _fully_shard(model: nn.Module, mesh: Mesh, min_size: int):
+def _fully_shard(model: nn.Module, mesh: Mesh, min_size: int, blocks: bool = True):
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -78,11 +83,26 @@ def _fully_shard(model: nn.Module, mesh: Mesh, min_size: int):
         fully_shard(module, mesh=mesh.device_mesh, ignored_params=whole,
                     shard_placement_fn=lambda p: Shard(dims[p]))
 
-    for block in model.children():
+    for block in model.children() if blocks else ():
         if any(p not in whole for p in block.parameters()):
             shard(block)
     shard(model)
     return model, [p for p in model.parameters() if p in whole]
+
+
+def shard_frozen(module: nn.Module, mesh: Mesh, fsdp: bool = False,
+                 fsdp_min_size: int = 2**14) -> nn.Module:
+    """Place a frozen module (no gradients) for the mesh: with ``fsdp`` and
+    ``model > 1``, FSDP2 over the whole module as one unit, each parameter
+    of at least ``fsdp_min_size`` elements sharded over ``model`` (call the
+    module's ``forward``: that is where the parameters are gathered);
+    otherwise whole on every rank, checked alike (``replicate_check``)."""
+    if not mesh.distributed:
+        return module
+    replicate_check([*module.parameters(), *module.buffers()], mesh)
+    if fsdp and mesh.model > 1:
+        _fully_shard(module, mesh, fsdp_min_size, blocks=False)
+    return module
 
 
 def average_grads(params: list[nn.Parameter], mesh: Mesh) -> None:

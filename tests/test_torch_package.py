@@ -162,11 +162,16 @@ def test_onset_config_defaults_are_the_yaml():
 
 
 def test_baseline_config_defaults_are_the_yaml():
-    """BaselineConfig's defaults hold the transformer YAML's ``transformer``
-    and the ``data`` keys that generation reads (``frame_size``, absent
-    there, at the JAX generation script's default 112), and the codebook
-    YAML's model geometry (that script's VQ defaults); reading the
-    transformer YAML gives them back."""
+    """BaselineConfig's defaults hold the transformer YAML's ``transformer``,
+    top-level and ``data`` keys and the codebook YAML's model geometry,
+    ``learning_rate`` and ``lossconfig``; a key the YAMLs leave out holds the
+    JAX scripts' default (``frame_size`` 112, ``p_audio_aug`` 0.5,
+    ``rand_shift`` true, the data shares 1.0), and the keys where the two
+    scripts' defaults differ or where they have none (``logs_dir``,
+    ``trainer.max_epochs``, ``data.batch_size``) are None, for each entry
+    point to fill.  Reading either YAML gives the defaults back with those
+    keys set; ``n_frames`` and ``lossconfig.disc_factor``, which the JAX
+    scripts do not read from the config, are ignored."""
     import dataclasses
 
     from syncfusion_tpu_torch.core.config import BaselineConfig, from_yaml
@@ -175,15 +180,30 @@ def test_baseline_config_defaults_are_the_yaml():
     tr = from_yaml(ROOT / "cfg/condfoleygen/greatesthit_transformer.yaml", raw=True)
     cb = from_yaml(ROOT / "cfg/condfoleygen/greatesthit_codebook.yaml", raw=True)
     assert dataclasses.asdict(cfg.transformer) == tr["transformer"]
+    absent = {"frame_size": 112, "train_data_to_use": 1.0, "val_data_to_use": 1.0,
+              "rand_shift": True, "p_audio_aug": 0.5, "batch_size": None}
     for key, val in dataclasses.asdict(cfg.data).items():
-        assert tr["data"].get(key, 112) == val, key
+        assert (absent[key] if key in absent else tr["data"][key]) == val, key
     model = {**cb["model"]["ddconfig"], "embed_dim": cb["model"]["embed_dim"],
              "n_embed": cb["model"]["n_embed"]}
     for key, val in dataclasses.asdict(cfg.model).items():
         want = model[key]
         assert val == (tuple(want) if isinstance(want, list) else want), key
+    assert cfg.vq_learning_rate == float(cb["model"]["learning_rate"])
+    loss = dataclasses.asdict(cfg.lossconfig)
+    assert {k: loss[k] for k in cb["model"]["lossconfig"]} == cb["model"]["lossconfig"]
+    assert cfg.logs_dir is None and cfg.trainer.max_epochs is None
+    # keys the JAX scripts do not read from the config are ignored
+    assert BaselineConfig.from_dict(
+        {"n_frames": 30, "model": {"lossconfig": {"disc_factor": 0.0}}}) == cfg
     path = ROOT / "cfg/condfoleygen/greatesthit_transformer.yaml"
-    assert BaselineConfig.from_files([path]) == cfg
+    assert BaselineConfig.from_files([path]) == dataclasses.replace(
+        cfg, logs_dir="logs/transformer", data=dataclasses.replace(cfg.data, batch_size=4),
+        trainer=dataclasses.replace(cfg.trainer, max_epochs=100))
+    path = ROOT / "cfg/condfoleygen/greatesthit_codebook.yaml"
+    assert BaselineConfig.from_files([path]) == dataclasses.replace(
+        cfg, logs_dir="logs/specvqgan", data=dataclasses.replace(cfg.data, batch_size=40),
+        trainer=dataclasses.replace(cfg.trainer, max_epochs=1000))
 
 
 def test_generate_end_to_end_on_cpu(tmp_path, monkeypatch):

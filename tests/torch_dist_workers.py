@@ -10,7 +10,8 @@ ranks: the data-parallel sampler, data-parallel training, synchronised
 BatchNorm, checkpoints in both directions, the divergence check, the
 training command line, the onset evaluation) and ``w4`` (four ranks on a 2x2
 (data, model) mesh: FSDP and model_parallel training, checkpoints, the
-training command line under FSDP).
+training command line under FSDP) and ``gpt`` (two ranks: the CondFoleyGen
+GPT's trainer in DDP and under FSDP on a 1x2 mesh).
 
 This module imports no JAX: the ranks run the port alone.  The test process
 imports it too, for the single-process runs the ranks are held against.
@@ -31,7 +32,7 @@ if str(REPO) not in sys.path:
 import torch.distributed as dist  # noqa: E402
 
 from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer  # noqa: E402
-from syncfusion_tpu_torch.core.config import OnsetConfig  # noqa: E402
+from syncfusion_tpu_torch.core.config import GPTConfig, OnsetConfig  # noqa: E402
 from syncfusion_tpu_torch.core.logging import MetricLogger  # noqa: E402
 from syncfusion_tpu_torch.core.mesh import (  # noqa: E402
     Mesh,
@@ -42,19 +43,26 @@ from syncfusion_tpu_torch.core.mesh import (  # noqa: E402
     replicate_check,
 )
 from syncfusion_tpu_torch.data.prefetch import to_device  # noqa: E402
-from syncfusion_tpu_torch.models.onset_net import VideoOnsetNet  # noqa: E402
+from syncfusion_tpu_torch.models.mingpt import GPTFeats  # noqa: E402
+from syncfusion_tpu_torch.models.onset_net import Conv3d, VideoOnsetNet  # noqa: E402
 from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion  # noqa: E402
 from syncfusion_tpu_torch.parallel.sampling import DataParallelSampler  # noqa: E402
 from syncfusion_tpu_torch.train.diffusion_trainer import (  # noqa: E402
     DiffusionTrainer,
     OptimizerConfig,
 )
+from syncfusion_tpu_torch.models.transformer_av import AVCondTransformer  # noqa: E402
+from syncfusion_tpu_torch.models.vqgan.model import VQModel  # noqa: E402
 from syncfusion_tpu_torch.train.onset_trainer import OnsetTrainer, bc_loss  # noqa: E402
+from syncfusion_tpu_torch.train.transformer_trainer import TransformerTrainer  # noqa: E402
 
 CPU = torch.device("cpu")
 TRAIN_STEPS = 6  # micro-steps: 3 optimizer updates at accumulation 2
 SAVE_AT = 3  # mid-accumulation
 FSDP_MIN_SIZE = 256  # tests/test_parallel.py's threshold for the tiny model
+GPT_VQ = dict(embed_dim=16, n_embed=32, ch=8, ch_mult=(1, 2, 2), num_res_blocks=1,
+              attn_resolutions=(10,), resolution=40, z_channels=16)
+GPT_CFG = dict(vocab_size=32, block_size=128, n_layer=2, n_head=2, n_embd=16)
 ONSET_RECIPE = dict(lr=1e-4, lr_beta1=0.9, lr_beta2=0.999, lr_eps=1e-8,
                     lr_weight_decay=1e-3, gradient_clip_val=1e9,
                     accumulate_grad_batches=1)
@@ -187,6 +195,42 @@ def train_cli(args: list, logger_dir: Path) -> dict:
             "digest": sum(p.detach().double().abs().sum().item() for p in whole)}
 
 
+def gpt_model() -> AVCondTransformer:
+    """The tiny baseline (20 x 40 spectrograms, a 2-layer GPT of width 16,
+    pkeep 0.5; the video net at full width), seeded, all in f64 (the video
+    net's convolutions too)."""
+    model = AVCondTransformer(VQModel(**GPT_VQ), GPTFeats(GPTConfig(**GPT_CFG)),
+                              pkeep=0.5).init(0).double()
+    for m in model.video.modules():
+        if isinstance(m, Conv3d):
+            m.dtype = torch.float64
+    return model
+
+
+def gpt_run(inputs, mesh: Mesh, fsdp: bool = False) -> dict:
+    """``TransformerTrainer`` steps on ``inputs["gpt_batches"]`` (global
+    batches; the rank takes its rows), the corruption drawn from generators
+    seeded 100, 101, ...; then the val loss and the whole state (rank 0)."""
+    trainer = TransformerTrainer(gpt_model(), mesh=mesh, fsdp=fsdp,
+                                 fsdp_min_size=FSDP_MIN_SIZE)
+    state = trainer.create_state()
+    losses = []
+    for i, batch in enumerate(inputs["gpt_batches"]):
+        rows = mesh.rows(batch["spec"].shape[0])
+        metrics = trainer.train_step(state, {k: v[rows] for k, v in batch.items()},
+                                     torch.Generator().manual_seed(100 + i))
+        losses.append(float(metrics["train/loss"]))
+    val = trainer.eval_step(state, {k: v[rows] for k, v in batch.items()})
+    sd = state.state_dict()
+    return {"losses": losses, "val": float(val["val/loss"]), "fsdp": trainer.fsdp,
+            "state": sd if rank_zero() else None}
+
+
+def run_gpt(inputs, out_dir: Path) -> dict:
+    return {"ddp": gpt_run(inputs, create_mesh()),
+            "fsdp": gpt_run(inputs, create_mesh(MeshSpec(data=-1, model=2)), fsdp=True)}
+
+
 def run_w2(inputs, out_dir: Path) -> dict:
     mesh = create_mesh()
     return {
@@ -219,7 +263,7 @@ def main(suite: str, rank: int, world: int, out_dir: str) -> None:
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
     init_distributed("cpu", f"file://{out_dir / f'store_{suite}'}", rank, world)
     inputs = torch.load(out_dir / "inputs.pt", weights_only=False)
-    result = {"w2": run_w2, "w4": run_w4}[suite](inputs, out_dir)
+    result = {"w2": run_w2, "w4": run_w4, "gpt": run_gpt}[suite](inputs, out_dir)
     torch.save(result, out_dir / f"{suite}_{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
