@@ -106,12 +106,13 @@ Phases, each printed with its seconds; any failure exits non-zero:
      ``evaluate_onset.main`` (finite over 10 files); one clip muxed onto
      JPEG frames and read back (gated), ffmpeg's muxer where there is one;
      ``resample_torch`` on the card against the host resampler (gated);
- 16. multi-device on the one card, each run a child of ``python -m
+ 16. multi-device on the one card, (a)-(c) in one child of ``python -m
      torch.distributed.run --standalone --nproc_per_node 1`` (NCCL,
-     ``cuda:LOCAL_RANK``; ``chip_smoke.py --multi-device PART OUT [DIR]`` is
-     the child): (a) ``DataParallelSampler`` at the serving configuration
-     (B = 8, one warm-up and 3 timed runs, 351 K1 a run, the plain attention
-     never; ``local_indices`` 0..7; 2 f32 steps against
+     ``cuda:LOCAL_RANK``; ``chip_smoke.py --multi-device OUT DIR`` is the
+     child, which runs them one after the other): (a)
+     ``DataParallelSampler`` at the serving configuration (B = 8, one
+     warm-up and 3 timed runs, 351 K1 a run, the plain attention never;
+     ``local_indices`` 0..7; 2 f32 steps against
      ``SyncFusionDiffusion.sample`` on the same noise, gated); (b)
      ``train_diffusion.main`` at phase 6's command line with the model in
      DDP (9 K2a and 9 K2b a backward; the losses against phase 6's, gated;
@@ -148,14 +149,35 @@ Phases, each printed with its seconds; any failure exits non-zero:
      ``TransformerTrainer`` on the 305 M GPT at B = 4 with 60 frames of
      112 x 112, timed alike, then one ``log_images``; (c) the card against
      the CPU for one VQGAN step at B = 2 (G's and D's losses and
-     gradients, D's new running statistics) and one GPT step at B = 1
-     (loss, gradients), codes under phase 17's tie rule, gated; (d) where
-     PIL is importable, ``train_codebook``, ``train_transformer --vq_ckpt``
-     (the GPT cut to 2 layers) and ``generate_audio --vq_ckpt
+     gradients, D's new running statistics; each f32 run's gradients
+     against an f64 step on its own side of every kink, D's on one input)
+     and one GPT step at B = 1 (loss, gradients), codes
+     under phase 17's tie rule, gated; (d) where PIL is importable,
+     ``train_codebook``, ``train_transformer --vq_ckpt`` (the GPT at full
+     depth) and ``generate_audio --vq_ckpt
      --transformer_ckpt_path``, one epoch each on phase 17's 4-item root:
      metrics, checkpoints, every media file and the generated wavs checked.
      No hand-written kernel launches and no trainer logs a caught failure
      (gated): no TPU kernel lies on this path.
+ 19. the reference's published-checkpoint paths at the same full width:
+     (a) a Lightning checkpoint of the reference's diffusion module written
+     from the port's manifests with seeded tensors (exp/model/diffusion.yaml
+     widths, the shared-module duplicates and a frozen embedder entry),
+     loaded strictly through ``models/adp_convert.py`` into the a-unet
+     compat twins; (b) one whole forward of a CFG pair at L = 2^18 in f32
+     and in bf16 through K1 (20 launches, the plain version never) and
+     through the plain attention, gated as phase 5, timed (host clock to
+     synchronize, device ms by the profiler); (c) one f32 loss and gradient at B = 1,
+     K1, K2a and K2b 20 launches each, against the plain attention, gated
+     as phase 7; (d) the f32 forward at L = 2^14, card against CPU; (e)
+     ``evaluate_diffusion.main --ckpt X.ckpt`` at the evaluate_gh_gen preset
+     on phase 15's 10 tracks (B = 10, DDIM with CFG at every step, f32, the
+     preset's 150 steps cut to 50: K1's f32 body 1000 times), s a clip and
+     peak memory; (f) ``generate_audio --style_transfer --vgg19_ckpt`` (a
+     seeded torchvision-layout VGG19) on phase 17's 4-item root at 300
+     L-BFGS steps where PIL is importable, and ``run_style_transfer``'s
+     first loss on the card against the CPU; no hand-written kernel
+     launches on the style path (gated).
 Phase 3 also holds the backward kernels K2a and K2b against their plain
 versions at the training shapes (with the time of SDPA's backward), times
 K1's f32 kernel per forward beside SDPA's f32 forward, and holds K3 and K4
@@ -1780,13 +1802,13 @@ def phase_eval(attn, fr, tmp: str) -> dict:
     return launched
 
 
-# phase 16: each multi-device run is a child of ``python -m
-# torch.distributed.run --standalone --nproc_per_node 1``: one rank, NCCL,
-# cuda:LOCAL_RANK.  The card's machine has one H100 and NCCL refuses two
+# phase 16: the multi-device runs 16a-16c share one child of ``python -m
+# torch.distributed.run --standalone --nproc_per_node 1`` (one start-up, not
+# three): one rank, NCCL, cuda:LOCAL_RANK.  The card's machine has one H100 and NCCL refuses two
 # ranks on one device, so FSDP and model_parallel (a model axis of at least
 # 2 ranks) cannot run here; tests/test_torch_parallel.py runs them on the
 # CPU over gloo.
-MULTI_DEVICE_TIMEOUT = 300
+MULTI_DEVICE_TIMEOUT = 400
 # 16b and 16c: the ranks' numbers against the single process's on the same
 # command, weights and batch.  At world size 1 the all-reduces leave every
 # number as it was (NCCL's average over one rank multiplies by 1.0), so the
@@ -1800,15 +1822,17 @@ MD_ONSET_TOL = 1e-6
 MD_SAMPLE_TOL = 1e-6
 
 
-def torchrun(part: str, out_dir: str, *args: str) -> dict:
-    """Phase 16's ``part`` in a child under torchrun (one rank); returns the
-    JSON it wrote.  A child that exits non-zero fails the phase."""
-    out = os.path.join(out_dir, f"{part}.json")
+def torchrun(out_dir: str) -> dict:
+    """Phase 16's parts 16a-16c, one after the other, in one child under
+    torchrun (one rank); returns the JSON it wrote: each part's numbers and
+    its seconds in the child.  A child that exits non-zero fails the
+    phase."""
+    out = os.path.join(out_dir, "multi_device.json")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", os.path.abspath(__file__), "--multi-device",
-           part, out, *args]
+           out, out_dir]
     proc = subprocess.run(cmd, timeout=MULTI_DEVICE_TIMEOUT)
-    check(proc.returncode == 0, f"phase 16 {part}: the rank exited {proc.returncode}")
+    check(proc.returncode == 0, f"phase 16: the rank exited {proc.returncode}")
     with open(out) as f:
         return json.load(f)
 
@@ -1980,9 +2004,10 @@ def md_onset(device, tmp: str) -> dict:
             "sec_per_step": statistics.median(secs)}
 
 
-def multi_device_child(part: str, out: str, *args: str) -> int:
-    """One rank of phase 16 (under torchrun): joins NCCL on cuda:LOCAL_RANK,
-    runs ``part`` and writes its numbers to ``out``."""
+def multi_device_child(out: str, tmp: str) -> int:
+    """The one rank of phase 16 (under torchrun): joins NCCL on
+    cuda:LOCAL_RANK, runs 16a, 16b and 16c (``tmp`` holds 16b's and 16c's
+    files) and writes their numbers to ``out``."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1999,14 +2024,15 @@ def multi_device_child(part: str, out: str, *args: str) -> int:
     want = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     check(dist.get_backend() == "nccl" and device == want,
           f"rank on {device} over {dist.get_backend()}, not {want} over nccl")
-    if part == "sampler":
-        result = md_sampler(device, attn, fr)
-    elif part == "train":
-        result = md_train(device, attn, fr, *args)
-    else:
-        result = md_onset(device, *args)
-    result |= {"world_size": dist.get_world_size(), "backend": dist.get_backend(),
-               "device": str(device)}
+    result = {"world_size": dist.get_world_size(), "backend": dist.get_backend(),
+              "device": str(device)}
+    for part, run in (("sampler", lambda: md_sampler(device, attn, fr)),
+                      ("train", lambda: md_train(device, attn, fr, tmp)),
+                      ("onset", lambda: md_onset(device, tmp))):
+        start = time.perf_counter()
+        result[part] = run()
+        torch.cuda.empty_cache()
+        result[part]["child_seconds"] = time.perf_counter() - start
     with open(out, "w") as f:
         json.dump(result, f)
     dist.destroy_process_group()
@@ -2015,25 +2041,24 @@ def multi_device_child(part: str, out: str, *args: str) -> int:
 
 def phase_multi_device(tmp: str, serve_clips_per_min: float, train_losses: list,
                        train_sec: float, onset_sec: float) -> dict:
-    """Phase 16: 16a-16c each under torchrun, 16d here: 16b's checkpoint
-    into a single-process ``DiffusionTrainer``, strictly."""
+    """Phase 16: 16a-16c in one child under torchrun, 16d here: 16b's
+    checkpoint into a single-process ``DiffusionTrainer``, strictly."""
     from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
     from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
     from syncfusion_tpu_torch.train.diffusion_trainer import DiffusionTrainer
 
     t0 = time.perf_counter()
-    sampler = torchrun("sampler", tmp)
+    child = torchrun(tmp)
+    phase("16a-c one torchrun child: sampler, DDP training, onset training", t0)
+    sampler, train, onset = child["sampler"], child["train"], child["onset"]
     cpm = sampler["clips_per_min"]
     print(f"  16a data-parallel sampler, serving configuration, B={SERVE_BATCH} on "
           f"1 rank: s {spread(sampler['seconds'], 1)}, 8-s clips/min median "
           f"{statistics.median(cpm):.3f} (range {min(cpm):.3f}-{max(cpm):.3f}; phase "
           f"4c {serve_clips_per_min:.3f}); K1 {sampler['launches']['kernel_launches']} "
           f"a run, rows against sample (2 f32 steps) {sampler['rel_vs_sample']:.3e} "
-          f"(tol {MD_SAMPLE_TOL:.0e})", flush=True)
-    phase("16a data-parallel sampler under torchrun", t0)
-
-    t0 = time.perf_counter()
-    train = torchrun("train", tmp, tmp)
+          f"(tol {MD_SAMPLE_TOL:.0e}); {sampler['child_seconds']:.3f} s in the child",
+          flush=True)
     first = abs(train["losses"][0] - train_losses[0]) / abs(train_losses[0])
     later = max(abs(a - b) / abs(b) for a, b in zip(train["losses"][1:], train_losses[1:]))
     print(f"  16b DDP training: losses {['%.6f' % x for x in train['losses']]} against "
@@ -2046,20 +2071,16 @@ def phase_multi_device(tmp: str, serve_clips_per_min: float, train_losses: list,
           f"{train['turns']['single']:.4f} s "
           f"({train['turns']['ddp'] / train['turns']['single']:.4f}x); "
           f"NCCL on the device: {train['nccl_device_events']}, kernels "
-          f"{train['nccl_kernels']}", flush=True)
+          f"{train['nccl_kernels']}; {train['child_seconds']:.3f} s in the child", flush=True)
     check(len(train["losses"]) == len(train_losses), "16b: micro-steps logged")
     check(first <= MD_FIRST_TOL and later <= MD_LATER_TOL,
           "16b: the rank's losses disagree with the single process's")
-    phase("16b DDP training under torchrun", t0)
-
-    t0 = time.perf_counter()
-    onset = torchrun("onset", tmp, tmp)
     print(f"  16c onset training, synchronised BatchNorm, bf16, B={ONSET_BATCH}: one "
           f"step against one process: loss {onset['rel_loss']:.3e}, buffers "
           f"{onset['rel_buffers']:.3e} (tol {MD_ONSET_TOL:.0e}); "
           f"{onset['sec_per_step']:.4f} s per step (phase 11: {onset_sec:.4f}; steps "
-          f"{['%.4f' % x for x in onset['seconds']]})", flush=True)
-    phase("16c onset training under torchrun", t0)
+          f"{['%.4f' % x for x in onset['seconds']]}); {onset['child_seconds']:.3f} s in "
+          "the child", flush=True)
 
     t0 = time.perf_counter()
     saved = Checkpointer(CheckpointConfig(train["ckpt_dir"])).restore()
@@ -2075,9 +2096,9 @@ def phase_multi_device(tmp: str, serve_clips_per_min: float, train_losses: list,
     torch.cuda.empty_cache()
     phase("16d checkpoint into one process", t0)
     print(json.dumps({"multi_device": {
-        "world_size": train["world_size"], "backend": train["backend"],
+        "world_size": child["world_size"], "backend": child["backend"],
         "launcher": "python -m torch.distributed.run --standalone --nproc_per_node 1",
-        "device": train["device"],
+        "device": child["device"],
         "ran": ["16a DataParallelSampler (serving)", "16b train_diffusion.main in DDP",
                 "16c OnsetTrainer with synchronised BatchNorm",
                 "16d the DDP checkpoint into one process"],
@@ -2407,9 +2428,10 @@ TRAIN_STEPS_18 = 5  # timed; the median of steps 3-5
 # flip only within CFG_GAP_TOL of the largest distance (phase 17's rule),
 # and where one flips the losses and gradients are printed, not gated (a
 # flipped code moves them by far more than rounding).  The VQGAN's f32
-# gradients are held against the CPU's f64 ones, beside the CPU's own f32
-# ones as a witness (phase 18c says why): each tensor's gap on the card may
-# be WITNESS_FACTOR times the CPU f32's, and TRAIN_GRAD_TOL in any case
+# gradients are held against the CPU's f64 ones on the same side of every
+# kink (``vqgan_cross_check`` says why), beside the CPU's own f32 ones as a
+# witness: each tensor's gap on the card may be WITNESS_FACTOR times the
+# CPU f32's, and TRAIN_GRAD_TOL in any case
 WITNESS_FACTOR = 4.0
 
 
@@ -2453,11 +2475,99 @@ def stat_gap(card: dict, cpu: dict) -> float:
     return max(float((card[k].cpu() - v).abs().max() / v.abs().max()) for k, v in cpu.items())
 
 
-def vqgan_step_parts(trainer, state, spec: torch.Tensor, dev: str, dtype) -> tuple:
+class KinkTape:
+    """Stands in for ``torch.nn.functional`` in the VQGAN trainer, LPAPS
+    and discriminator modules inside ``with tape:``.  Recording, it calls
+    the same functions and keeps each ReLU's and LeakyReLU's mask and each
+    max-pool's choices in call order; with ``replay`` (another run's tape)
+    each takes that run's side and choice instead (the exact gradient on
+    that run's path) and notes where its own differ (``flips``) and how
+    near the kink its value was (``gap``: |value| at a flip, or the pooled
+    value's shortfall, over the tensor's largest |value|).  ``l1_path``
+    does the same for the sign of G's L1 term."""
+
+    def __init__(self, replay: "KinkTape | None" = None):
+        self.sides = [] if replay is None else replay.sides
+        self.l1 = None if replay is None else replay.l1
+        self.replay = replay is not None
+        self.calls, self.flips, self.gap = 0, 0, 0.0
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+    def _modules(self):
+        from syncfusion_tpu_torch.models.vqgan import discriminator, lpaps
+        from syncfusion_tpu_torch.train import vqgan_trainer
+        return discriminator, lpaps, vqgan_trainer
+
+    def __enter__(self) -> "KinkTape":
+        for m_ in self._modules():
+            m_.F = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for m_ in self._modules():
+            m_.F = torch.nn.functional
+
+    def _side(self, record: torch.Tensor):
+        """The side ``record`` (a mask or indices) of this site: recorded
+        and None, or the replayed run's."""
+        if not self.replay:
+            self.sides.append(record.cpu())
+            return None
+        self.calls += 1
+        return self.sides[self.calls - 1].to(record.device)
+
+    def _note(self, differ: torch.Tensor, dist: torch.Tensor, scale: torch.Tensor) -> None:
+        if differ.any():
+            self.flips += int(differ.sum())
+            self.gap = max(self.gap, float(dist[differ].max() / scale))
+
+    def relu(self, x):
+        want = self._side((x > 0).detach())
+        if want is None:
+            return torch.nn.functional.relu(x)
+        self._note((x > 0) != want, x.detach().abs(), x.detach().abs().max())
+        return x * want.to(x.dtype)
+
+    def leaky_relu(self, x, negative_slope=0.01):
+        want = self._side((x > 0).detach())
+        if want is None:
+            return torch.nn.functional.leaky_relu(x, negative_slope)
+        self._note((x > 0) != want, x.detach().abs(), x.detach().abs().max())
+        return torch.where(want, x, negative_slope * x)
+
+    def max_pool2d(self, x, kernel_size, stride):
+        y, own = torch.nn.functional.max_pool2d(x, kernel_size, stride, return_indices=True)
+        want = self._side(own)
+        if want is None:
+            return y
+        picked = x.flatten(2).gather(2, want.flatten(2)).view_as(y)
+        self._note(want != own, (y - picked).detach(), x.detach().abs().max())
+        return picked
+
+    def l1_path(self, x: torch.Tensor, xrec: torch.Tensor) -> torch.Tensor:
+        """``xrec`` for G's L1 term: recording, as it is (its signs kept);
+        replaying, moved by 2|x - xrec| where the replayed run's sign of
+        x - xrec differs, the gradient passed straight through."""
+        d = (x - xrec).detach()
+        if not self.replay:
+            self.l1 = (d > 0).cpu()
+            return xrec
+        want = self.l1.to(d.device)
+        self._note((d > 0) != want, d.abs(), d.abs().max())
+        return xrec - (torch.where(want, d.abs(), -d.abs()) - d)
+
+
+def vqgan_step_parts(trainer, state, spec: torch.Tensor, dev: str, dtype,
+                     xrec_d: torch.Tensor = None, replay: KinkTape = None) -> tuple:
     """One VQGAN step's parts on ``dev`` in ``dtype``, on copies of the
-    trained weights and the discriminator on (factor 1): G's loss and its
-    gradients over the VQ, D's loss, its gradients and its running
-    statistics after the real and fake calls.  Returns (parts, the VQ)."""
+    trained weights and the discriminator on (factor 1), under a
+    ``KinkTape`` (replaying ``replay`` where it is given): G's loss, its
+    gradients over the VQ and its reconstruction (on the CPU); D's loss,
+    its gradients and its running statistics after the real call and the
+    fake one, on ``xrec_d`` where it is given, else on G's reconstruction;
+    the tape.  Returns (parts, the VQ)."""
     import copy
 
     from syncfusion_tpu_torch.train.vqgan_trainer import VQGANTrainer
@@ -2465,12 +2575,15 @@ def vqgan_step_parts(trainer, state, spec: torch.Tensor, dev: str, dtype) -> tup
     model, lpaps, disc = (copy.deepcopy(m_).to(dev, dtype)
                           for m_ in (state.model, trainer.lpaps, state.disc))
     tr = VQGANTrainer(model, trainer.cfg, trainer.learning_rate, lpaps, disc)
+    tape = KinkTape(replay)
+    tr.recon_loss = lambda x_, xrec_: VQGANTrainer.recon_loss(tr, x_, tape.l1_path(x_, xrec_))
     model, disc, x = tr.model.train(), tr.disc, spec.to(dev, dtype)
-    loss, xrec, _ = tr.g_loss(model, disc, x, 1.0)
-    grads = torch.autograd.grad(loss, list(model.parameters()))
-    d = tr.d_loss(disc, x, xrec, 1.0)
-    dgrads = torch.autograd.grad(d, list(disc.parameters()))
-    return {"g": loss.item(), "d": d.item(),
+    with tape:
+        loss, xrec, _ = tr.g_loss(model, disc, x, 1.0)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        d = tr.d_loss(disc, x, xrec if xrec_d is None else xrec_d.to(dev, dtype), 1.0)
+        dgrads = torch.autograd.grad(d, list(disc.parameters()))
+    return {"g": loss.item(), "d": d.item(), "xrec": xrec.detach().cpu(), "tape": tape,
             "g_grads": {k: g_.cpu() for (k, _), g_ in zip(model.named_parameters(), grads)},
             "d_grads": {k: g_.cpu() for (k, _), g_ in zip(disc.named_parameters(), dgrads)},
             "stats": {k: v.detach().cpu().clone() for k, v in disc.state_dict().items()
@@ -2498,25 +2611,40 @@ def vqgan_cross_check(trainer, state) -> tuple:
     """One VQGAN step's parts (``vqgan_step_parts``) at B = 2, same batch,
     on the card and on the CPU in f32 and in f64, and on the card in f32
     with cuDNN off (its own convolutions, no FFT or Winograd algorithm).
-    Returns (f32 errors: the losses and statistics card against CPU, the
-    gradients of each f32 run against the CPU's f64 ones with the CPU f32's
-    as witness; f64 errors: card against CPU)."""
+    Each f32 run is held against a CPU f64 step that replays its
+    ``KinkTape``: the side of every ReLU, LeakyReLU, max-pool and L1 sign
+    that run took.  f32 rounding puts the few inputs within its error of a
+    kink on either side, which run crosses which is chance, and one
+    crossing moves a sum over positions (a norm's bias gradient, say) by
+    percents of its largest value: against an f64 step on its own path the
+    gap is rounding.  A run may cross a kink only within CFG_GAP_TOL of
+    its tensor's largest |value| (gated).  Every run's D also takes one
+    input, the CPU f64 run's reconstruction, so that D's gradients hold
+    D's own rounding.  Returns (f32 errors: the losses and statistics card
+    against CPU, each f32 run's gradients against its f64 replay with the
+    CPU f32's as witness, the crossings; f64 errors: card against CPU)."""
     spec = baseline_specs(2, 31, "cpu")
     parts, vqs = {}, {}
+    parts["cpu64"], vqs["cpu64"] = vqgan_step_parts(trainer, state, spec, "cpu", torch.float64)
+    xrec = parts["cpu64"]["xrec"]
     for side, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
-                             ("card64", "cuda", torch.float64),
-                             ("cpu64", "cpu", torch.float64)):
-        parts[side], vqs[side] = vqgan_step_parts(trainer, state, spec, dev, dtype)
+                             ("card64", "cuda", torch.float64)):
+        parts[side], vqs[side] = vqgan_step_parts(trainer, state, spec, dev, dtype, xrec)
     with torch.backends.cudnn.flags(enabled=False):
-        no_cudnn, _ = vqgan_step_parts(trainer, state, spec, "cuda", torch.float32)
+        parts["no_cudnn"], _ = vqgan_step_parts(trainer, state, spec, "cuda", torch.float32,
+                                                xrec)
     f32 = step_gaps(parts["card"], parts["cpu"])
     f32["flips"], f32["gap"] = code_flips(vqs["card"], vqs["cpu"], spec)
-    ref = parts["cpu64"]
+    ref = {side: vqgan_step_parts(trainer, state, spec, "cpu", torch.float64, xrec,
+                                  parts[side]["tape"])[0] for side in ("card", "cpu", "no_cudnn")}
+    f32["kink_flips"] = {side: r["tape"].flips for side, r in ref.items()}
+    f32["kink_gap"] = max(r["tape"].gap for r in ref.values())
     for key in ("g_grads", "d_grads"):
-        cpu_rows = grad_gaps(parts["cpu"][key], ref[key])
-        f32[key] = witness_rows(grad_gaps(parts["card"][key], ref[key]), cpu_rows)
-        f32[key + "_no_cudnn"] = witness_rows(grad_gaps(no_cudnn[key], ref[key]), cpu_rows)
-    f64 = step_gaps(parts["card64"], ref)
+        cpu_rows = grad_gaps(parts["cpu"][key], ref["cpu"][key])
+        f32[key] = witness_rows(grad_gaps(parts["card"][key], ref["card"][key]), cpu_rows)
+        f32[key + "_no_cudnn"] = witness_rows(
+            grad_gaps(parts["no_cudnn"][key], ref["no_cudnn"][key]), cpu_rows)
+    f64 = step_gaps(parts["card64"], parts["cpu64"])
     f64["flips"], f64["gap"] = code_flips(vqs["card64"], vqs["cpu64"], spec.double())
     return f32, f64
 
@@ -2677,8 +2805,8 @@ def phase_baseline_train(attn, fr, tmp: str) -> dict:
     (b) ``TransformerTrainer`` on the 305 M GPT at B = 4 with 60 frames of
     112 x 112, timed alike, then one ``log_images``; (c) the card against
     the CPU for one VQGAN step at B = 2 (the f32 gradients against the
-    CPU's f64 ones beside the CPU's f32 ones) and one GPT step at B = 1
-    (gated);
+    CPU's f64 ones on the same side of every kink, beside the CPU's f32
+    ones; D on one reconstruction) and one GPT step at B = 1 (gated);
     (d) the three CLIs on a processed root where PIL is importable (it
     decodes the frames and writes the panels).  No hand-written kernel or
     plain version runs (gated), and no trainer logs a caught failure
@@ -2728,10 +2856,18 @@ def phase_baseline_train(attn, fr, tmp: str) -> dict:
           flush=True)
     part("a VQGAN steps")
 
-    # (c), VQGAN half, on the state (a) trained: the f32 gradients against
-    # the CPU's f64 ones, each tensor within WITNESS_FACTOR of the CPU f32's
-    # own gap, the cuDNN-off run shown beside them; f64 on both sides
+    # (c), VQGAN half, on the state (a) trained: each f32 run's gradients
+    # against a CPU f64 step on its own side of every kink, the card's
+    # within WITNESS_FACTOR of the CPU f32's gap, the cuDNN-off run shown
+    # beside them; f64 on both sides; D's fake call on the CPU f64 run's
+    # reconstruction in every run
     f32, f64 = vqgan_cross_check(trainer, state)
+    print(f"  VQGAN step, B=2, f32: kinks (ReLU, LeakyReLU, max-pool, L1 sign) each f32 "
+          f"run took on another side than its f64 replay would {f32['kink_flips']}, the "
+          f"farthest from its kink {f32['kink_gap']:.3e} of its tensor's largest |value| "
+          f"(tol {CFG_GAP_TOL:.0e})", flush=True)
+    check(f32["kink_gap"] <= CFG_GAP_TOL, "VQGAN step: a kink crossed beyond the tie "
+          "tolerance")
     witnessed = ("g_grads", "d_grads", "g_grads_no_cudnn", "d_grads_no_cudnn")
     gate_cross_check("VQGAN step, B=2, f32", f32, ("g_loss", "d_loss", "stats", "g_grads",
                                                    "d_grads"),
@@ -2800,6 +2936,356 @@ def phase_baseline_train(attn, fr, tmp: str) -> dict:
           f"plain version ran: {launched}")
     print(f"  launch counts over the phase: {launched} (no TPU kernel lies on this path)")
     return {"launched": launched, "vqgan_step_s": med, "gpt_step_s": med_g}
+
+
+# phase 19: the reference's published-checkpoint paths at full width.  The
+# a-unet compat twins' self-attention runs at levels 4-7, every item, down
+# and up: 2 + 2 + 2 + 4 items, 20 K1 calls a whole forward (no bottleneck
+# block: level 7 is the innermost)
+COMPAT_K1 = 2 * (2 + 2 + 2 + 4)
+COMPAT_ROWS = 2  # one CFG pair
+# card against CPU: the same f32 forward at L = 2^14 (the CPU's share of the
+# budget), max |diff| / max |CPU| (f32 sums in other orders through ~200
+# layers; K1 as 3xTF32)
+COMPAT_CPU_LENGTH = 2**14
+COMPAT_CPU_TOL = 1e-4
+# evaluate_diffusion --ckpt X.ckpt at the evaluate_gh_gen preset, CFG at
+# every step, so 20 K1 calls a step; its 150 steps cut to 50 to keep the
+# script within half its limit (all 150 took 34.9 s of a 127-s phase on an
+# NVIDIA H100 80GB HBM3 at 700 W, 3.190 s a clip)
+COMPAT_EVAL_STEPS = 50
+COMPAT_EVAL_K1 = COMPAT_K1 * COMPAT_EVAL_STEPS
+# the style transfer: generate_audio's default steps; the first step's loss,
+# card against CPU, relative (f32 convolutions in other orders)
+STYLE_STEPS = 300
+STYLE_TOL = 1e-4
+# torchvision's vgg19 ``features`` convs, (index, in, out): the five of the
+# style transfer (0, 2, 5, 7, 10) and the rest, so that the file is what
+# torchvision writes for ``features``
+VGG19_CONVS = [(0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128), (10, 128, 256),
+               (12, 256, 256), (14, 256, 256), (16, 256, 256), (19, 256, 512),
+               (21, 512, 512), (23, 512, 512), (25, 512, 512), (28, 512, 512),
+               (30, 512, 512), (32, 512, 512), (34, 512, 512)]
+
+
+def reference_tensor(name: str, shape, gen) -> torch.Tensor:
+    """A seeded tensor for one entry of the reference's state dict: kernels
+    normal with variance 1/fan_in (a transposed conv's fan-in is in x k),
+    norm scales 1 + 0.1 N, biases 0.01 N, the Fourier frequencies and the
+    fixed embedding N(0, 1)."""
+    x = torch.randn(shape, generator=gen)
+    if name.endswith(("embedder.weights", "fixed_embedding.weight")):
+        return x
+    if name.endswith(".bias"):
+        return 0.01 * x
+    if len(shape) == 1:
+        return 1.0 + 0.1 * x
+    fan_in = shape[0] * shape[2] if name.endswith("upsample.weight") else math.prod(shape[1:])
+    return x / math.sqrt(fan_in)
+
+
+def write_reference_ckpt(path: str, seed: int = 19) -> dict:
+    """A Lightning checkpoint of the reference's ``module_diffusion.Model``
+    at exp/model/diffusion.yaml's widths: the port's manifests filled with
+    seeded tensors, under ``model.net.`` with the shared-module duplicates
+    ``model.diffusion.net.`` and ``model.sampler.net.`` (the same tensors),
+    ``onsets_encoder.`` and a frozen ``embedder.`` entry.  Returns the
+    UNet's and the encoder's state dicts."""
+    from syncfusion_tpu_torch.models.adp_torch_recon import (
+        Encoder1dConfig,
+        UNetV0Config,
+        encoder_manifest,
+        unet_manifest,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    unet = {k: reference_tensor(k, s, gen) for k, s in unet_manifest(UNetV0Config())}
+    enc = {k: reference_tensor(k, s, gen) for k, s in encoder_manifest(Encoder1dConfig())}
+    sd = {}
+    for prefix in ("model.net.", "model.diffusion.net.", "model.sampler.net."):
+        sd.update({prefix + k: v for k, v in unet.items()})
+    sd.update({f"onsets_encoder.{k}": v for k, v in enc.items()})
+    sd["embedder.model.logit_scale_a"] = torch.zeros(())
+    torch.save({"state_dict": sd, "epoch": 784, "global_step": 0}, path)
+    return {"unet": unet, "encoder": enc}
+
+
+def set_attend(model, fn) -> None:
+    """Every attention module of ``model`` that takes ``attend`` uses ``fn``
+    (None: its class's, the kernel)."""
+    for m in model.modules():
+        if hasattr(type(m), "attend"):
+            if fn is None:
+                m.__dict__.pop("attend", None)
+            else:
+                m.attend = fn
+
+
+def compat_inputs(length: int, device) -> tuple:
+    """One CFG pair: (x, sigma, onsets, embedding, mask), the conditional
+    row and the unconditional one (mask 1) on the same x, onsets and
+    sigma."""
+    gen = torch.Generator(device=device).manual_seed(19)
+    x = torch.randn((1, length, 1), generator=gen, device=device).repeat(2, 1, 1)
+    onsets = torch.zeros((2, length, 1), device=device)
+    onsets[:, length // 8::length // 4, 0] = 1.0
+    emb = torch.cat([torch.randn((1, 1, 512), generator=gen, device=device),
+                     torch.zeros((1, 1, 512), device=device)])
+    mask = torch.tensor([0.0, 1.0], device=device).reshape(2, 1, 1)
+    return x, torch.full((2,), 0.5, device=device), onsets, emb, mask
+
+
+@torch.no_grad()
+def compat_forward(model, inputs) -> torch.Tensor:
+    x, sigma, onsets, emb, mask = inputs
+    return model.unet(x, sigma, context=model.encode_context(onsets), embedding=emb,
+                      embedding_cfg_mask=mask)
+
+
+def phase_compat(attn, fr, tmp: str) -> dict:
+    """Phase 19: the reference's published-checkpoint paths at full width.
+    (a) a reference Lightning checkpoint written from the manifests with
+    seeded tensors, loaded through ``adp_convert`` (strictly) into the
+    a-unet twins; (b) one whole f32 and one bf16 forward of a CFG pair at L
+    = 2^18 through K1 (20 launches, the plain version never) and through
+    the plain attention, gated as phase 5, each timed (host clock to
+    synchronize; device ms and idle share by the profiler); (c) one f32 loss and gradient at B
+    = 1 through the kernels (K1, K2a, K2b 20 each) and through the plain
+    attention, gated as phase 7; (d) the f32 forward at L = 2^14 on the card
+    against the CPU; (e) ``evaluate_diffusion.main --ckpt X.ckpt`` at the
+    evaluate_gh_gen preset on phase 15's 10 tracks, K1's f32 body 20 a
+    step; (f) ``generate_audio --style_transfer --vgg19_ckpt`` on phase
+    17's 4-item root (where PIL is importable) at 300 steps, and
+    ``run_style_transfer``'s first loss on the card against the CPU, no
+    hand-written kernel launched.  Returns the launch counts by path."""
+    from syncfusion_tpu_torch import evaluate_diffusion, generate_audio
+    from syncfusion_tpu_torch.eval import style_transfer
+    from syncfusion_tpu_torch.models.adp_compat import UNetV0Compat
+    from syncfusion_tpu_torch.models.adp_convert import load_diffusion_state
+    from syncfusion_tpu_torch.models.adp_torch_recon import Encoder1dConfig, UNetV0Config
+    from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
+    from syncfusion_tpu_torch.ops.wav import read_wav
+
+    launched = {}
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "epoch=784-valid_loss=0.008.ckpt")
+    written = write_reference_ckpt(ckpt)
+    t_write = time.perf_counter() - t0
+    model = SyncFusionDiffusion.from_config(None, compat=True, device="cuda")
+    load_diffusion_state(model, ckpt)
+    check(isinstance(model.unet, UNetV0Compat), "the checkpoint did not build the twins")
+    i, j = len(model.onsets_encoder.cfg.factors) - 1, model.onsets_encoder.cfg.num_blocks[-1] - 1
+    check(torch.equal(model.unet.net.inner.upsample_kernel.cpu(),
+                      written["unet"]["net.inner.upsample.weight"].permute(2, 0, 1))
+          and torch.equal(getattr(model.onsets_encoder, f"ds{i}_b{j}_conv2").weight.cpu(),
+                          written["encoder"][f"downsamples.{i}.blocks.{j}.block2.project.weight"]),
+          "the loaded parameters differ from the checkpoint's")
+    print(f"  reference checkpoint {os.path.getsize(ckpt) / 2**20:.1f} MiB written in "
+          f"{t_write:.3f} s, loaded strictly in {time.perf_counter() - t0 - t_write:.3f} s; "
+          f"twins {model.param_count():,} params", flush=True)
+
+    # (b) whole forwards, f32 and bf16, kernel against plain
+    inputs = compat_inputs(LENGTH, "cuda")
+    bf16 = SyncFusionDiffusion.from_config(None, compat=True, dtype=torch.bfloat16,
+                                           device="cuda")
+    bf16.load_state_dict(model.state_dict(), strict=True)
+    for label, m in (("f32", model), ("bf16", bf16)):
+        reset_counts(attn, fr)
+        out_k = compat_forward(m, inputs)
+        got = counts(attn, fr)
+        check(got["kernel_launches"] == COMPAT_K1 and not any(
+            v for k, v in got.items() if k != "kernel_launches"),
+            f"compat forward {label}: launches {got}")
+        set_attend(m, attn.attention_reference)
+        out_p = compat_forward(m, inputs)
+        secs_plain = time_calls(lambda: compat_forward(m, inputs))
+        set_attend(m, None)
+        secs = time_calls(lambda: compat_forward(m, inputs))
+        dev, every, kernels = device_ms(lambda: compat_forward(m, inputs), "flash_fwd", calls=3)
+        rel = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
+        check(out_k.shape == (COMPAT_ROWS, LENGTH, 1) and bool(torch.isfinite(out_k).all()),
+              f"compat forward {label}: {tuple(out_k.shape)}")
+        line = (f"  compat forward {label}, {COMPAT_ROWS} rows x 2^18: {spread(secs)} ms "
+                f"(host clock to synchronize; plain attention {spread(secs_plain)}), device "
+                f"{every:.3f} ms in {kernels:.0f} kernels, K1 {dev:.3f} ms, idle share "
+                f"{1 - every / (statistics.median(secs) * 1e3):.3f}; kernel vs plain max "
+                f"|diff| / max |plain| {rel:.3e}")
+        if label == "f32":
+            print(line + f" (tol {CROSS_TOL:.0e})", flush=True)
+            check(math.isfinite(rel) and rel <= CROSS_TOL, "compat f32 forward disagrees")
+        else:
+            census, rounded = rounding_census(attn)
+            reset_counts(attn, fr)
+            set_attend(m, census)
+            compat_forward(m, inputs)
+            set_attend(m, None)
+            share = rounded["kernel_vs_plain"] / rounded["elements"]
+            check(attn.flash_attention.kernel_launches == COMPAT_K1,
+                  "compat bf16 census launches")
+            print(line + f" (not gated); O elements rounded otherwise than the plain "
+                  f"version {rounded['kernel_vs_plain']} of {rounded['elements']}, share "
+                  f"{share:.3e} (tol {BF16_FLIP_TOL:.0e}; plain vs f64 "
+                  f"{rounded['plain_vs_f64']})", flush=True)
+            check(share <= BF16_FLIP_TOL, "compat bf16: the kernel rounds too many O "
+                  "elements otherwise than the plain version")
+    launched["compat_forward"] = {"kernel_launches": 2 * COMPAT_K1}
+    del bf16, out_k, out_p
+    torch.cuda.empty_cache()
+
+    # (c) loss and gradient, f32, B = 1
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    wav = 0.1 * torch.randn((1, LENGTH, 1), generator=gen, device="cuda")
+    onsets = inputs[2][:1]
+    emb = torch.randn((1, 1, 512), generator=gen, device="cuda")
+    batch = (wav, onsets, emb, torch.rand((1,), generator=gen, device="cuda"),
+             torch.randn(wav.shape, generator=gen, device="cuda"))
+    reset_counts(attn, fr)
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    loss_k, grads_k = loss_and_grads(model, batch)
+    sec = time.perf_counter() - start
+    got = counts(attn, fr)
+    check(got["kernel_launches"] == got["dq_launches"] == got["dkv_launches"] == COMPAT_K1
+          and got["plain_calls"] == got["plain_bwd_calls"] == 0,
+          f"compat loss and gradient: launches {got}")
+    launched["compat_train"] = got
+    set_attend(model, attn.attention_reference)
+    loss_p, grads_p = loss_and_grads(model, batch)
+    set_attend(model, None)
+    rels = grad_gaps(grads_k, grads_p)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  compat f32 loss and gradient, B=1: {sec:.3f} s, peak {peak:.3f} GiB; "
+          f"kernels vs plain attention: loss {rel_loss:.3e} relative (tol "
+          f"{TRAIN_LOSS_TOL:.0e}), gradients {rels[0][0]:.3e} (tol {TRAIN_GRAD_TOL:.0e}); "
+          f"launches {got}", flush=True)
+    print_gaps("compat kernels vs plain", rels)
+    check(rel_loss <= TRAIN_LOSS_TOL, "compat loss disagrees")
+    check(rels[0][0] <= TRAIN_GRAD_TOL, "compat gradients disagree")
+    for p in model.parameters():
+        p.grad = None
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # (d) card against CPU at L = 2^14
+    cpu = SyncFusionDiffusion(UNetV0Config(), Encoder1dConfig())
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()}, strict=True)
+    small = compat_inputs(COMPAT_CPU_LENGTH, "cuda")
+    reset_counts(attn, fr)
+    card = compat_forward(model, small).cpu()
+    check(attn.flash_attention.kernel_launches == COMPAT_K1, "compat card forward launches")
+    start = time.perf_counter()
+    want = compat_forward(cpu.eval(), tuple(t_.cpu() for t_ in small))
+    rel_cpu = ((card - want).abs().max() / want.abs().max()).item()
+    print(f"  compat f32 forward at L=2^14, card vs CPU: max |diff| / max |CPU| "
+          f"{rel_cpu:.3e} (tol {COMPAT_CPU_TOL:.0e}; the CPU forward "
+          f"{time.perf_counter() - start:.3f} s)", flush=True)
+    check(math.isfinite(rel_cpu) and rel_cpu <= COMPAT_CPU_TOL,
+          "compat forward: the card disagrees with the CPU")
+    del cpu, model
+    torch.cuda.empty_cache()
+
+    # (e) evaluate_diffusion on the checkpoint
+    shard, gt, gen_dir = (os.path.join(tmp, n_) for n_ in ("test.tar", "gh-gt", "gh-gen"))
+    write_shard(shard, tracks=EVAL_TRACKS, seconds=6.0, every=0.37, first=0.3, burst=0.8)
+    evaluate_diffusion.main(["--exp", "prepare_gh_gt", "--dataset_path", shard,
+                             "--experiment_path", gt])
+    k1_dtypes = collections.Counter()
+    launch = attn.flash_fwd
+
+    def counted_fwd(q, *args, **kwargs):
+        before = attn.flash_attention.kernel_launches
+        result = launch(q, *args, **kwargs)
+        k1_dtypes[str(q.dtype)] += attn.flash_attention.kernel_launches - before
+        return result
+
+    reset_counts(attn, fr)
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    attn.flash_fwd = counted_fwd
+    try:
+        out = evaluate_diffusion.main([
+            "--exp", "evaluate_gh_gen", "--dataset_path", shard, "--experiment_path",
+            gen_dir, "--gt_dir", gt, "--ckpt", ckpt, "--num_steps", str(COMPAT_EVAL_STEPS)])
+    finally:
+        attn.flash_fwd = launch
+    seconds = time.perf_counter() - start
+    got = counts(attn, fr)
+    want = {k: COMPAT_EVAL_K1 if k == "kernel_launches" else 0 for k in got}
+    check(got == want, f"compat evaluation: launch counts {got} != {want}")
+    check(k1_dtypes == {"torch.float32": COMPAT_EVAL_K1},
+          f"compat evaluation: K1 by dtype {dict(k1_dtypes)}")
+    launched["evaluate_compat"] = got
+    stats = out["generation"]
+    check(stats["clips"] == EVAL_TRACKS, f"compat evaluation: {stats['clips']} clips")
+    for name in sorted(n_ for n_ in os.listdir(gen_dir) if n_.endswith(".wav")):
+        w, sr = read_wav(os.path.join(gen_dir, name))
+        check(sr == 22050 and w.shape == (1, EVAL_SAMPLES) and bool(np.isfinite(w).all()),
+              f"compat evaluation: {name} {w.shape} at {sr} Hz")
+    check(all(math.isfinite(v) for v in out["metrics"].values()), "compat FAD: not finite")
+    steps_note = ("" if COMPAT_EVAL_STEPS == NUM_STEPS else
+                  f" (steps cut from {NUM_STEPS} to {COMPAT_EVAL_STEPS})")
+    print(f"  evaluate_diffusion --ckpt {os.path.basename(ckpt)} (compat twins), "
+          f"evaluate_gh_gen, B={EVAL_BATCH}, DDIM {COMPAT_EVAL_STEPS}{steps_note}, CFG "
+          f"{SCALE} at every step, f32: {stats['generation_s'] / stats['clips']:.3f} s a clip "
+          f"generating, {stats['post_s'] / stats['clips']:.4f} s a clip writing; main "
+          f"{seconds:.3f} s (checkpoint conversion and load included); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {got}; K1 by dtype "
+          f"{dict(k1_dtypes)}; FAD {out['metrics']}", flush=True)
+
+    # (f) style transfer
+    vgg_path = os.path.join(tmp, "vgg19.pth")
+    gen_cpu = torch.Generator().manual_seed(21)
+    vgg_sd = {}
+    for index, cin, cout in VGG19_CONVS:
+        vgg_sd[f"features.{index}.weight"] = torch.randn(
+            (cout, cin, 3, 3), generator=gen_cpu) / math.sqrt(9 * cin)
+        vgg_sd[f"features.{index}.bias"] = 0.01 * torch.randn((cout,), generator=gen_cpu)
+    torch.save(vgg_sd, vgg_path)
+    reset_counts(attn, fr)
+    style = {}
+    if importlib.util.find_spec("PIL") is not None:
+        root = os.path.join(tmp, "root")
+        cfg = write_baseline_root(root)
+        out_dir = os.path.join(tmp, "styled")
+        start = time.perf_counter()
+        summary = generate_audio.main(["--gh_testset", "-c", cfg, "--output_dir", out_dir,
+                                       "--style_transfer", "--vgg19_ckpt", vgg_path,
+                                       "--style_steps", str(STYLE_STEPS)])
+        style["main_s"] = time.perf_counter() - start
+        check(summary["clips"] == 4, f"style transfer: {summary}")
+        for name in os.listdir(os.path.join(out_dir, "generated_audio")):
+            w, sr = read_wav(os.path.join(out_dir, "generated_audio", name))
+            check(sr == 22050 and w.shape[0] == 1 and bool(np.isfinite(w).all()),
+                  f"style transfer: {name} {w.shape} at {sr} Hz")
+    vgg = generate_audio.load_vgg19(vgg_path, "cuda")
+    rng = np.random.default_rng(22)
+    panels = [rng.uniform(0.0, 1.0, (80, 160)).astype(np.float32) for _ in range(2)]
+    imgs = [style_transfer.load_specs_as_img(p_, 160) for p_ in panels]
+    start = time.perf_counter()
+    _, first_card = style_transfer.run_style_transfer(vgg, *(i_.cuda() for i_ in imgs),
+                                                      num_steps=1)
+    torch.cuda.synchronize()
+    style["one_step_s"] = time.perf_counter() - start
+    vgg_cpu = style_transfer.Vgg19Prefix()
+    vgg_cpu.load_state_dict(vgg.state_dict())
+    _, first_cpu = style_transfer.run_style_transfer(vgg_cpu, *imgs, num_steps=1)
+    rel_style = abs(first_card - first_cpu) / abs(first_cpu)
+    got = counts(attn, fr)
+    check(not any(got.values()), f"style transfer: a hand-written kernel or its plain "
+          f"version ran: {got}")
+    ran = "main_s" in style
+    print(f"  style transfer, 80 x 160: generate_audio --style_transfer, {STYLE_STEPS} "
+          f"L-BFGS steps, "
+          + (f"on 4 items {style['main_s']:.3f} s ({style['main_s'] / 4:.3f} s a clip, model "
+             f"build, reconstructions, Griffin-Lim and muxing included)" if ran else
+             "did not run (no PIL)")
+          + f"; run_style_transfer's first step {style['one_step_s']:.3f} s, its loss card "
+          f"vs CPU {rel_style:.3e} relative (tol {STYLE_TOL:.0e}); "
+          f"launches {got} (no TPU kernel lies on this path)", flush=True)
+    check(rel_style <= STYLE_TOL, "style transfer: the card's first loss disagrees with "
+          "the CPU's")
+    return launched
 
 
 def main() -> int:
@@ -3101,6 +3587,11 @@ def main() -> int:
         phase_baseline_train(attn, fr, tmp)
         phase("18 CondFoleyGen training at full width", t0)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        compat_launched = phase_compat(attn, fr, tmp)
+        phase("19 published-checkpoint paths at full width", t0)
+
     fwd16, fwd32 = total[torch.bfloat16, ROWS], total[torch.float32, ROWS]
     serve16 = total[torch.bfloat16, SERVE_ROWS]
     v2f16 = {rows: total[torch.bfloat16, rows] for rows in V2F_ROWS}
@@ -3112,10 +3603,13 @@ def main() -> int:
              "video_to_foley_cond_wav": v2f_clap["cond_wav"],
              "video_to_foley_text": v2f_clap["text"], "evaluate": eval_launched,
              "sample_data_parallel": md_launched["sampler"],
-             "train_ddp": md_launched["train"]}
+             "train_ddp": md_launched["train"],
+             "compat_forward": compat_launched["compat_forward"],
+             "compat_train": compat_launched["compat_train"],
+             "evaluate_compat": compat_launched["evaluate_compat"]}
 
     def launched_by_path(key):
-        return {p_: c_[key] for p_, c_ in paths.items()}
+        return {p_: c_.get(key, 0) for p_, c_ in paths.items()}
 
     rows = [{
         "name": "flash_fwd",

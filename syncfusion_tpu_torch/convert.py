@@ -20,6 +20,12 @@ is the leaf's layout:
   * ``Embed`` embedding -> ``nn.Embedding`` weight (``clap_state_dict``);
     a VQ codebook's ``embedding`` keeps its name (``vqgan_state_dict``).
 
+The a-unet compat twins' tree (``models/adp_compat.py``, e.g. from
+``models/adp_convert.load_diffusion_ckpt``) goes through ``to_state_dict``
+as well: its transposed convolutions keep their raw Flax parameters
+``upsample_kernel`` (k, in, out) and ``upsample_bias``, which no rule
+above touches, and the twin applies the kernel in that layout.
+
 The CondFoleyGen baseline's ``{"vq", "video", "gpt"}`` tree goes through
 ``av_transformer_state_dict``: the VQGAN's 1 x 1 attention convs are named
 ``q``, ``k`` and ``v`` like DenseGeneral layers, so ``vqgan_state_dict``
@@ -89,8 +95,9 @@ def convert_leaf(path: tuple, a: np.ndarray) -> tuple[str, np.ndarray]:
 
 
 def to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """The JAX ``{"unet", "encoder"}`` tree (numpy or JAX arrays) -> a
-    ``state_dict`` for ``SyncFusionDiffusion.load_state_dict(strict=True)``."""
+    """The JAX ``{"unet", "encoder"}`` tree (numpy or JAX arrays; of the
+    UNet1d family or of the compat twins) -> a ``state_dict`` for
+    ``SyncFusionDiffusion.load_state_dict(strict=True)``."""
     sd = {}
     for top, prefix in _TOPS:
         tree = params[top]

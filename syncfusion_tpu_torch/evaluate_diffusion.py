@@ -6,7 +6,7 @@ ground-truth chunks, then score FAD.
         --dataset_path test_shard_1.tar --experiment_path out/gh-gt
     python -m syncfusion_tpu_torch.evaluate_diffusion --exp evaluate_gh_gen \\
         --dataset_path test_shard_1.tar --experiment_path out/gh-gen \\
-        --gt_dir out/gh-gt [--ckpt RUN/ckpts | --params_npz params.npz] \\
+        --gt_dir out/gh-gt [--ckpt RUN/ckpts | --ckpt X.ckpt | --params_npz params.npz] \\
         [--model_config model.json] [--vggish_ckpt vggish.pth] [--device cpu]
 
 ``--exp`` names one of the six experiment files of ``exp/`` (``PRESETS``,
@@ -21,7 +21,10 @@ into the experiment path; the ``prepare_*`` presets run
 YAML's ``length``).  The model computes in f32 without TF32 (``--precision
 32``, the reference's evaluation numerics) or in bf16.  Parameters come
 from ``--ckpt`` (a ``train_diffusion`` checkpoint directory: its best step,
-else its latest) or ``--params_npz`` (the JAX parameter tree as an
+else its latest; or a ``.ckpt``/``.pt``/``.pth`` file: a reference Lightning
+checkpoint such as the published ``epoch=784-valid_loss=0.008.ckpt``, which
+loads into the a-unet compat twins through ``models/adp_convert.py``, as
+the JAX script does) or ``--params_npz`` (the JAX parameter tree as an
 ``.npz``), else they are seeded random.  The conditioning embedder is the
 model config's (``embedder.amodel``, CLAP HTSAT-tiny by default, with its
 ``embedder_checkpoint``).  Runs on the card; ``--device cpu`` runs on the
@@ -45,16 +48,14 @@ from syncfusion_tpu_torch.device import default_device, set_exact_f32
 from syncfusion_tpu_torch.eval.fad import evaluate_fad
 from syncfusion_tpu_torch.eval.generation import generate_dataset, prepare_gt_for_fad
 from syncfusion_tpu_torch.generate import restore_model
+from syncfusion_tpu_torch.models.adp_convert import load_diffusion_state
 from syncfusion_tpu_torch.models.embedder import embedder_from_config
 from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
 
 log = logging.getLogger("syncfusion_tpu_torch.evaluate_diffusion")
 
 PRECISIONS = {"32": torch.float32, "bf16": torch.bfloat16}
-COMPAT_TODO = ("{path}: a reference Lightning checkpoint loads into the a-unet "
-               "compat twins, which the port does not have yet (ROADMAP.md, port "
-               "queue 1, item 7); pass a train_diffusion checkpoint directory "
-               "(--ckpt) or --params_npz")
+TORCH_CKPT_SUFFIXES = (".ckpt", ".pt", ".pth")
 
 
 def _gen_preset(batch_size: int, cut_prefix: bool, cond_text: bool, gt_dir: str) -> dict:
@@ -133,7 +134,8 @@ def parse_args(argv=None):
                     help="torchvggish state dict; FAD uses mel statistics without")
     params = ap.add_mutually_exclusive_group()
     params.add_argument("--ckpt", default=None,
-                        help="train_diffusion checkpoint directory")
+                        help="train_diffusion checkpoint directory, or a reference "
+                             "Lightning .ckpt/.pt/.pth (the a-unet compat model)")
     params.add_argument("--params_npz", default=None,
                         help="JAX parameter tree as .npz with '/'-joined keys")
     ap.add_argument("--model_config", default=None,
@@ -176,12 +178,16 @@ def resolve(args) -> dict:
 
 def load_model(args, model_cfg, device) -> SyncFusionDiffusion:
     """The diffusion model at ``--precision`` on ``device``, with the
-    parameters of ``--ckpt`` or ``--params_npz``, else seeded random."""
-    if args.ckpt and Path(args.ckpt).is_file():
-        raise ValueError(COMPAT_TODO.format(path=args.ckpt))
+    parameters of ``--ckpt`` or ``--params_npz``, else seeded random.  A
+    ``--ckpt`` with a torch suffix builds the a-unet compat twins at the
+    model config's widths and loads the reference checkpoint into them."""
+    torch_ckpt = bool(args.ckpt) and Path(args.ckpt).suffix in TORCH_CKPT_SUFFIXES
     model = SyncFusionDiffusion.from_config(model_cfg, dtype=PRECISIONS[args.precision],
-                                            device=device)
-    if args.ckpt:
+                                            device=device, compat=True if torch_ckpt else None)
+    if torch_ckpt:
+        log.info("converting the reference checkpoint %s (compat model)", args.ckpt)
+        load_diffusion_state(model, args.ckpt)
+    elif args.ckpt:
         model.load_state_dict(restore_model(args.ckpt), strict=True)
     elif args.params_npz:
         with np.load(args.params_npz) as npz:

@@ -6,7 +6,8 @@ counterpart of ``script/generate_audio.py``).
         [--params_npz params.npz | --vq_ckpt DIR --transformer_ckpt_path DIR] \\
         [--melgan_ckpt best_netG.pt] \\
         [--output_dir output/condfoleygen] [--W_scale 1] [--batch_size 4] \\
-        [--top_k 512] [--temperature 1.0] [--audio_only] [--seed 0]
+        [--top_k 512] [--temperature 1.0] [--audio_only] [--seed 0] \\
+        [--style_transfer [--vgg19_ckpt vgg19.pth] [--style_steps 300]]
 
 Per test item (the cond video is never the ref video): the cond audio ->
 ``wav_to_spec`` -> VQ tokens; the cond + ref frames -> R(2+1)D features;
@@ -21,6 +22,14 @@ Writes ``generated_audio/{ref}_to_{cond}_{i}.wav``; without
 (``generated_video/``, ``orig_video/``, ``cond_video/``; from the processed
 frames, or trimmed from ``--orig_videos_dir`` with ffmpeg) and a coolwarm
 spectrogram ``.jpg`` beside each video.
+
+``--style_transfer`` replaces the GPT's sampling with the reference's
+legacy style transfer (``eval/style_transfer.py``): per item, the VQ
+reconstruction of the ref audio's mel is optimised toward the gram
+matrices of the cond audio's (VGG19's first five convs, ``--style_steps``
+L-BFGS steps), and the result is vocoded as above.  ``--vgg19_ckpt`` is a
+torchvision ``vgg19`` state dict; without it the VGG weights are seeded
+random ones (with a warning), as in the JAX script.
 
 The config (``-c``, JSON, or YAML where PyYAML is installed) is read as
 ``core.config.BaselineConfig``; its defaults are
@@ -54,6 +63,11 @@ from syncfusion_tpu_torch.data.baseline_dataset import (
     baseline_loader,
 )
 from syncfusion_tpu_torch.device import default_device, set_exact_f32
+from syncfusion_tpu_torch.eval.style_transfer import (
+    Vgg19Prefix,
+    convert_torch_vgg19,
+    style_transfer_mel,
+)
 from syncfusion_tpu_torch.models.melgan import Vocoder
 from syncfusion_tpu_torch.models.mingpt import GPTFeats
 from syncfusion_tpu_torch.models.transformer_av import AVCondTransformer
@@ -64,8 +78,6 @@ from syncfusion_tpu_torch.ops.wav import write_wav
 log = logging.getLogger("syncfusion_tpu_torch.generate_audio")
 
 SR = 22050
-STYLE_TRANSFER_TODO = ("--style_transfer needs eval/style_transfer.py, which "
-                       "is not ported yet (ROADMAP.md, queue 1, item 8)")
 
 
 def build_model(cfg: BaselineConfig, device, seed: Optional[int] = 0) -> AVCondTransformer:
@@ -105,6 +117,22 @@ def reconstruction01(model: AVCondTransformer, spec: torch.Tensor) -> torch.Tens
     return spec01(model, model.vq.encode_indices(spec))
 
 
+def load_vgg19(path, device, seed: int = 0) -> Vgg19Prefix:
+    """The style transfer's VGG19 prefix on ``device``: from a torchvision
+    ``vgg19`` state dict at ``path``, else seeded random weights."""
+    vgg = Vgg19Prefix().to(device)
+    if path:
+        sd = torch.load(path, map_location="cpu")
+        sd = sd.get("state_dict", sd)
+        vgg.load_state_dict(convert_torch_vgg19(
+            {k: v for k, v in sd.items() if k.startswith("features.")}), strict=True)
+    else:
+        log.warning("--style_transfer without --vgg19_ckpt: the VGG19 weights are "
+                    "random")
+        vgg.init(seed)
+    return vgg.eval()
+
+
 def main(argv=None) -> dict:
     """Writes the artifact set; returns ``{"clips", "output_dir"}``."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -129,7 +157,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--data_to_use", type=float, default=1.0)
     ap.add_argument("--style_transfer", action="store_true",
-                    help="not ported yet: raises")
+                    help="VGG19 gram-matrix style transfer between the VQ "
+                         "reconstructions in place of the GPT's sampling")
+    ap.add_argument("--vgg19_ckpt", default=None,
+                    help="torchvision vgg19 state dict for --style_transfer")
+    ap.add_argument("--style_steps", type=int, default=300,
+                    help="L-BFGS steps of --style_transfer")
     ap.add_argument("--orig_videos_dir", default=None,
                     help="the original videos to mux the outputs from (needs "
                          "ffmpeg); without it the videos are rebuilt from the "
@@ -143,8 +176,6 @@ def main(argv=None) -> dict:
                     help="torch device (default: the card; raises without one)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if args.style_transfer:
-        raise NotImplementedError(STYLE_TRANSFER_TODO)
     runs = args.vq_ckpt or args.transformer_ckpt_path
     if args.params_npz and runs:
         ap.error("--params_npz excludes --vq_ckpt and --transformer_ckpt_path")
@@ -162,6 +193,7 @@ def main(argv=None) -> dict:
         log.warning("no --params_npz or --transformer_ckpt_path: the GPT's weights "
                     "are random, the output is noise-shaped")
     vocoder = Vocoder(args.melgan_ckpt, device) if args.melgan_ckpt else None
+    vgg = load_vgg19(args.vgg19_ckpt, device, args.seed) if args.style_transfer else None
 
     d = cfg.data
     ds = CondGreatestHitsWaveCondOnImage(
@@ -182,15 +214,29 @@ def main(argv=None) -> dict:
     for batch in baseline_loader(ds, args.batch_size):
         with torch.inference_mode():
             cond_spec = wav_to_spec(torch.from_numpy(batch["cond_image"]).to(device))[:, None]
-            frames = torch.from_numpy(batch["feature"]).to(device)
-            gen01 = spec01(model, model.sample(cond_spec, frames, gen,
-                                               temperature=args.temperature,
-                                               top_k=args.top_k))
-            wavs = decode(gen01)
-            if not args.audio_only:
+            if args.style_transfer:
                 orig01 = reconstruction01(
                     model, wav_to_spec(torch.from_numpy(batch["image"]).to(device))[:, None])
                 cond01 = reconstruction01(model, cond_spec)
+            else:
+                frames = torch.from_numpy(batch["feature"]).to(device)
+                gen01 = spec01(model, model.sample(cond_spec, frames, gen,
+                                                   temperature=args.temperature,
+                                                   top_k=args.top_k))
+        if args.style_transfer:  # autograd: outside inference mode
+            gen01 = torch.stack([
+                style_transfer_mel(vgg, orig01[i], cond01[i],
+                                   spec_take_first=orig01.shape[-1],
+                                   num_steps=args.style_steps)
+                for i in range(orig01.shape[0])])
+        with torch.inference_mode():
+            wavs = decode(gen01)
+            if not args.audio_only:
+                if not args.style_transfer:
+                    orig01 = reconstruction01(
+                        model,
+                        wav_to_spec(torch.from_numpy(batch["image"]).to(device))[:, None])
+                    cond01 = reconstruction01(model, cond_spec)
                 orig_wavs, cond_wavs = decode(orig01), decode(cond01)
                 gen01, orig01, cond01 = (s.cpu().numpy() for s in (gen01, orig01, cond01))
         for i in range(wavs.shape[0]):

@@ -7,6 +7,14 @@ step loop.  Parameters are f32; ``dtype`` is the compute type (bf16 for
 generation, as the JAX package's ``from_config(dtype=bfloat16)``).
 The UNet's fused configuration (``fused_resnet``, ``fused_stats`` at
 ``fold_cap``) comes from the config, as in the JAX package.
+
+``compat`` (or the config's top-level ``compat: true``) builds the a-unet
+weight-compatible twins of ``models/adp_compat.py`` in place of
+``UNet1d``/``Encoder1d``, as the JAX ``from_config`` does: the reference's
+published checkpoints load into them (``models/adp_convert.py``).  The
+loss and both samplers drive either family; DeepCache and the fused
+resnet chain exist only for ``UNet1d`` and raise ``ValueError`` with the
+twins, as the JAX package refuses them.
 """
 
 from __future__ import annotations
@@ -21,36 +29,66 @@ from torch import nn
 from syncfusion_tpu_torch.core.config import EncoderConfig, UNetConfig, model_configs
 from syncfusion_tpu_torch.device import default_device
 from syncfusion_tpu_torch.models import blocks
+from syncfusion_tpu_torch.models.adp_compat import Encoder1dCompat, UNetV0Compat, init_compat
+from syncfusion_tpu_torch.models.adp_torch_recon import Encoder1dConfig, UNetV0Config
 from syncfusion_tpu_torch.models.diffusion import dpm_sample, v_diffusion_loss, v_sample
 from syncfusion_tpu_torch.models.encoder1d import Encoder1d
 from syncfusion_tpu_torch.models.unet1d import UNet1d
 
 
 class SyncFusionDiffusion(nn.Module):
-    def __init__(self, unet_cfg: UNetConfig = UNetConfig(),
-                 encoder_cfg: EncoderConfig = EncoderConfig(),
+    """``unet_cfg``/``encoder_cfg``: ``UNetConfig``/``EncoderConfig`` for
+    the port's UNet1d family, ``UNetV0Config``/``Encoder1dConfig`` for the
+    a-unet twins."""
+
+    def __init__(self, unet_cfg: UNetConfig | UNetV0Config = UNetConfig(),
+                 encoder_cfg: EncoderConfig | Encoder1dConfig = EncoderConfig(),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.unet = UNet1d(unet_cfg, context_levels=len(encoder_cfg.factors) - 1,
-                           dtype=dtype)
-        self.onsets_encoder = Encoder1d(encoder_cfg, dtype=dtype)
+        if isinstance(unet_cfg, UNetV0Config):
+            self.unet = UNetV0Compat(unet_cfg, dtype=dtype)
+            self.onsets_encoder = Encoder1dCompat(encoder_cfg, dtype=dtype)
+        else:
+            self.unet = UNet1d(unet_cfg, context_levels=len(encoder_cfg.factors) - 1,
+                               dtype=dtype)
+            self.onsets_encoder = Encoder1d(encoder_cfg, dtype=dtype)
+
+    @property
+    def compat(self) -> bool:
+        """Whether the model is the a-unet twin pair."""
+        return isinstance(self.unet, UNetV0Compat)
 
     @classmethod
     def from_config(cls, model_cfg: Optional[dict] = None,
                     dtype: torch.dtype = torch.float32, device=None,
                     seed: int = 0, fold_cap: Optional[int] = None,
-                    fused_stats: Optional[bool] = None) -> "SyncFusionDiffusion":
+                    fused_stats: Optional[bool] = None,
+                    compat: Optional[bool] = None) -> "SyncFusionDiffusion":
         """Build from an ``exp/model/diffusion.yaml``-style ``model`` node
         (the defaults when None) on ``device`` (the card when None; raises
         without one), with parameters drawn from ``seed``.  ``fold_cap`` and
         ``fused_stats``, when given, override the node's top-level
         ``fold_cap`` and ``model.fused_stats`` (the JAX ``from_config``'s
-        keywords)."""
+        keywords).  ``compat`` (default: the node's top-level ``compat``)
+        builds the a-unet twins; with them a fused switch raises
+        ``ValueError`` (``fold_cap`` alone changes nothing, as it does not
+        in JAX)."""
         device = default_device(device)
+        if compat is None:
+            compat = bool(model_cfg and model_cfg.get("compat", False))
         unet_cfg, encoder_cfg = model_configs(model_cfg)
-        overrides = {k: v for k, v in (("fold_cap", fold_cap),
-                                       ("fused_stats", fused_stats)) if v is not None}
-        unet_cfg = dataclasses.replace(unet_cfg, **overrides)
+        if compat:
+            if fused_stats or unet_cfg.fused_stats or unet_cfg.fused_resnet:
+                raise ValueError("the fused resnet chain (fused_resnet, fused_stats) "
+                                 "runs in UNet1d only, not in the a-unet compat twins")
+            unet_cfg, encoder_cfg = (
+                (UNetV0Config(), Encoder1dConfig()) if model_cfg is None else
+                (UNetV0Config.from_node(model_cfg["model"]),
+                 Encoder1dConfig.from_node(model_cfg["onsets_encoder"])))
+        else:
+            overrides = {k: v for k, v in (("fold_cap", fold_cap),
+                                           ("fused_stats", fused_stats)) if v is not None}
+            unet_cfg = dataclasses.replace(unet_cfg, **overrides)
         with torch.device(device):
             model = cls(unet_cfg, encoder_cfg, dtype=dtype)
         return model.init(seed).eval()
@@ -65,6 +103,9 @@ class SyncFusionDiffusion(nn.Module):
         match."""
         gen = torch.Generator(device=next(self.parameters()).device)
         gen.manual_seed(seed)
+        if self.compat:
+            init_compat(self, gen)
+            return self
         for m in self.modules():
             if isinstance(m, (blocks.Linear, blocks.Conv1d, blocks.ConvTranspose1d)):
                 w = m.weight  # ConvTranspose1d: (in, out, k); others (out, in, ...)
@@ -85,6 +126,8 @@ class SyncFusionDiffusion(nn.Module):
     def encode_context(self, onsets) -> list:
         """Onset track (B, L, 1) -> the UNet context pyramid ``xs[2:-1]``.
         Differentiable: the encoder is trained with the UNet."""
+        if self.compat:
+            return self.onsets_encoder(onsets, with_info=True)[1]["xs"][2:-1]
         return self.onsets_encoder(onsets)[2:-1]
 
     def loss(self, wav, onsets, embedding, embedding_mask_proba: float = 0.0,
@@ -120,11 +163,15 @@ class SyncFusionDiffusion(nn.Module):
         DeepCache, the UNet's levels >= ``deep_split`` rerun every K-th step
         (``deep_cache_pow != 1``: the same count, spaced by a power curve).
         The JAX package needs its folded apply for the cache; the plain UNet
-        here carries it in its own layout.
+        here carries it in its own layout.  The a-unet twins have no deep
+        split: DeepCache raises ``ValueError`` with them.
         """
         samplers = {"ddim": v_sample, "dpm": dpm_sample}
         if sampler not in samplers:
             raise ValueError(f"unknown sampler {sampler!r}, not one of {sorted(samplers)}")
+        if self.compat and deep_cache_interval > 1:
+            raise ValueError("deep_cache_interval needs the UNet1d's deep split; the "
+                             "a-unet compat twins have none")
         context = self.encode_context(onsets)
         return samplers[sampler](
             self.unet, noise, num_steps, context=context, embedding=embedding,

@@ -1,4 +1,4 @@
 """SpecVQGAN, the CondFoleyGen baseline's first stage: a VQ-GAN over mel
-spectrograms (port of the inference side of ``syncfusion_tpu/models/vqgan``).
-The discriminator, the LPAPS loss and the codebook trainer belong to the
-baseline's training and are not ported yet."""
+spectrograms (port of ``syncfusion_tpu/models/vqgan``): the model, its
+quantizer, LPAPS and the discriminator of its training, and ``convert``,
+the reference SpecVQGAN and minGPT checkpoints' converters."""

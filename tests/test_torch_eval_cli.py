@@ -119,11 +119,14 @@ def test_evaluate_diffusion_cli_end_to_end(tmp_path, monkeypatch, capsys):
 
 
 def test_evaluate_diffusion_refuses_what_it_cannot_run(tmp_path):
+    """A torch checkpoint that is not a reference diffusion module's (no
+    ``model.net.*`` keys) is refused by the compat loader; a run without a
+    dataset by the presets."""
     ckpt = tmp_path / "epoch=784-valid_loss=0.008.ckpt"
-    ckpt.write_bytes(b"")
+    torch.save({"state_dict": {"onsets_encoder.x": torch.zeros(1)}}, ckpt)
     args = ["--exp", "evaluate_gh_gen", "--dataset_path", "x.tar", "--experiment_path",
             str(tmp_path / "gen"), "--device", "cpu"]
-    with pytest.raises(ValueError, match="queue 1, item 7"):
+    with pytest.raises(ValueError, match="not a diffusion checkpoint"):
         evaluate_diffusion.load_model(evaluate_diffusion.parse_args(
             [*args, "--ckpt", str(ckpt)]), None, "cpu")
     with pytest.raises(SystemExit, match="needs --dataset_path"):

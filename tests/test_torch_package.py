@@ -71,6 +71,15 @@ def test_guards_cover_the_baseline_modules():
         "models/melgan", "models/init", "data/baseline_dataset", "generate_audio")} <= names
 
 
+def test_guards_cover_the_checkpoint_modules():
+    """The published-checkpoint paths: the a-unet twins and their loader,
+    the SpecVQGAN/minGPT converters, the style transfer and its L-BFGS."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"syncfusion_tpu_torch/{m}.py" for m in (
+        "models/adp_torch_recon", "models/adp_compat", "models/adp_convert",
+        "models/vqgan/convert", "eval/style_transfer", "train/lbfgs")} <= names
+
+
 def test_nothing_of_the_port_imports_the_exporter():
     """script/export_params_npz.py imports the JAX package; the port and
     chip_smoke.py reach it by no import, and it lies outside the package."""
