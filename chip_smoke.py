@@ -174,10 +174,30 @@ Phases, each printed with its seconds; any failure exits non-zero:
      on phase 15's 10 tracks (B = 10, DDIM with CFG at every step, f32, the
      preset's 150 steps cut to 50: K1's f32 body 1000 times), s a clip and
      peak memory; (f) ``generate_audio --style_transfer --vgg19_ckpt`` (a
-     seeded torchvision-layout VGG19) on phase 17's 4-item root at 300
+     seeded torchvision-layout VGG19) on phase 17's root with one onset a
+     video (2 items) at 300
      L-BFGS steps where PIL is importable, and ``run_style_transfer``'s
      first loss on the card against the CPU; no hand-written kernel
      launches on the style path (gated).
+ 20. distillation, remat and the raw-data tail at the same full width:
+     (a) ``gh_make_synthetic`` writes 4 videos of 8 s at 48 kHz,
+     ``gh_make_shards`` packs them, the native tar reader (g++) reads the
+     shard as the Python reader does (gated), ``spectral_gate`` on one 8-s
+     clip on the card against the CPU (the share of gate cells flipped and
+     the output on one gate, gated; ms a clip); (b) ``distill_diffusion.main``
+     on a seeded phase-6-style checkpoint and 20a's shard, f32, B = 4, 8 -> 4
+     -> 2 steps in rounds of 3 (K1 27, K2a 9, K2b 9 a step, gated), then a
+     guided round (cfg_scale 2, 3 steps, launches gated step by step), the
+     distillation loss and gradients against the plain attention (gated as
+     phase 7), ``generate.main --ckpt <distilled> --num_steps 2`` (K1 18);
+     s a step and peak memory; (c) one f32 micro-step's loss and gradients
+     with ``remat`` off and on, plain and fused (1e-6 and 1e-5 of max |g|,
+     gated; K1/K2 9 either way, K3/K4 12 and 24), peaks and seconds; (d)
+     ``r2plus1d_18``, ``r3d_18`` and ``mc3_18`` at 2 x 3 x 16 x 112 x 112,
+     f32, ms a batch through ``core.profiler.StepTimer``, the card against
+     the CPU at 1 x 3 x 8 x 112 x 112 (gated), and ``core.profiler.trace``
+     around K1 launches in a child process (``chip_smoke.py --trace DIR``),
+     whose Chrome trace must name the ``flash_fwd`` kernel.
 Phase 3 also holds the backward kernels K2a and K2b against their plain
 versions at the training shapes (with the time of SDPA's backward), times
 K1's f32 kernel per forward beside SDPA's f32 forward, and holds K3 and K4
@@ -1144,12 +1164,13 @@ def phase_train(attn, fr, tmp: str, name: str, model_cfg=None, embedder="none",
     return state, launched, sec, peak, losses
 
 
-def training_batch(tmp: str) -> tuple:
-    """One full-width batch of the phase-6 shard with sigma, noise and an
-    embedding: (wav, onsets, embedding, sigma, noise), on the card."""
+def training_batch(tmp: str, shard: str | None = None) -> tuple:
+    """One full-width batch of the phase-6 shard (or of ``shard``) with
+    sigma, noise and an embedding: (wav, onsets, embedding, sigma, noise),
+    on the card."""
     from syncfusion_tpu_torch.data.sfx_dataset import batched, create_sfx_dataset
 
-    items = create_sfx_dataset(os.path.join(tmp, "shard.tar"), sample_rate=SR,
+    items = create_sfx_dataset(shard or os.path.join(tmp, "shard.tar"), sample_rate=SR,
                                chunk_size=LENGTH, one_chunk_per_track=False)
     b = next(batched(items, batch_size=BATCH))
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -2276,11 +2297,12 @@ def time_baseline(model, vocoder, wav: np.ndarray, frames: np.ndarray, gen) -> d
     return {"ms": ms, "host_s": host}
 
 
-def write_baseline_root(root: str) -> str:
-    """A processed Greatest Hits root of 4 items: 2 videos of 3 s at 15 fps
-    (GREY_JPEG frames 1-46), each with onsets at 0.5 s and 1.0 s (30 frames
-    a chunk) and a 22.05 kHz track of noise with a burst at each onset; its
-    split file is test.txt.  Returns a JSON config of it."""
+def write_baseline_root(root: str, onsets=(0.5, 1.0)) -> str:
+    """A processed Greatest Hits root of 2 videos of 3 s at 15 fps
+    (GREY_JPEG frames 1-46), each with ``onsets`` (one item each: 4 items by
+    default; 30 frames a chunk) and a 22.05 kHz track of noise with a burst
+    at each onset; its split file is test.txt.  Returns a JSON config of
+    it."""
     from syncfusion_tpu_torch.ops.wav import write_wav
 
     rng = np.random.default_rng(18)
@@ -2292,9 +2314,9 @@ def write_baseline_root(root: str) -> str:
         with open(os.path.join(d, f"{name}.metadata.json"), "w") as f:
             json.dump({"processed": {"video_frame_rate": 15, "video_duration": 3.0}}, f)
         with open(os.path.join(d, f"{name}.times.csv"), "w") as f:
-            f.write("0.5,hit\n1.0,hit\n")
+            f.write("".join(f"{t},hit\n" for t in onsets))
         wav = 0.01 * rng.standard_normal(3 * 22050)
-        for onset in (0.5, 1.0):
+        for onset in onsets:
             i = int(onset * 22050)
             wav[i:i + 2205] += 0.8 * rng.standard_normal(2205) * np.exp(-np.arange(2205) / 400)
         write_wav(os.path.join(d, "audio", f"{name}.resampled.wav"), wav.astype(np.float32),
@@ -2958,6 +2980,10 @@ COMPAT_EVAL_K1 = COMPAT_K1 * COMPAT_EVAL_STEPS
 # the style transfer: generate_audio's default steps; the first step's loss,
 # card against CPU, relative (f32 convolutions in other orders)
 STYLE_STEPS = 300
+# one onset a video: 2 items of the 2-video root (cut from 4 to keep the
+# script within half its time limit)
+STYLE_ONSETS = (0.5,)
+STYLE_ITEMS = 2
 STYLE_TOL = 1e-4
 # torchvision's vgg19 ``features`` convs, (index, in, out): the five of the
 # style transfer (0, 2, 5, 7, 10) and the rest, so that the file is what
@@ -3055,7 +3081,8 @@ def phase_compat(attn, fr, tmp: str) -> dict:
     against the CPU; (e) ``evaluate_diffusion.main --ckpt X.ckpt`` at the
     evaluate_gh_gen preset on phase 15's 10 tracks, K1's f32 body 20 a
     step; (f) ``generate_audio --style_transfer --vgg19_ckpt`` on phase
-    17's 4-item root (where PIL is importable) at 300 steps, and
+    17's root with one onset a video (2 items; where PIL is importable) at
+    300 steps, and
     ``run_style_transfer``'s first loss on the card against the CPU, no
     hand-written kernel launched.  Returns the launch counts by path."""
     from syncfusion_tpu_torch import evaluate_diffusion, generate_audio
@@ -3246,14 +3273,14 @@ def phase_compat(attn, fr, tmp: str) -> dict:
     style = {}
     if importlib.util.find_spec("PIL") is not None:
         root = os.path.join(tmp, "root")
-        cfg = write_baseline_root(root)
+        cfg = write_baseline_root(root, STYLE_ONSETS)
         out_dir = os.path.join(tmp, "styled")
         start = time.perf_counter()
         summary = generate_audio.main(["--gh_testset", "-c", cfg, "--output_dir", out_dir,
                                        "--style_transfer", "--vgg19_ckpt", vgg_path,
                                        "--style_steps", str(STYLE_STEPS)])
         style["main_s"] = time.perf_counter() - start
-        check(summary["clips"] == 4, f"style transfer: {summary}")
+        check(summary["clips"] == STYLE_ITEMS, f"style transfer: {summary}")
         for name in os.listdir(os.path.join(out_dir, "generated_audio")):
             w, sr = read_wav(os.path.join(out_dir, "generated_audio", name))
             check(sr == 22050 and w.shape[0] == 1 and bool(np.isfinite(w).all()),
@@ -3277,7 +3304,7 @@ def phase_compat(attn, fr, tmp: str) -> dict:
     ran = "main_s" in style
     print(f"  style transfer, 80 x 160: generate_audio --style_transfer, {STYLE_STEPS} "
           f"L-BFGS steps, "
-          + (f"on 4 items {style['main_s']:.3f} s ({style['main_s'] / 4:.3f} s a clip, model "
+          + (f"on {STYLE_ITEMS} items {style['main_s']:.3f} s ({style['main_s'] / STYLE_ITEMS:.3f} s a clip, model "
              f"build, reconstructions, Griffin-Lim and muxing included)" if ran else
              "did not run (no PIL)")
           + f"; run_style_transfer's first step {style['one_step_s']:.3f} s, its loss card "
@@ -3286,6 +3313,394 @@ def phase_compat(attn, fr, tmp: str) -> dict:
     check(rel_style <= STYLE_TOL, "style transfer: the card's first loss disagrees with "
           "the CPU's")
     return launched
+
+
+# phase 20: the raw-data tail, progressive distillation, remat and the video
+# ResNet family at full width
+SYNTH_VIDEOS, SYNTH_SECONDS = 4, 8.0
+GATE_FLIP_SHARE = 1e-3  # mask cells the card and the CPU may put on other sides
+DENOISE_TOL = 1e-4      # of max |out|, the card against the CPU on one gate
+DISTILL_START, DISTILL_FINAL, DISTILL_ROUND_STEPS = 8, 2, 3  # two rounds, six steps
+DISTILL_STEPS = 6
+GUIDED_SCALE = 2.0
+REMAT_LOSS_TOL, REMAT_GRAD_TOL = 1e-6, 1e-5  # relative; of max |g|
+VR_BATCH, VR_CPU = (2, 3, 16, 112, 112), (1, 3, 8, 112, 112)
+VR_TOL = 1e-4
+VR_TIMED = 5
+TRACE_LAUNCHES, TRACE_TIMEOUT = 3, 120
+
+
+def phase_raw_data(tmp: str) -> dict:
+    """Phase 20a: ``gh_make_synthetic`` writes 4 videos of 8 s at 48 kHz,
+    ``gh_make_shards`` packs all four into one shard, which the native reader
+    (``native=True``, built with g++) reads as the Python one does; then
+    ``spectral_gate`` on one 8-s clip on the card against the CPU: the
+    share of gate cells on other sides (gated), the card's output with the
+    CPU's gate against the CPU's (gated; the whole gate's printed) and ms a
+    clip.  Returns the shard's path and the seconds."""
+    from syncfusion_tpu_torch import gh_make_shards, gh_make_synthetic
+    from syncfusion_tpu_torch.data import native, shards
+    from syncfusion_tpu_torch.ops import denoise
+    from syncfusion_tpu_torch.ops.wav import read_wav
+
+    root = os.path.join(tmp, "processed")
+    t0 = time.perf_counter()
+    gh_make_synthetic.main(["--output_dir", root, "--n_videos", str(SYNTH_VIDEOS),
+                            "--min_dur", str(SYNTH_SECONDS), "--max_dur",
+                            str(SYNTH_SECONDS), "--num_workers", str(SYNTH_VIDEOS)])
+    t_synth = time.perf_counter() - t0
+    names = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
+    check(len(names) == SYNTH_VIDEOS, f"gh_make_synthetic wrote {names}")
+    split = os.path.join(root, "all.txt")
+    with open(split, "w") as f:
+        f.write("\n".join(names) + "\n")
+    (shard,) = gh_make_shards.main(["--root", root, "--split", split, "--output",
+                                    os.path.join(tmp, "synth_%d.tar")])
+    t0 = time.perf_counter()
+    check(native.available(), "the native reader did not build")
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    by_native = list(shards.iter_tar_samples(shard, native=True))
+    t_native = time.perf_counter() - t0
+    by_python = list(shards.iter_tar_samples(shard, native=False))
+    check(by_native == by_python and len(by_native) == SYNTH_VIDEOS,
+          "the native reader's members differ from the Python reader's")
+    frames = sum(len(os.listdir(os.path.join(root, nm, "frames"))) for nm in names)
+    print(f"  gh_make_synthetic: {SYNTH_VIDEOS} videos of {SYNTH_SECONDS:.0f} s "
+          f"({frames} frames) in {t_synth:.3f} s; gh_make_shards: {shard} "
+          f"({os.path.getsize(shard) / 2**20:.1f} MiB), read natively in "
+          f"{t_native * 1e3:.1f} ms (g++ build {t_build:.3f} s), its members equal "
+          f"the Python reader's")
+
+    wav, sr = read_wav(os.path.join(root, names[0], "audio",
+                                    f"{names[0]}.resampled.wav"))
+    check(sr == SR and wav.shape == (1, int(SYNTH_SECONDS * SR)), f"clip {wav.shape}")
+    x = torch.from_numpy(wav)
+    spec_cpu, mask_cpu = denoise.gate_mask(x)
+    want = denoise.apply_gate(spec_cpu, mask_cpu, x.shape[-1])
+    xc = x.cuda()
+    spec, mask = denoise.gate_mask(xc)
+    flips = (mask.cpu() != mask_cpu).float().mean().item()
+    same_gate = denoise.apply_gate(spec, mask_cpu.cuda(), x.shape[-1]).cpu()
+    whole = denoise.spectral_gate(xc).cpu()
+    scale = want.abs().max().item()
+    err = (same_gate - want).abs().max().item() / scale
+    err_whole = (whole - want).abs().max().item() / scale
+    ms = time_ms(lambda: denoise.spectral_gate(xc), 10)
+    print(f"  spectral_gate, one {SYNTH_SECONDS:.0f}-s clip at {SR} Hz: card "
+          f"{ms:.3f} ms a clip (CUDA events, 10 calls); gate cells flipped "
+          f"against the CPU {flips:.3e} (tol {GATE_FLIP_SHARE:.0e}; kept "
+          f"{mask_cpu.mean().item():.4f}); with the CPU's gate max |diff| / max "
+          f"|out| {err:.3e} (tol {DENOISE_TOL:.0e}); whole {err_whole:.3e}")
+    check(flips <= GATE_FLIP_SHARE, "spectral_gate: too many gate cells flipped")
+    check(torch.isfinite(whole).all() and err <= DENOISE_TOL,
+          "spectral_gate: the card disagrees with the CPU")
+    if flips == 0:
+        check(err_whole <= DENOISE_TOL, "spectral_gate: the whole gate disagrees")
+    return {"shard": shard, "root": root, "denoise_ms": ms}
+
+
+def phase_distill(attn, fr, blocks, tmp: str, shard: str) -> dict:
+    """Phase 20b: ``distill_diffusion.main`` on a phase-6-style checkpoint
+    of the full-width model (seeded) and 20a's shard, f32 without TF32, B =
+    4 x 2^18, zero embeddings, 8 -> 4 -> 2 steps in rounds of 3 steps; K1
+    27, K2a 9 and K2b 9 a step, the plain versions never (gated); then one
+    guided round (cfg_scale 2, 2 -> 1, 3 steps) through
+    ``ProgressiveDistiller``, its launches gated step by step; the
+    distillation loss and gradients through the kernels against the plain
+    attention (gated as phase 7); ``generate.main --ckpt`` on the written
+    directory at 2 steps (K1 18, gated).  Returns the launch counts by
+    path and the seconds a step."""
+    from syncfusion_tpu_torch import distill_diffusion, generate
+    from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
+    from syncfusion_tpu_torch.core.config import TrainConfig
+    from syncfusion_tpu_torch.models.embedder import ZeroEmbedder
+    from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
+    from syncfusion_tpu_torch.ops.wav import read_wav
+    from syncfusion_tpu_torch.train.distill import DistillConfig, ProgressiveDistiller
+
+    launched = {}
+    t0 = time.perf_counter()
+    teacher = SyncFusionDiffusion.from_config(None, device="cuda", seed=0)
+    ckpts = os.path.join(tmp, "teacher", "ckpts")
+    Checkpointer(CheckpointConfig(ckpts)).save(0, {"step": 0, "model": teacher.state_dict()},
+                                               {"valid_loss": 1.0})
+    t_ckpt = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(attn, fr)
+    t0 = time.perf_counter()
+    result = distill_diffusion.main([
+        "--ckpt", ckpts, "--train_path", shard, "--embedder", "none", "--device",
+        "cuda", "--precision", "32", "--batch_size", str(BATCH), "--length",
+        str(LENGTH), "--log_every_n_steps", "1",
+        "--distill.start_steps", str(DISTILL_START),
+        "--distill.final_steps", str(DISTILL_FINAL),
+        "--distill.steps_per_round", str(DISTILL_ROUND_STEPS)])
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t0
+    launched["distill"] = counts(attn, fr)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    logs = result["log"]
+    losses = [m["distill_loss"] for m in logs]
+    check(result["num_steps"] == DISTILL_FINAL and len(logs) == DISTILL_STEPS
+          and all(math.isfinite(v) for v in losses), f"distillation logged {logs}")
+    want = {"kernel_launches": 27 * DISTILL_STEPS, "dq_launches": 9 * DISTILL_STEPS,
+            "dkv_launches": 9 * DISTILL_STEPS, "plain_calls": 0, "plain_bwd_calls": 0}
+    got = {k: launched["distill"][k] for k in want}
+    print(f"  distill_diffusion.main, {DISTILL_START} -> {DISTILL_FINAL} steps in "
+          f"rounds of {DISTILL_ROUND_STEPS}: losses {['%.5f' % v for v in losses]}, "
+          f"launches {got} (expected {want}), peak {peak:.3f} GiB, main {t_main:.3f} s "
+          f"(teacher checkpoint written in {t_ckpt:.3f} s)")
+    check(got == want, f"distillation launches {got} != {want}")
+    # each logged step syncs the card (the loss is read): a step's seconds
+    # are the gaps between logs, the first step of each round (a fresh
+    # teacher copy and optimizer) apart
+    stamps = [m["seconds"] for m in logs]
+    steps_s = [b - a for a, b, m in zip(stamps, stamps[1:], logs[1:]) if m["step"] > 0]
+    sec = statistics.median(steps_s)
+
+    model = result["model"]
+    cfg = TrainConfig(batch_size=BATCH, length=LENGTH)
+    stream = distill_diffusion.batches(shard, cfg, ZeroEmbedder(512, device="cuda"),
+                                       torch.device("cuda"))
+    per_step, stamps = [], []
+
+    def batch_fn(step):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        per_step.append(counts(attn, fr))
+        return next(stream)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(attn, fr)
+    guided, n = ProgressiveDistiller(model, DistillConfig(
+        DISTILL_FINAL, DISTILL_FINAL // 2, DISTILL_ROUND_STEPS, cfg_scale=GUIDED_SCALE)
+    ).distill(batch_fn, torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    per_step.append(counts(attn, fr))
+    launched["distill_guided"] = per_step[-1]
+    peak_g = torch.cuda.max_memory_allocated() / 2**30
+    stream.close()
+    keys = ("kernel_launches", "dq_launches", "dkv_launches")
+    steps = [tuple(b[k] - a[k] for k in keys) for a, b in zip(per_step, per_step[1:])]
+    sec_g = statistics.median(b - a for a, b in zip(stamps[1:], stamps[2:]))
+    print(f"  guided round (cfg_scale {GUIDED_SCALE}, {DISTILL_FINAL} -> {n} steps): "
+          f"K1, K2a, K2b per step {steps}, peak {peak_g:.3f} GiB")
+    check(n == DISTILL_FINAL // 2 and steps == [(27, 9, 9)] * DISTILL_ROUND_STEPS
+          and per_step[-1]["plain_calls"] == per_step[-1]["plain_bwd_calls"] == 0,
+          f"guided distillation launches {steps}")
+    del guided
+
+    # the loss and the student's gradients through the kernels and through
+    # the plain attention: same student, teacher, batch and draws
+    d = ProgressiveDistiller(model)
+    stream = distill_diffusion.batches(shard, cfg, ZeroEmbedder(512, device="cuda"),
+                                       torch.device("cuda"))
+    batch = next(stream)
+    stream.close()
+    i, noise = d.draws(batch["wav"], DISTILL_FINAL,
+                       torch.Generator(device="cuda").manual_seed(8))
+    teacher.requires_grad_(False)
+
+    def loss_and_grads_d():
+        for p in model.parameters():
+            p.grad = None
+        loss = d.loss(model, teacher, batch["wav"], batch["onsets"], batch["embedding"],
+                      DISTILL_FINAL, i=i, noise=noise)
+        loss.backward()
+        return loss.item(), {k: p.grad for k, p in model.named_parameters()}
+
+    reset_counts(attn, fr)
+    loss_k, grads_k = loss_and_grads_d()
+    one = counts(attn, fr)
+    check((one["kernel_launches"], one["dq_launches"], one["dkv_launches"]) == (27, 9, 9),
+          f"distillation cross-check launches {one}")
+    attns = [m for net in (model, teacher) for m in net.modules()
+             if isinstance(m, blocks.SelfAttention1d)]
+    for m in attns:
+        m.attend = attn.attention_reference
+    loss_p, grads_p = loss_and_grads_d()
+    for m in attns:
+        del m.attend
+    rels = grad_gaps(grads_k, grads_p)
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  distillation loss, kernels vs plain attention: {rel_loss:.3e} relative "
+          f"(tol {TRAIN_LOSS_TOL:.0e}); gradients worst floored {rels[0][0]:.3e} "
+          f"({rels[0][2]}; tol {TRAIN_GRAD_TOL:.0e})")
+    check(rel_loss <= TRAIN_LOSS_TOL, "distillation loss cross-check disagrees")
+    check(rels[0][0] <= TRAIN_GRAD_TOL, "distillation gradient cross-check disagrees")
+    del model, teacher, grads_k, grads_p, result
+    torch.cuda.empty_cache()
+
+    times = os.path.join(tmp, "times.txt")
+    with open(times, "w") as f:
+        f.write("0.5\n1.25\n2.0\n3.5\n")
+    out = os.path.join(tmp, "distilled.wav")
+    reset_counts(attn, fr)
+    t0 = time.perf_counter()
+    generate.main(["--onset_times", times, "--ckpt",
+                   os.path.join(tmp, "teacher", f"distilled_{DISTILL_FINAL}step"),
+                   "--num_steps", str(DISTILL_FINAL), "--length", str(LENGTH),
+                   "--output", out])
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launched["generate_distilled"] = counts(attn, fr)
+    wav, sr = read_wav(out)
+    k1 = launched["generate_distilled"]["kernel_launches"]
+    print(f"  generate.main --ckpt <distilled> --num_steps {DISTILL_FINAL}: {t_gen:.3f} s "
+          f"(model build and load included), K1 {k1} (expected {9 * DISTILL_FINAL})")
+    check(k1 == 9 * DISTILL_FINAL and launched["generate_distilled"]["plain_calls"] == 0,
+          f"generate from the distilled model launched K1 {k1} times")
+    check(sr == SR and wav.shape == (1, LENGTH) and np.isfinite(wav).all(),
+          f"the distilled model's clip {wav.shape}")
+    print(f"  distillation, f32, B={BATCH}, L={LENGTH}: {sec:.4f} s a step unguided "
+          f"(median of {len(steps_s)}), {sec_g:.4f} s guided; peak {peak:.3f} / "
+          f"{peak_g:.3f} GiB")
+    return {"launched": launched, "sec": sec, "sec_guided": sec_g, "peak": peak}
+
+
+def phase_remat(attn, fr, shard: str) -> dict:
+    """Phase 20c: one f32 training micro-step's loss and gradients at 4 x
+    2^18 on 20a's shard with ``remat`` off and on, plain and with the fused
+    configuration (same weights, batch, sigma and noise), after a warm-up
+    step of each, with cuDNN's deterministic algorithms (its others add weight
+    gradients in any order: a rerun without remat is printed as the
+    witness): the loss within 1e-6 relative and every gradient within 1e-5
+    of the largest (gated); K1, K2a, K2b 9 each either way, K3 and K4 12 a
+    forward and 12 more with remat, whose backward recomputes the fused
+    blocks (gated); peak memory and seconds of each."""
+    from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
+
+    batch = training_batch(None, shard)
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, cfg in (("plain", None), ("fused", fused_model_cfg())):
+            out[label] = remat_pair(attn, fr, batch, label,
+                                    SyncFusionDiffusion.from_config(cfg, device="cuda",
+                                                                    seed=0))
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def remat_pair(attn, fr, batch, label: str, model) -> dict:
+    """Phase 20c's runs of one model: a warm-up of each (remat off first:
+    its gradients are the run-to-run witness), then remat off and on, timed;
+    gated; returns their seconds, peaks and counts."""
+    unet_cfg = model.unet.cfg
+    _, ref = loss_and_grads(model, batch)
+    ref = {k: g.clone() for k, g in ref.items() if g is not None}
+    model.unet.cfg = dataclasses.replace(unet_cfg, remat=True)
+    loss_and_grads(model, batch)
+    runs = []
+    for remat in (False, True):
+        model.unet.cfg = dataclasses.replace(unet_cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(attn, fr)
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(model, batch)
+        torch.cuda.synchronize()
+        runs.append((loss, grads, time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated() / 2**30, counts(attn, fr)))
+    (loss_a, ga, sec_a, peak_a, ca), (loss_b, gb, sec_b, peak_b, cb) = runs
+    top = max(g.abs().max().item() for g in ga.values() if g is not None)
+    gap = max((gb[k] - g).abs().max().item() for k, g in ga.items() if g is not None)
+    rerun = max((ref[k] - g).abs().max().item() for k, g in ga.items() if g is not None)
+    rel = abs(loss_b - loss_a) / abs(loss_a)
+    k34 = K3_PER_FORWARD if unet_cfg.fused_resnet else 0
+    want_a = {"kernel_launches": 9, "dq_launches": 9, "dkv_launches": 9,
+              "k3_kernel_launches": k34, "k4_kernel_launches": k34}
+    want_b = {**want_a, "k3_kernel_launches": 2 * k34, "k4_kernel_launches": 2 * k34}
+    got_a, got_b = ({k: c[k] for k in want_a} for c in (ca, cb))
+    print(f"  {label}: remat off {sec_a:.4f} s, peak {peak_a:.3f} GiB; on {sec_b:.4f} s, "
+          f"peak {peak_b:.3f} GiB; loss {rel:.3e} relative (tol {REMAT_LOSS_TOL:.0e}), "
+          f"gradients max |diff| / max |g| {gap / top:.3e} (tol {REMAT_GRAD_TOL:.0e}; "
+          f"without remat run to run {rerun / top:.3e}); launches off {got_a}, on "
+          f"{got_b}")
+    check(rel <= REMAT_LOSS_TOL and gap <= REMAT_GRAD_TOL * top,
+          f"{label}: remat changes the loss or the gradients")
+    check(got_a == want_a and got_b == want_b
+          and ca["plain_calls"] == cb["plain_calls"] == 0
+          and ca["k3_plain_calls"] == cb["k3_plain_calls"] == 0,
+          f"{label}: remat launches {got_a} / {got_b}")
+    return {"sec": (sec_a, sec_b), "peak": (peak_a, peak_b), "launched": (ca, cb)}
+
+
+def phase_video_resnets(tmp: str) -> None:
+    """Phase 20d: ``r2plus1d_18``, ``r3d_18`` and ``mc3_18`` (seeded, eval
+    mode, f32 without TF32) at B = 2 x 3 x 16 x 112 x 112: ms a batch over
+    ``VR_TIMED`` batches, each closed by ``StepTimer.tick`` (which syncs
+    the card); at 1 x 3 x 8 x 112 x 112 the card against the CPU (gated);
+    then ``core.profiler.trace`` around K1 launches in a child process
+    (``--trace``): its Chrome trace exists and names the ``flash_fwd``
+    kernel (gated)."""
+    import copy
+
+    from syncfusion_tpu_torch.core import profiler
+    from syncfusion_tpu_torch.models import video_resnet
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    x = torch.randn(VR_BATCH, generator=gen, device="cuda")
+    small = torch.randn(VR_CPU, generator=gen, device="cuda")
+    for name in ("r2plus1d_18", "r3d_18", "mc3_18"):
+        net = getattr(video_resnet, name)().cuda().init(0).eval()
+        timer = profiler.StepTimer(warmup=1)
+        with torch.no_grad():
+            timer.start()
+            for _ in range(VR_TIMED + 1):
+                y = net(x)
+                timer.tick()
+            got = net(small).cpu()
+            want = copy.deepcopy(net).cpu()(small.cpu())
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        print(f"  {name}: B = {VR_BATCH[0]} x {VR_BATCH[1:]}, f32: "
+              f"{timer.mean * 1e3:.3f} ms a batch (best {timer.best * 1e3:.3f}, "
+              f"{len(timer.times)} timed); card vs CPU at {VR_CPU}: {err:.3e} (tol "
+              f"{VR_TOL:.0e})")
+        check(y.shape == (VR_BATCH[0], 512) and torch.isfinite(y).all()
+              and len(timer.times) == VR_TIMED, f"{name}: output {tuple(y.shape)}")
+        check(err <= VR_TOL, f"{name}: the card disagrees with the CPU")
+        del net
+    # the trace in a fresh process, as a run profiles itself: in this one,
+    # after some thirty profiler sessions, torch.profiler once recorded no
+    # device event at all for it
+    trace_dir = os.path.join(tmp, "trace")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace", trace_dir],
+                          timeout=TRACE_TIMEOUT)
+    check(proc.returncode == 0, f"the trace child exited {proc.returncode}")
+    path = os.path.join(trace_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({ev["name"] for ev in events if ev.get("cat") == "kernel"
+                      and "flash_fwd" in ev.get("name", "")})
+    print(f"  profiler.trace (a child process, {TRACE_LAUNCHES} K1 launches): {path} "
+          f"({os.path.getsize(path)} bytes, {len(events)} events), flash_fwd kernels "
+          f"{[k[:60] for k in kernels]}")
+    check(bool(kernels), "the trace names no flash_fwd kernel")
+
+
+def trace_child(trace_dir: str) -> int:
+    """``chip_smoke.py --trace DIR``: ``core.profiler.trace`` around
+    ``TRACE_LAUNCHES`` K1 launches (f32, 2 x 2048 x 8 x 64), written to
+    DIR/trace.json; the kernels are the checkout's, built by phase 2."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from syncfusion_tpu_torch.core import profiler
+    from syncfusion_tpu_torch.ops import attention as attn
+
+    q = torch.randn((2, 2048, HEADS, HEAD_DIM), device="cuda")
+    with profiler.trace(trace_dir):
+        for _ in range(TRACE_LAUNCHES):
+            attn.flash_attention(q, q, q)
+        torch.cuda.synchronize()
+    return 0
 
 
 def main() -> int:
@@ -3592,6 +4007,20 @@ def main() -> int:
         compat_launched = phase_compat(attn, fr, tmp)
         phase("19 published-checkpoint paths at full width", t0)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        raw = phase_raw_data(tmp)
+        phase("20a raw data to shards, the denoiser", t0)
+        t0 = time.perf_counter()
+        dist = phase_distill(attn, fr, blocks, tmp, raw["shard"])
+        phase("20b progressive distillation at full width", t0)
+        t0 = time.perf_counter()
+        remat = phase_remat(attn, fr, raw["shard"])
+        phase("20c remat at full width", t0)
+        t0 = time.perf_counter()
+        phase_video_resnets(tmp)
+        phase("20d the video ResNet family, StepTimer and trace", t0)
+
     fwd16, fwd32 = total[torch.bfloat16, ROWS], total[torch.float32, ROWS]
     serve16 = total[torch.bfloat16, SERVE_ROWS]
     v2f16 = {rows: total[torch.bfloat16, rows] for rows in V2F_ROWS}
@@ -3606,7 +4035,10 @@ def main() -> int:
              "train_ddp": md_launched["train"],
              "compat_forward": compat_launched["compat_forward"],
              "compat_train": compat_launched["compat_train"],
-             "evaluate_compat": compat_launched["evaluate_compat"]}
+             "evaluate_compat": compat_launched["evaluate_compat"],
+             **dist["launched"],
+             "remat_step": remat["plain"]["launched"][1],
+             "fused_remat_step": remat["fused"]["launched"][1]}
 
     def launched_by_path(key):
         return {p_: c_.get(key, 0) for p_, c_ in paths.items()}
@@ -3751,4 +4183,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multi-device"]:
         sys.exit(multi_device_child(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--trace"]:
+        sys.exit(trace_child(*sys.argv[2:]))
     sys.exit(main())

@@ -47,6 +47,10 @@ class UNetConfig:
     fused_stats: bool = False
     fused_block_l: int = 4096
     fold_cap: int = 256
+    # recompute each resnet block of the levels in the backward instead of
+    # keeping its activations (the JAX UNet1d's nn.remat): memory down,
+    # work up, the same numbers
+    remat: bool = False
 
     @classmethod
     def from_dict(cls, node: Mapping[str, Any]) -> "UNetConfig":

@@ -4,8 +4,10 @@
 Shards are ``.tar`` files whose members are grouped by key:
 ``{key}.resampled.wav``, ``{key}.times.csv``, optional
 ``{key}.times.pred.csv``.  A generator yields samples ``{suffix: bytes}``;
-helpers decode the wav and csv members.  The JAX package's native C++ reader
-(``data/native.py``) is not ported: this reader is the one the port has.
+helpers decode the wav and csv members.  Members come from the native C++
+reader (``data/native.py``, ``csrc/sfx_io.cpp``) where it builds, else
+from Python's ``tarfile``; ``native=True`` insists on the native one
+(raising when it cannot build), ``native=False`` takes ``tarfile``.
 ``shard_for_process`` splits a shard list over processes, so that each
 reads disjoint data.
 """
@@ -47,7 +49,7 @@ def shard_for_process(shards: Sequence[str], process_index: int,
     return [s for i, s in enumerate(shards) if i % process_count == process_index]
 
 
-def _iter_members(shard: str) -> Iterator[tuple[str, bytes]]:
+def _iter_members_python(shard: str) -> Iterator[tuple[str, bytes]]:
     with tarfile.open(shard, mode="r|*") as tf:
         for member in tf:
             if not member.isfile():
@@ -57,16 +59,31 @@ def _iter_members(shard: str) -> Iterator[tuple[str, bytes]]:
                 yield member.name, fileobj.read()
 
 
+def _iter_members(shard: str, native: Optional[bool]) -> Iterator[tuple[str, bytes]]:
+    """The shard's members from the native reader (``native`` True, or
+    None where it builds) or from ``tarfile`` (False, or None where it does
+    not)."""
+    if native is not False:
+        from syncfusion_tpu_torch.data import native as native_io
+
+        if native or native_io.available():
+            yield from native_io.iter_tar_members(shard)
+            return
+    yield from _iter_members_python(shard)
+
+
 def iter_tar_samples(
     shards: str | Sequence[str],
     shardshuffle: bool = False,
     seed: int = 0,
+    native: Optional[bool] = None,
 ) -> Iterator[dict]:
     """Yield ``{"__key__": key, suffix: bytes, ...}`` grouped by sample key.
 
     Keys follow webdataset rules: the member name up to the first dot is the
     key; everything after is the suffix (so ``a/b.times.csv`` → key ``a/b``,
-    suffix ``times.csv``).
+    suffix ``times.csv``).  ``native``: the member reader, as
+    ``_iter_members`` takes it.
     """
     shard_list = expand_shards(shards)
     if shardshuffle:
@@ -76,7 +93,7 @@ def iter_tar_samples(
     for shard in shard_list:
         current_key: Optional[str] = None
         sample: dict = {}
-        for name, data in _iter_members(shard):
+        for name, data in _iter_members(shard, native):
             base = Path(name).name
             stem = base.split(".", 1)[0]
             key = str(Path(name).parent / stem) if "/" in name else stem

@@ -43,6 +43,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from syncfusion_tpu_torch.models.adp_torch_recon import Encoder1dConfig, UNetV0Config
 from syncfusion_tpu_torch.models.unet1d import cfg_dropout_mask
@@ -224,9 +225,10 @@ class _Block(nn.Module):
     """One XUNet level: downsample, the items down (each output a skip),
     the inner level, [merge, item] up, upsample (decisions D4, D10)."""
 
-    def __init__(self, cfg: UNetV0Config, level: int, dtype: torch.dtype):
+    def __init__(self, cfg: UNetV0Config, level: int, dtype: torch.dtype,
+                 remat: bool = False):
         super().__init__()
-        self.cfg, self.level = cfg, level
+        self.cfg, self.level, self.remat = cfg, level, remat
         n = len(cfg.channels)
         ch, f = cfg.channels[level], cfg.factors[level]
         in_ch = cfg.in_channels if level == 0 else cfg.channels[level - 1]
@@ -235,7 +237,7 @@ class _Block(nn.Module):
         self.downsample = _Conv(in_ch, ch, f, stride=f, dtype=dtype)
         for j, kind in enumerate(self.kinds):
             self.add_module(f"items_down_{j}", self._item(kind, dtype))
-        self.inner = _Block(cfg, level + 1, dtype) if level + 1 < n else None
+        self.inner = _Block(cfg, level + 1, dtype, remat) if level + 1 < n else None
         if self.inner is not None:
             for j in range(len(self.kinds)):
                 self.add_module(f"skip_adapters_{j}", _MergeCat(
@@ -266,6 +268,8 @@ class _Block(nn.Module):
             return x if ctx is None else item(x, ctx)
         if kind == "xattn":
             return item(x, embedding)
+        if kind == "res" and self.remat and torch.is_grad_enabled():
+            return checkpoint(item, x, use_reentrant=False)
         return item(x)
 
     def forward(self, x, features, embedding, context):
@@ -293,14 +297,13 @@ class UNetV0Compat(nn.Module):
     ``sigma`` is the diffusion time in [0, 1], embedded by the
     NumberEmbedder (decision D3: [t, sin, cos] of learned frequencies, a
     Dense) and a 2-layer exact-GELU MLP.  ``remat`` (the JAX twin's
-    rematerialisation) is not ported: it raises.
+    ``nn.remat(_Resnet)``): while gradients are on, each resnet item runs
+    under ``torch.utils.checkpoint`` and is recomputed in the backward.
     """
 
     def __init__(self, cfg: UNetV0Config = UNetV0Config(),
                  dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
-        if remat:
-            raise NotImplementedError("UNetV0Compat(remat=True) is not ported yet")
         self.cfg, self.dtype = cfg, dtype
         mf = cfg.modulation_features
         self.embedder_weights = nn.Parameter(torch.empty(cfg.fourier_dim // 2))
@@ -310,7 +313,7 @@ class UNetV0Compat(nn.Module):
         if cfg.use_embedding_cfg:
             self.fixed_embedding = nn.Parameter(
                 torch.empty(cfg.embedding_max_length, cfg.embedding_features))
-        self.net = _Block(cfg, 0, dtype)
+        self.net = _Block(cfg, 0, dtype, remat)
 
     def time_features(self, sigma):
         """sigma (B,) -> the modulation features (B, modulation_features)."""

@@ -114,3 +114,12 @@ def hf_clap_audio_to_laion(state_dict: Mapping) -> dict[str, np.ndarray]:
         out[f"{base}.attn.qkv.{kind}"] = np.concatenate(
             [parts["query"], parts["key"], parts["value"]], axis=0)
     return out
+
+
+def convert_hf_clap_audio(state_dict: Mapping) -> dict[str, torch.Tensor]:
+    """``transformers``' ``ClapAudioModelWithProjection`` state dict -> the
+    audio tower's part of a ``ClapModel`` state dict (``audio_branch``,
+    ``mel_bn_*``, ``audio_projection``): the rename to laion_clap's keys,
+    then laion_clap's loader, as the JAX ``convert_hf_clap_audio`` composes
+    its two."""
+    return load_laion_clap(hf_clap_audio_to_laion(state_dict))

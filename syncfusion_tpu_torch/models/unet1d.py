@@ -17,6 +17,13 @@ and folded execution:
     gate; the bottleneck's blocks are never fused.
   * the DeepCache split of ``unet1d_folded.folded_apply`` (``deep_split``,
     ``deep_cache``, ``return_deep``), its feature in the (B, C, L) layout.
+
+``remat`` (the JAX ``nn.remat(ResnetBlock1d)``): while gradients are on,
+each resnet block of the levels runs under ``torch.utils.checkpoint``, so
+the backward recomputes it (K3/K4 launch again there) instead of keeping
+its activations; attention and the bottleneck's blocks are kept, as in
+JAX.  A K4 block's group sums leave it as outputs, so the chain of sums
+crosses the checkpointed blocks.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from syncfusion_tpu_torch.core.config import UNetConfig
 from syncfusion_tpu_torch.models.blocks import (
@@ -168,10 +176,13 @@ class UNet1d(nn.Module):
         stats = None  # the group sums, threaded block to block (K4)
         for j in range(c.items[level]):
             block = getattr(self, f"{path}_res_{level}_{j}")
-            if with_stats:
-                h, stats = block.forward_stats(h, time_emb, stats)
+            fn = block.forward_stats if with_stats else block
+            args = (h, time_emb, stats) if with_stats else (h, time_emb)
+            if c.remat and torch.is_grad_enabled():
+                out = checkpoint(fn, *args, use_reentrant=False)
             else:
-                h = block(h, time_emb)
+                out = fn(*args)
+            h, stats = out if with_stats else (out, None)
         if c.attentions[level]:
             h = getattr(self, f"{path}_attn_{level}")(h)
         if c.cross_attentions[level] and embedding is not None:

@@ -14,9 +14,13 @@ or ``--precision bf16`` (bf16 compute over f32 parameters).  Every
 ``val_check_interval`` micro-steps it computes the validation loss, writes
 ``--num_items`` sampled clips and their mel panels to ``media/`` and saves
 a checkpoint (best ``save_top_k`` by valid_loss and the latest); ``--ckpt
-DIR`` resumes from the latest checkpoint in DIR.  Metrics go to ``<logs_dir>/runs/<run>/
-metrics.jsonl``.  ``--model_config``: JSON of the diffusion config's model
-node, as in ``generate.py``.  Each batch is conditioned on the CLAP
+DIR`` resumes from the latest checkpoint in DIR.  Metrics go to
+``<logs_dir>/runs/<run>/metrics.jsonl``.  ``--save ATTR`` (the JAX
+script's ``+save=``) writes the model's dotted subtree ATTR (``model``,
+``onsets_encoder``, ``model.down_1``, ...) as a checkpoint ``{ATTR with _
+for .: {key: tensor}}`` under ``<run>/export_<ATTR>`` and stops.
+``--model_config``: JSON of the diffusion config's model node, as in
+``generate.py``.  Each batch is conditioned on the CLAP
 embedding of its conditioning chunk (the default embedder, ``HTSAT-tiny``,
 with the laion checkpoint ``--clap_ckpt``, else random weights and a
 warning), computed on the device in the feeder thread; ``--embedder none``
@@ -171,14 +175,10 @@ def _flag_type(default):
     return type(default)
 
 
-def parse_args(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--train_path", required=True,
-                    help="training shards: path, glob or shard_{1..3}.tar")
-    ap.add_argument("--val_path", required=True, help="validation shards")
-    ap.add_argument("--logs_dir", default="logs")
-    ap.add_argument("--ckpt", default=None,
-                    help="checkpoint directory to resume from (its latest)")
+def add_config_args(ap: argparse.ArgumentParser) -> None:
+    """The flags that build the model and the data stream, shared with
+    ``distill_diffusion``: ``--model_config``, the embedder, ``--device``
+    and one flag for each key of ``TrainConfig``."""
     ap.add_argument("--model_config", default=None,
                     help="JSON of the diffusion config's model node "
                          "(default: exp/model/diffusion.yaml's values)")
@@ -200,11 +200,67 @@ def parse_args(argv=None):
         else:
             ap.add_argument(f"--{f.name}", type=_flag_type(f.default),
                             default=f.default)
+
+
+def config_of(args) -> TrainConfig:
+    """The ``TrainConfig`` of parsed ``add_config_args`` flags."""
+    return TrainConfig(**{f.name: (tuple(v) if isinstance(f.default, tuple) else v)
+                          for f in dataclasses.fields(TrainConfig)
+                          for v in [getattr(args, f.name)]})
+
+
+def read_model_config(path: Optional[str]) -> Optional[dict]:
+    """The ``--model_config`` JSON, or None."""
+    if not path:
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--train_path", required=True,
+                    help="training shards: path, glob or shard_{1..3}.tar")
+    ap.add_argument("--val_path", required=True, help="validation shards")
+    ap.add_argument("--logs_dir", default="logs")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory to resume from (its latest)")
+    ap.add_argument("--save", default=None, metavar="ATTR",
+                    help="export the model's (dotted) subtree ATTR as a "
+                         "checkpoint under <run>/export_<ATTR>, then stop: "
+                         "model, onsets_encoder, model.down_1, ...")
+    add_config_args(ap)
     args = ap.parse_args(argv)
-    cfg = TrainConfig(**{f.name: (tuple(v) if isinstance(f.default, tuple) else v)
-                         for f in dataclasses.fields(TrainConfig)
-                         for v in [getattr(args, f.name)]})
-    return args, cfg
+    return args, config_of(args)
+
+
+# the roots of --save, as the JAX script maps them onto its parameter tree
+SAVE_ROOTS = {"model": "unet", "unet": "unet",
+              "onsets_encoder": "onsets_encoder", "encoder": "onsets_encoder"}
+
+
+def export_subtree(model_state: dict, attr: str) -> dict:
+    """The entries of a model state dict under the dotted ``attr``
+    (``train_diffusion_model.py``'s ``+save=``): its root one of
+    ``SAVE_ROOTS``, then module names, as ``{key below attr: tensor}``, or
+    the tensor ``attr`` names.  An unknown root or name raises
+    ``ValueError`` naming what is there."""
+    root, *parts = attr.split(".")
+    if root not in SAVE_ROOTS:
+        raise ValueError(f"--save {attr}: unknown root {root!r}; use one of "
+                         f"{sorted(SAVE_ROOTS)}")
+    prefix = SAVE_ROOTS[root]
+    for seg in parts:
+        below = {k[len(prefix) + 1:].split(".", 1)[0] for k in model_state
+                 if k.startswith(prefix + ".")}
+        if seg not in below:
+            raise ValueError(f"--save {attr}: no subtree {seg!r} in {prefix!r}; "
+                             f"available: {sorted(below)[:10]}")
+        prefix = f"{prefix}.{seg}"
+    if prefix in model_state:
+        return model_state[prefix]
+    return {k[len(prefix) + 1:]: v for k, v in model_state.items()
+            if k.startswith(prefix + ".")}
 
 
 def make_mesh(cfg: TrainConfig) -> Mesh:
@@ -233,10 +289,7 @@ def main(argv=None) -> TrainState:
     dtype = PRECISIONS[cfg.precision]
     if cfg.precision == "32":
         set_exact_f32()
-    model_cfg = None
-    if args.model_config:
-        with open(args.model_config) as f:
-            model_cfg = json.load(f)
+    model_cfg = read_model_config(args.model_config)
     embedder = build_embedder(cfg.amodel,
                               model_configs(model_cfg)[0].embedding_features,
                               device, checkpoint_path=args.clap_ckpt)
@@ -275,6 +328,14 @@ def main(argv=None) -> TrainState:
         dist.broadcast_object_list(run_dir, src=0)
     run_dir = run_dir[0]
     log.info("run dir: %s", run_dir)
+    if args.save:
+        full = state.state_dict()  # collective: every rank calls it
+        tag = args.save.replace(".", "_")
+        sub = export_subtree(full["model"], args.save) if rank_zero() else {}
+        Checkpointer(CheckpointConfig(run_dir / f"export_{tag}"), mesh).save(
+            state.step, {tag: sub})
+        log.info("exported %s to %s and stopping", args.save, run_dir / f"export_{tag}")
+        return state
     ckpt = Checkpointer(CheckpointConfig(
         directory=run_dir / "ckpts", monitor=cfg.monitor, mode=cfg.mode,
         save_top_k=cfg.save_top_k, save_last=cfg.save_last), mesh)

@@ -429,8 +429,10 @@ def test_deep_cache_and_the_fused_chain_raise_with_the_twins():
     node["model"]["fused_resnet"] = False
     with pytest.raises(ValueError, match="fused"):
         SyncFusionDiffusion.from_config(node, device="cpu", fused_stats=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        adp_compat.UNetV0Compat(PORT_SMALL, remat=True)
+    # remat is ported (tests/test_torch_remat.py holds it against JAX): it
+    # builds, with the same parameters as the plain twin
+    remat = adp_compat.UNetV0Compat(PORT_SMALL, remat=True)
+    assert remat.net.remat and remat.state_dict().keys() == tm.unet.state_dict().keys()
 
 
 def test_train_diffusion_trains_a_compat_config(tmp_path):

@@ -691,3 +691,83 @@ def test_condfoleygen_baseline_on_card_matches_cpu(card):
     wav, frames = chip_smoke.baseline_inputs(1)
     err = chip_smoke.baseline_cross_check(model, vocoder, wav, frames)
     assert chip_smoke.baseline_failed_gates(err) == [], err
+
+
+def test_distillation_step_kernel_counts_on_card(exact_f32):
+    """One distillation step of SMALL_MODEL, f32: two teacher forwards and
+    one student forward through K1 (5 attention calls each: 15), the
+    student's backward through K2a and K2b (5 each), the plain versions
+    never; then the guided loss (one 2B teacher forward a step): the same
+    counts.  The step's loss through the kernels against the plain
+    attention within chip_smoke.py's phase-7 tolerance (1e-5 relative)."""
+    from syncfusion_tpu_torch.train.distill import DistillConfig, ProgressiveDistiller
+
+    model = SyncFusionDiffusion.from_config(SMALL_MODEL, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    wav = 0.3 * torch.randn((2, 2048, 1), generator=gen, device="cuda")
+    onsets = torch.zeros((2, 2048, 1), device="cuda")
+    onsets[:, [100, 900], 0] = 1.0
+    emb = torch.randn((2, 1, 16), generator=gen, device="cuda")
+    batch = {"wav": wav, "onsets": onsets, "embedding": emb}
+    for scale in (1.0, 2.0):
+        ta.reset_counts()
+        _, steps = ProgressiveDistiller(model, DistillConfig(4, 2, 1, cfg_scale=scale)).distill(
+            lambda step: batch, torch.Generator(device="cuda").manual_seed(3))
+        torch.cuda.synchronize()
+        assert steps == 2
+        assert (ta.flash_attention.kernel_launches, ta.flash_attention.dq_launches,
+                ta.flash_attention.dkv_launches) == (15, 5, 5)
+        assert ta.flash_attention.plain_calls == ta.flash_attention.plain_bwd_calls == 0
+    teacher = SyncFusionDiffusion.from_config(SMALL_MODEL, device="cuda", seed=1)
+    d = ProgressiveDistiller(model)
+    i, noise = d.draws(wav, 2, torch.Generator(device="cuda").manual_seed(4))
+    kernels = d.loss(model, teacher, wav, onsets, emb, 2, i=i, noise=noise).item()
+    for m in list(model.modules()) + list(teacher.modules()):
+        if isinstance(m, SelfAttention1d):
+            m.attend = ta.attention_reference
+    plain = d.loss(model, teacher, wav, onsets, emb, 2, i=i, noise=noise).item()
+    assert math.isfinite(kernels) and abs(kernels - plain) <= 1e-5 * abs(plain)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_remat_loss_and_gradients_equal_on_card(exact_f32, fused):
+    """A training loss and every gradient of SMALL_MODEL with remat against
+    without, same parameters and draws, f32: the loss within 1e-6 relative
+    and the gradients within 1e-5 of the largest; K1/K2 launch as often
+    either way, the fused blocks' K3/K4 twice as often with remat (the
+    backward recomputes them)."""
+    import copy
+
+    node = copy.deepcopy(SMALL_MODEL)
+    if fused:
+        # the fused gate takes 32-128 channels
+        node["model"].update(channels=(32, 32, 32, 32), fused_resnet=True,
+                             fused_block_l=64)
+    runs = []
+    for remat in (False, True):
+        node["model"]["remat"] = remat
+        model = SyncFusionDiffusion.from_config(node, device="cuda", seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        wav = 0.3 * torch.randn((2, 2048, 1), generator=gen, device="cuda")
+        onsets = torch.zeros((2, 2048, 1), device="cuda")
+        onsets[:, [100, 900], 0] = 1.0
+        emb = torch.randn((2, 1, 16), generator=gen, device="cuda")
+        sigma = torch.rand((2,), generator=gen, device="cuda")
+        noise = torch.randn(wav.shape, generator=gen, device="cuda")
+        ta.reset_counts()
+        fr.reset_counts()
+        loss = model.loss(wav, onsets, emb, sigma=sigma, noise=noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = (ta.flash_attention.kernel_launches, ta.flash_attention.dq_launches,
+                  fr.affine_silu_conv.kernel_launches)
+        runs.append((loss.item(), {k: p.grad for k, p in model.named_parameters()},
+                     counts))
+    (loss_a, ga, ca), (loss_b, gb, cb) = runs
+    assert abs(loss_b - loss_a) <= 1e-6 * abs(loss_a)
+    top = max(g.abs().max().item() for g in ga.values() if g is not None)
+    for k, g in ga.items():
+        if g is not None:
+            assert (gb[k] - g).abs().max().item() <= 1e-5 * top, k
+    assert ca[:2] == cb[:2] == (5, 5)
+    assert cb[2] == 2 * ca[2] and (ca[2] > 0) == fused

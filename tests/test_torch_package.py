@@ -80,6 +80,18 @@ def test_guards_cover_the_checkpoint_modules():
         "models/vqgan/convert", "eval/style_transfer", "train/lbfgs")} <= names
 
 
+def test_guards_cover_the_tail_modules():
+    """Distillation, the raw-data tail, the video ResNet family and the
+    run utilities; the native reader's C++ source is the port's own copy."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"syncfusion_tpu_torch/{m}.py" for m in (
+        "train/distill", "distill_diffusion", "ops/denoise", "data/shard_writer",
+        "data/native", "eval/video_utils", "gh_make_synthetic", "gh_make_shards",
+        "gh_preprocess_videos", "models/video_resnet", "core/profiler",
+        "utils/misc")} <= names
+    assert (ROOT / "syncfusion_tpu_torch" / "csrc" / "sfx_io.cpp").is_file()
+
+
 def test_nothing_of_the_port_imports_the_exporter():
     """script/export_params_npz.py imports the JAX package; the port and
     chip_smoke.py reach it by no import, and it lies outside the package."""
