@@ -44,7 +44,13 @@
 // need 16-byte aligned addresses and B, L and H strides in multiples of 16
 // bytes; the wrapper checks this and raises otherwise.
 //
-// Layout: q, k, v, o, dO and the outputs are (B, L, H, 64) with any such
+// Head widths: both kernels are templates of the head width kD, built at 64
+// and at 128; the wrapper zero-pads a narrower head to the next of the two
+// and passes the true width's scale (the zero columns change no logit, no
+// delta, and come out of dq, dk and dv as 0).  At 128 the f32 tiles take
+// ~205 KB, one block an SM, and the bf16 tiles ~103 KB, two.
+//
+// Layout: q, k, v, o, dO and the outputs are (B, L, H, kD) with any such
 // element strides for B, L and H and a contiguous head dim (q, k, v may be
 // views of one qkv projection); lse and delta are contiguous (B, H, Lq) f32
 // arrays.  A ragged sequence tail is masked in the kernels.
@@ -69,20 +75,20 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src,
 
 // Shared memory of flash_bwd_dq: q, dO, then the ring of K/V tiles (two
 // stages of K and V), then lse·log2(e) and delta of the q rows.
-template <typename T>
-constexpr size_t dq_smem() {
-  return 6 * kTileElems * sizeof(T) + 2 * kTile * sizeof(float);
+template <typename T, int kD>
+__host__ __device__ constexpr size_t dq_smem() {
+  return 6 * tile_elems(kD) * sizeof(T) + 2 * kTile * sizeof(float);
 }
 // Shared memory of flash_bwd_dkv: K, V, the ring of q/dO tiles (two stages
 // of q and dO), then per stage the lse and delta slices.
-template <typename T>
-constexpr size_t dkv_smem() {
-  return 6 * kTileElems * sizeof(T) + 4 * kTile * sizeof(float);
+template <typename T, int kD>
+__host__ __device__ constexpr size_t dkv_smem() {
+  return 6 * tile_elems(kD) * sizeof(T) + 4 * kTile * sizeof(float);
 }
 
 // One block: one 64-row q tile of one (batch, head); loops over K/V tiles.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, int kD>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(dq_smem<T, kD>()))
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout, const float* __restrict__ lse,
@@ -91,6 +97,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     Strides so, Strides sdo, Strides sdq, int causal,
                     float scale) {
   constexpr bool kF32 = std::is_same<T, float>::value;  // inputs need a split
+  constexpr int kP = tile_pitch(kD);
+  constexpr int kTileElems = tile_elems(kD);
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
   T* dos = qs + kTileElems;
@@ -117,12 +125,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // q, dO, O (in stage 1's K slot, free until tile 1 is loaded) and the
   // first K/V tile, one group
   T* os = ring + 2 * kTileElems;
-  cp_tile(qs, q + b * sq.b + h * sq.h, sq.l, q0, lq, tid);
-  cp_tile(dos, dout + b * sdo.b + h * sdo.h, sdo.l, q0, lq, tid);
-  cp_tile(os, o + b * so.b + h * so.h, so.l, q0, lq, tid);
+  cp_tile<kD>(qs, q + b * sq.b + h * sq.h, sq.l, q0, lq, tid);
+  cp_tile<kD>(dos, dout + b * sdo.b + h * sdo.h, sdo.l, q0, lq, tid);
+  cp_tile<kD>(os, o + b * so.b + h * so.h, so.l, q0, lq, tid);
   if (tiles > 0) {
-    cp_tile(ring, kp, sk.l, 0, lk, tid);
-    cp_tile(ring + kTileElems, vp, sv.l, 0, lk, tid);
+    cp_tile<kD>(ring, kp, sk.l, 0, lk, tid);
+    cp_tile<kD>(ring + kTileElems, vp, sv.l, 0, lk, tid);
   }
   cp_async_commit();
   cp_async_wait_all();
@@ -153,9 +161,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const float sl = scale * kLog2e;
-  float acc[8][4];  // dQ: 8 n-tiles of 8 columns
+  float acc[kD / 8][4];  // dQ: kD / 8 n-tiles of 8 columns
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < kD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -169,16 +177,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (it + 1 < tiles) {
       T* next = ring + ((it + 1) & 1) * 2 * kTileElems;
-      cp_tile(next, kp, sk.l, k0 + kTile, lk, tid);
-      cp_tile(next + kTileElems, vp, sv.l, k0 + kTile, lk, tid);
+      cp_tile<kD>(next, kp, sk.l, k0 + kTile, lk, tid);
+      cp_tile<kD>(next + kTileElems, vp, sv.l, k0 + kTile, lk, tid);
       cp_async_commit();
     }
     const T* ks = ring + (it & 1) * 2 * kTileElems;
     const T* vs = ks + kTileElems;
 
-    // S = q Kᵀ and dP = dO Vᵀ: 8 k-steps over D, 8 n-tiles of 8 keys
+    // S = q Kᵀ and dP = dO Vᵀ: kD / 8 k-steps over D, 8 n-tiles of 8 keys
     float sd[2][8][4];
-    scores<2, kF32, T>(sd, {qs, dos}, {ks, vs}, r0, g, t);
+    scores<kD, 2, kF32, T>(sd, {qs, dos}, {ks, vs}, r0, g, t);
 
     // dS = P∘(dP - delta), P = 2^(S·scale·log2 e - lse·log2 e); masked
     // pairs (a q row or key past the end, a key after its query under the
@@ -200,8 +208,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // dQ += dS K: 8 k-steps over the tile's keys, 8 n-tiles over D
-    product_cb<kF32>(acc, sd[1], ks, g, t);
+    // dQ += dS K: 8 k-steps over the tile's keys, kD / 8 n-tiles over D
+    product_cb<kD, kF32>(acc, sd[1], ks, g, t);
   }
 
   T* dqp = dq + b * sdq.b + h * sdq.h;
@@ -210,7 +218,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + r0 + g + 8 * r;
     if (qi >= lq) continue;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < kD / 8; ++n) {
       store2(dqp + (long long)qi * sdq.l + 8 * n + 2 * t,
              acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
     }
@@ -221,8 +229,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Keys are the M index of every product: Sᵀ = K qᵀ and dPᵀ = V dOᵀ leave
 // Pᵀ and dSᵀ in C registers with keys as rows, which is A of dV = Pᵀ dO and
 // dK = dSᵀ q; lse and delta are indexed by column.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, int kD>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(dkv_smem<T, kD>()))
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -231,6 +239,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      Strides sk, Strides sv, Strides sdo, Strides sdk,
                      Strides sdv, int causal, float scale) {
   constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kTileElems = tile_elems(kD);
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
   T* vs = ks + kTileElems;
@@ -259,8 +268,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = (it - first) & 1;
     const int q0 = it * kTile;
     T* stage = ring + s * 2 * kTileElems;
-    cp_tile(stage, qp, sq.l, q0, lq, tid);
-    cp_tile(stage + kTileElems, dop, sdo.l, q0, lq, tid);
+    cp_tile<kD>(stage, qp, sq.l, q0, lq, tid);
+    cp_tile<kD>(stage + kTileElems, dop, sdo.l, q0, lq, tid);
     if (tid < kTile) {
       load_vec(vecs + s * 2 * kTile, lsep, q0, lq, tid);
     } else {
@@ -269,15 +278,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   // K, V and the first q/dO tile, one group
-  cp_tile(ks, k + b * sk.b + h * sk.h, sk.l, k0, lk, tid);
-  cp_tile(vs, v + b * sv.b + h * sv.h, sv.l, k0, lk, tid);
+  cp_tile<kD>(ks, k + b * sk.b + h * sk.h, sk.l, k0, lk, tid);
+  cp_tile<kD>(vs, v + b * sv.b + h * sv.h, sv.l, k0, lk, tid);
   if (first < q_tiles) load_q_tile(first);
   cp_async_commit();
 
   const float sl = scale * kLog2e;
-  float dk_acc[8][4], dv_acc[8][4];  // 8 n-tiles of 8 columns
+  float dk_acc[kD / 8][4], dv_acc[kD / 8][4];  // kD / 8 n-tiles of 8 columns
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < kD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
@@ -297,9 +306,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* lse_s = vecs + s_ * 2 * kTile;
     const float* delta_s = lse_s + kTile;
 
-    // Sᵀ = K qᵀ and dPᵀ = V dOᵀ: 8 k-steps over D, 8 n-tiles of 8 queries
+    // Sᵀ = K qᵀ and dPᵀ = V dOᵀ: kD / 8 k-steps over D, 8 n-tiles of 8
+    // queries
     float sd[2][8][4];
-    scores<2, kF32, T>(sd, {ks, vs}, {qs, dos}, r0, g, t);
+    scores<kD, 2, kF32, T>(sd, {ks, vs}, {qs, dos}, r0, g, t);
 
     // Pᵀ and dSᵀ; column 8j + 2t + (e & 1) is the query, row g + 8(e >> 1)
     // the key
@@ -325,10 +335,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // dV += Pᵀ dO, then dK += dSᵀ q: 8 k-steps over the tile's queries, 8
-    // n-tiles over D
-    product_cb<kF32>(dv_acc, sd[0], dos, g, t);
-    product_cb<kF32>(dk_acc, sd[1], qs, g, t);
+    // dV += Pᵀ dO, then dK += dSᵀ q: 8 k-steps over the tile's queries,
+    // kD / 8 n-tiles over D
+    product_cb<kD, kF32>(dv_acc, sd[0], dos, g, t);
+    product_cb<kD, kF32>(dk_acc, sd[1], qs, g, t);
   }
   cp_async_wait_all();  // nothing in flight (K/V only if no q tile ran)
 
@@ -339,7 +349,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int kj = k0 + r0 + g + 8 * r;
     if (kj >= lk) continue;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < kD / 8; ++n) {
       store2(dkp + (long long)kj * sdk.l + 8 * n + 2 * t,
              dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
       store2(dvp + (long long)kj * sdv.l + 8 * n + 2 * t, dv_acc[n][2 * r],
@@ -352,15 +362,16 @@ Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-template <typename T>
+template <typename T, int kD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       float* delta, void* dq, int batch, int heads, int lq,
                       int lk, const long long* st, int causal, float scale,
                       cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T>;
-  constexpr size_t smem = dq_smem<T>();
-  cudaError_t err = set_smem(kernel, smem);
+  auto kernel = flash_bwd_dq_kernel<T, kD>;
+  constexpr size_t smem = dq_smem<T, kD>();
+  static bool attr_set[kMaxDevices] = {};
+  cudaError_t err = set_smem_once(kernel, smem, attr_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((lq + kTile - 1) / kTile, batch * heads);
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -372,15 +383,16 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int kD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int batch, int heads, int lq,
                        int lk, const long long* st, int causal, float scale,
                        cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T>;
-  constexpr size_t smem = dkv_smem<T>();
-  cudaError_t err = set_smem(kernel, smem);
+  auto kernel = flash_bwd_dkv_kernel<T, kD>;
+  constexpr size_t smem = dkv_smem<T, kD>();
+  static bool attr_set[kMaxDevices] = {};
+  cudaError_t err = set_smem_once(kernel, smem, attr_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((lk + kTile - 1) / kTile, batch * heads);
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -392,61 +404,78 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Launches `Launch<T, kD>::run(args...)` for dtype (0 = float32, 1 =
+// bfloat16) and head_dim (64 or 128); cudaErrorInvalidValue for any other.
+template <template <typename, int> class Launch, typename... Args>
+cudaError_t dispatch(int dtype, int head_dim, Args... args) {
+  if (dtype == 0 && head_dim == 64) return Launch<float, 64>::run(args...);
+  if (dtype == 0 && head_dim == 128) return Launch<float, 128>::run(args...);
+  if (dtype == 1 && head_dim == 64)
+    return Launch<__nv_bfloat16, 64>::run(args...);
+  if (dtype == 1 && head_dim == 128)
+    return Launch<__nv_bfloat16, 128>::run(args...);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int kD>
+struct DqLaunch {
+  template <typename... Args>
+  static cudaError_t run(Args... args) { return launch_dq<T, kD>(args...); }
+};
+template <typename T, int kD>
+struct DkvLaunch {
+  template <typename... Args>
+  static cudaError_t run(Args... args) { return launch_dkv<T, kD>(args...); }
+};
+
+template <typename T, int kD>
+struct SmemOf {
+  static cudaError_t run(int kernel, int* bytes) {
+    *bytes = static_cast<int>(kernel == 0 ? dq_smem<T, kD>()
+                                          : dkv_smem<T, kD>());
+    return cudaSuccess;
+  }
+};
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  `strides` holds the (b, l, h) element
-// strides of q, k, v, o, dout, dq in that order (18 values).  Writes dq and
-// delta = rowsum(dout∘o).  Returns the launch's cudaError_t (0 on success);
-// the caller raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128, the instantiation
+// (q, k, v, o, dout and dq are that wide).  `strides` holds the (b, l, h)
+// element strides of q, k, v, o, dout, dq in that order (18 values).
+// Writes dq and delta = rowsum(dout∘o).  Returns the launch's cudaError_t
+// (0 on success); the caller raises on anything else.
 extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
                             const void* v, const void* o, const void* dout,
                             const float* lse, float* delta, void* dq,
-                            int batch, int heads, int lq, int lk,
+                            int batch, int heads, int lq, int lk, int head_dim,
                             const long long* strides, int causal, float scale,
                             void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return static_cast<int>(launch_dq<float>(q, k, v, o, dout, lse, delta, dq,
-                                             batch, heads, lq, lk, strides,
-                                             causal, scale, s));
-  }
-  if (dtype == 1) {
-    return static_cast<int>(launch_dq<__nv_bfloat16>(
-        q, k, v, o, dout, lse, delta, dq, batch, heads, lq, lk, strides,
-        causal, scale, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch<DqLaunch>(
+      dtype, head_dim, q, k, v, o, dout, lse, delta, dq, batch, heads, lq, lk,
+      strides, causal, scale, static_cast<cudaStream_t>(stream)));
 }
 
-// dtype as above.  `strides` holds the (b, l, h) element strides of q, k, v,
-// dout, dk, dv in that order (18 values); delta is flash_bwd_dq's.
+// dtype and head_dim as above.  `strides` holds the (b, l, h) element
+// strides of q, k, v, dout, dk, dv in that order (18 values); delta is
+// flash_bwd_dq's.
 extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
                              const void* v, const void* dout, const float* lse,
                              const float* delta, void* dk, void* dv, int batch,
-                             int heads, int lq, int lk,
+                             int heads, int lq, int lk, int head_dim,
                              const long long* strides, int causal,
                              float scale, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return static_cast<int>(launch_dkv<float>(q, k, v, dout, lse, delta, dk,
-                                              dv, batch, heads, lq, lk,
-                                              strides, causal, scale, s));
-  }
-  if (dtype == 1) {
-    return static_cast<int>(launch_dkv<__nv_bfloat16>(
-        q, k, v, dout, lse, delta, dk, dv, batch, heads, lq, lk, strides,
-        causal, scale, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch<DkvLaunch>(
+      dtype, head_dim, q, k, v, dout, lse, delta, dk, dv, batch, heads, lq, lk,
+      strides, causal, scale, static_cast<cudaStream_t>(stream)));
 }
 
 // The dynamic shared memory in bytes that each launch of flash_bwd_dq
-// (kernel 0) or flash_bwd_dkv (kernel 1) asks for, dtype as above; -1 for
-// an unknown kernel or dtype.
-extern "C" int flash_bwd_smem(int kernel, int dtype) {
-  if (kernel == 0 && dtype == 0) return static_cast<int>(dq_smem<float>());
-  if (kernel == 0 && dtype == 1) return static_cast<int>(dq_smem<__nv_bfloat16>());
-  if (kernel == 1 && dtype == 0) return static_cast<int>(dkv_smem<float>());
-  if (kernel == 1 && dtype == 1) return static_cast<int>(dkv_smem<__nv_bfloat16>());
-  return -1;
+// (kernel 0) or flash_bwd_dkv (kernel 1) asks for, dtype and head_dim as
+// above; -1 for an unknown kernel, dtype or width.
+extern "C" int flash_bwd_smem(int kernel, int dtype, int head_dim) {
+  int bytes = -1;
+  if (kernel != 0 && kernel != 1) return -1;
+  if (dispatch<SmemOf>(dtype, head_dim, kernel, &bytes) != cudaSuccess)
+    return -1;
+  return bytes;
 }

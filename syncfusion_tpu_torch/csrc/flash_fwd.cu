@@ -54,7 +54,15 @@
 //   TF32 rate (165 TFLOP/s).  The same cp.async contract as bf16: 16-byte
 //   aligned inputs, B, L and H strides in multiples of 4 elements.
 //
-// Layout: q, k, v, o are (B, L, H, 64) with such element strides for B, L
+// Head widths: every kernel is a template of the head width kD and is built
+// at 64 and at 128; the wrapper zero-pads a narrower head to the next of
+// the two (the zero columns change no logit, and O's come out 0) and passes
+// the true width's scale.  At 128 the f32 kernel takes one block an SM (170
+// KB of tiles) and the bf16 kernel one m16 tile a warp (64 query rows a
+// block, 80 KB of tiles): two tiles a warp would hold a 128-register O
+// accumulator beside S.
+//
+// Layout: q, k, v, o are (B, L, H, kD) with such element strides for B, L
 // and H and a contiguous head dim (so q, k, v may be views of one qkv
 // projection); lse is a contiguous (B, H, Lq) f32 array.  A ragged sequence
 // tail is masked in the kernel.
@@ -74,18 +82,23 @@ namespace {
 // ---------------------------------------------------------------------------
 
 // Shared memory of flash_fwd_3xtf32_kernel: the q tile, then the ring of K/V
-// tiles (two stages of K and V), f32 at pitch kP.
-constexpr size_t f32_smem() { return 5 * kTileElems * sizeof(float); }
+// tiles (two stages of K and V), f32 at pitch kD + 8.
+template <int kD>
+__host__ __device__ constexpr size_t f32_smem() {
+  return 5 * tile_elems(kD) * sizeof(float);
+}
 
 // One block: one 64-row q tile of one (batch, head), 16 rows a warp; loops
 // over the 64-key K/V tiles.
-__global__ void __launch_bounds__(kThreads, 2)
+template <int kD>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(f32_smem<kD>()))
 flash_fwd_3xtf32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
                         float* __restrict__ lse, int heads, int lq, int lk,
                         Strides sq, Strides sk, Strides sv, Strides so,
                         int causal, float scale) {
+  constexpr int kTileElems = tile_elems(kD);
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* ring = qs + kTileElems;  // stage s: K at ring + 2s·kTileElems, then V
@@ -107,17 +120,17 @@ flash_fwd_3xtf32_kernel(const float* __restrict__ q,
   if (causal) tiles = min(tiles, (int)blockIdx.x + 1);
 
   // q and the first K/V tile, one group
-  cp_tile(qs, q + b * sq.b + h * sq.h, sq.l, q0, lq, tid);
+  cp_tile<kD>(qs, q + b * sq.b + h * sq.h, sq.l, q0, lq, tid);
   if (tiles > 0) {
-    cp_tile(ring, kp, sk.l, 0, lk, tid);
-    cp_tile(ring + kTileElems, vp, sv.l, 0, lk, tid);
+    cp_tile<kD>(ring, kp, sk.l, 0, lk, tid);
+    cp_tile<kD>(ring + kTileElems, vp, sv.l, 0, lk, tid);
   }
   cp_async_commit();
 
   const float sl = scale * kLog2e;
-  float acc[8][4];  // O: 8 n-tiles of 8 columns
+  float acc[kD / 8][4];  // O: kD / 8 n-tiles of 8 columns
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < kD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   // rows g and g + 8: the row max of S·sl (log2 domain) and this thread's
@@ -133,16 +146,16 @@ flash_fwd_3xtf32_kernel(const float* __restrict__ q,
     __syncthreads();
     if (it + 1 < tiles) {
       float* next = ring + ((it + 1) & 1) * 2 * kTileElems;
-      cp_tile(next, kp, sk.l, k0 + kTile, lk, tid);
-      cp_tile(next + kTileElems, vp, sv.l, k0 + kTile, lk, tid);
+      cp_tile<kD>(next, kp, sk.l, k0 + kTile, lk, tid);
+      cp_tile<kD>(next + kTileElems, vp, sv.l, k0 + kTile, lk, tid);
       cp_async_commit();
     }
     const float* ks = ring + (it & 1) * 2 * kTileElems;
     const float* vs = ks + kTileElems;
 
-    // S = q Kᵀ: 8 k-steps over D, 8 n-tiles of 8 keys, q and K split
+    // S = q Kᵀ: kD / 8 k-steps over D, 8 n-tiles of 8 keys, q and K split
     float s[1][8][4];
-    scores<1, true, float>(s, {qs}, {ks}, r0, g, t);
+    scores<kD, 1, true, float>(s, {qs}, {ks}, r0, g, t);
 
     // online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3), in the log2
     // domain: p = 2^(S·sl - max), sl = scale·log2(e) > 0, so the max of
@@ -181,13 +194,17 @@ flash_fwd_3xtf32_kernel(const float* __restrict__ q,
         const float p = ex2(fmaf(s[0][j][e], sl, -shift[e >> 1]));
         s[0][j][e] = p;
         l[e >> 1] += p;
-        acc[j][e] *= alpha[e >> 1];
       }
     }
+    // O's kD / 8 n-tiles (S's 8 n-tiles are keys, O's are head columns)
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
 
     // O += P V: P from the C registers, split like V; this tile's terms in
     // a partial sum added to O in f32
-    product_cb<true>(acc, s[0], vs, g, t);
+    product_cb<kD, true>(acc, s[0], vs, g, t);
   }
   cp_async_wait_all();  // nothing in flight (q and K/V only if tiles == 0)
 
@@ -203,7 +220,7 @@ flash_fwd_3xtf32_kernel(const float* __restrict__ q,
     const int qi = q0 + r0 + g + 8 * r;
     if (qi >= lq) continue;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < kD / 8; ++n)
       store2(op + qi * so.l + 8 * n + 2 * t, acc[n][2 * r] * inv,
              acc[n][2 * r + 1] * inv);
     // LSE = (m2 + log2 l)·ln 2, the natural log of the scaled logits
@@ -212,15 +229,18 @@ flash_fwd_3xtf32_kernel(const float* __restrict__ q,
   }
 }
 
+template <int kD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        float* lse, int batch, int heads, int lq, int lk,
                        Strides sq, Strides sk, Strides sv, Strides so,
                        int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = f32_smem();
-  cudaError_t err = set_smem(flash_fwd_3xtf32_kernel, smem);
+  constexpr size_t smem = f32_smem<kD>();
+  static bool attr_set[kMaxDevices] = {};
+  cudaError_t err =
+      set_smem_once(flash_fwd_3xtf32_kernel<kD>, smem, attr_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((lq + kTile - 1) / kTile, batch * heads);
-  flash_fwd_3xtf32_kernel<<<grid, kThreads, smem, stream>>>(
+  flash_fwd_3xtf32_kernel<kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, heads, lq, lk,
       sq, sk, sv, so, causal, scale);
@@ -246,39 +266,54 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   lo = pack_bf16(x0 - hf.x, x1 - hf.y);
 }
 
-// The block: 4 warps of 32 query rows, kMt = 2 m16 tiles a warp, so every
-// K/V fragment read from shared memory feeds two products.  On an H100 it
-// ran 1.14x faster than 4 warps of 16 rows and 1.32x faster than 8 warps of
-// 16 rows at T = 2048 (PERF.md §6).
+// The block: 4 warps of kMt m16 tiles.  At kD = 64, kMt = 2 (32 query rows
+// a warp), so every K/V fragment read from shared memory feeds two
+// products: on an H100 it ran 1.14x faster than 4 warps of 16 rows and
+// 1.32x faster than 8 warps of 16 rows at T = 2048 (PERF.md §6).  At kD =
+// 128, kMt = 1: two tiles would hold 128 registers of O beside S's 64.
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
-constexpr int kMt = 2;             // m16 tiles a warp
-constexpr int kRowsW = 16 * kMt;   // query rows a warp
-constexpr int kRowsQ = kRowsW * kTcWarps;  // query rows a block
-constexpr int kChunks = kD / 8;  // 16-byte chunks of a 64-wide bf16 row
+// m16 tiles a warp, and query rows a block
+__host__ __device__ constexpr int tc_mt(int kd) { return kd == 64 ? 2 : 1; }
+__host__ __device__ constexpr int tc_rows(int kd) {
+  return 16 * tc_mt(kd) * kTcWarps;
+}
 
-// Element offset of (row, 16-byte chunk) in a swizzled 64-wide bf16 tile.
+// Element offset of (row, 16-byte chunk) in a swizzled bf16 tile of kD
+// columns: the chunk's low 3 bits XOR the row's, so the 8 rows an ldmatrix
+// phase reads (each row's chunk at one bank group at pitch 128 or 256
+// bytes) fall on 8 different bank groups.
+template <int kD>
 __device__ __forceinline__ int swz(int row, int chunk) {
   return row * kD + ((chunk ^ (row & 7)) << 3);
 }
 
-// cp.async `kRows` rows of a (., 64) bf16 matrix, row r at src + r·ld, into
+// Shared memory of flash_fwd_tc_kernel: the q rows of the block, then the
+// ring of K/V tiles (two stages of K and V), bf16, swizzled.
+template <int kD>
+__host__ __device__ constexpr size_t tc_smem() {
+  return (tc_rows(kD) + 4 * kTile) * kD * sizeof(__nv_bfloat16);
+}
+
+// cp.async `kRows` rows of a (., kD) bf16 matrix, row r at src + r·ld, into
 // a swizzled tile, by the block's threads; rows >= limit are zero-filled.
-template <int kRows>
+template <int kD, int kRows>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
                                           const __nv_bfloat16* src,
                                           long long ld, int row0, int limit,
                                           int tid) {
+  constexpr int kChunks = kD / 8;  // 16-byte chunks of a row
 #pragma unroll
   for (int i = tid; i < kRows * kChunks; i += kTcThreads) {
     const int r = i / kChunks;
     const int c = i % kChunks;
     const bool in = row0 + r < limit;
-    cp_async_16(tile + swz(r, c), in ? src + (row0 + r) * ld + c * 8 : src,
+    cp_async_16(tile + swz<kD>(r, c), in ? src + (row0 + r) * ld + c * 8 : src,
                 in);
   }
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -286,8 +321,15 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                     int heads, int lq, int lk, Strides sq, Strides sk,
                     Strides sv, Strides so, int causal, float scale) {
-  __shared__ __align__(128) __nv_bfloat16 qs[kRowsQ * kD];
-  __shared__ __align__(128) __nv_bfloat16 kvs[2][2][kTile * kD];  // stage, k|v
+  constexpr int kMt = tc_mt(kD);
+  constexpr int kRowsW = 16 * kMt;  // query rows a warp
+  constexpr int kRowsQ = tc_rows(kD);
+  constexpr int kChunks = kD / 8;
+  constexpr int kKv = kTile * kD;   // elements of one K or V tile
+  extern __shared__ __align__(128) unsigned char tc_smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(tc_smem_raw);
+  // stage s: K at kvs + 2s·kKv, then V
+  __nv_bfloat16* kvs = qs + kRowsQ * kD;
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
@@ -309,18 +351,18 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Q and the first K/V tile, one group
   if (tiles > 0) {
-    load_tile<kRowsQ>(qs, qp, sq.l, q0, lq, tid);
-    load_tile<kTile>(kvs[0][0], kp, sk.l, 0, lk, tid);
-    load_tile<kTile>(kvs[0][1], vp, sv.l, 0, lk, tid);
+    load_tile<kD, kRowsQ>(qs, qp, sq.l, q0, lq, tid);
+    load_tile<kD, kTile>(kvs, kp, sk.l, 0, lk, tid);
+    load_tile<kD, kTile>(kvs + kKv, vp, sv.l, 0, lk, tid);
     cp_async_commit();
   }
 
   const float sl = scale * 1.4426950408889634f;  // scale · log2(e)
-  float acc[kMt][8][4];  // O: per m16 tile, 8 n-tiles of 8 columns
+  float acc[kMt][kD / 8][4];  // O: per m16 tile, kD / 8 n-tiles of 8 columns
 #pragma unroll
   for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kD / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
   // per m16 tile, rows g and g + 8: the row max of S·sl (log2 domain) and
@@ -341,17 +383,18 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_wait_all();
     __syncthreads();
     if (t + 1 < tiles) {
-      load_tile<kTile>(kvs[(t + 1) & 1][0], kp, sk.l, k0 + kTile, lk, tid);
-      load_tile<kTile>(kvs[(t + 1) & 1][1], vp, sv.l, k0 + kTile, lk, tid);
+      __nv_bfloat16* next = kvs + ((t + 1) & 1) * 2 * kKv;
+      load_tile<kD, kTile>(next, kp, sk.l, k0 + kTile, lk, tid);
+      load_tile<kD, kTile>(next + kKv, vp, sv.l, k0 + kTile, lk, tid);
       cp_async_commit();
     }
     // causal: a warp whose rows all precede the tile's keys skips it
     if (causal && k0 > qw + kRowsW - 1) continue;
-    const __nv_bfloat16* ktile = kvs[t & 1][0];
-    const __nv_bfloat16* vtile = kvs[t & 1][1];
+    const __nv_bfloat16* ktile = kvs + (t & 1) * 2 * kKv;
+    const __nv_bfloat16* vtile = ktile + kKv;
 
-    // S = Q K^T: 4 k-steps of 16 over D; in each, Q's A-fragments and the
-    // B-fragments of 8 n-tiles of 8 keys, two n-tiles per ldmatrix
+    // S = Q K^T: kD / 16 k-steps of 16 over D; in each, Q's A-fragments and
+    // the B-fragments of 8 n-tiles of 8 keys, two n-tiles per ldmatrix
     float s[kMt][8][4];
 #pragma unroll
     for (int mt = 0; mt < kMt; ++mt)
@@ -360,17 +403,17 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < kD / 16; ++kk) {
       uint32_t qa[kMt][4];
 #pragma unroll
       for (int mt = 0; mt < kMt; ++mt)
-        ldsm_x4(qa[mt], qs + swz(kRowsW * warp + 16 * mt + (lane & 15),
-                                 2 * kk + (lane >> 4)));
+        ldsm_x4(qa[mt], qs + swz<kD>(kRowsW * warp + 16 * mt + (lane & 15),
+                                     2 * kk + (lane >> 4)));
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t kb[4];
-        ldsm_x4(kb, ktile + swz(16 * jp + (lane & 7) + 8 * (lane >> 4),
-                                2 * kk + ((lane >> 3) & 1)));
+        ldsm_x4(kb, ktile + swz<kD>(16 * jp + (lane & 7) + 8 * (lane >> 4),
+                                    2 * kk + ((lane >> 3) & 1)));
 #pragma unroll
         for (int mt = 0; mt < kMt; ++mt) {
           mma_16816(s[mt][2 * jp], qa[mt], kb[0], kb[1]);
@@ -419,9 +462,13 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
           const float p = ex2(fmaf(s[mt][j][e], sl, -shift[e >> 1]));
           s[mt][j][e] = p;
           l[mt][e >> 1] += p;
-          acc[mt][j][e] *= alpha[e >> 1];
         }
       }
+      // O's kD / 8 n-tiles (S's 8 n-tiles are keys, O's are head columns)
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][n][e] *= alpha[e >> 1];
     }
 
     // O += P V.  P's A-fragment for keys 16kk.. is S's n-tiles 2kk and
@@ -441,10 +488,10 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
         split_bf16(s1[2], s1[3], ph[mt][3], pl[mt][3]);
       }
 #pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
+      for (int dp = 0; dp < kD / 16; ++dp) {
         uint32_t vb[4];
-        ldsm_x4_t(vb, vtile + swz(16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1),
-                                  2 * dp + (lane >> 4)));
+        ldsm_x4_t(vb, vtile + swz<kD>(16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1),
+                                      2 * dp + (lane >> 4)));
 #pragma unroll
         for (int mt = 0; mt < kMt; ++mt) {
           mma_16816(acc[mt][2 * dp], ph[mt], vb[0], vb[1]);
@@ -471,8 +518,8 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
       const float inv = 1.f / l_safe;
       const int row = 16 * mt + g + 8 * r;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint32_t*>(ow + swz(row, j) + 2 * tig) =
+      for (int j = 0; j < kD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(ow + swz<kD>(row, j) + 2 * tig) =
             pack_bf16(acc[mt][j][2 * r] * inv, acc[mt][j][2 * r + 1] * inv);
       // LSE = (m2 + log2 l)·ln 2, the natural log of the scaled logits
       if (tig == 0 && qw + row < lq)
@@ -488,53 +535,68 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int c = i % kChunks;
     if (qw + r < lq)
       *reinterpret_cast<uint4*>(op + (qw + r) * so.l + c * 8) =
-          *reinterpret_cast<const uint4*>(ow + swz(r, c));
+          *reinterpret_cast<const uint4*>(ow + swz<kD>(r, c));
   }
 }
 
-void launch_tc(const void* q, const void* k, const void* v, void* o,
-               float* lse, int batch, int heads, int lq, int lk, Strides sq,
-               Strides sk, Strides sv, Strides so, int causal, float scale,
-               cudaStream_t stream) {
-  const dim3 grid((lq + kRowsQ - 1) / kRowsQ, batch * heads);
-  flash_fwd_tc_kernel<<<grid, kTcThreads, 0, stream>>>(
+template <int kD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int batch, int heads, int lq, int lk,
+                      Strides sq, Strides sk, Strides sv, Strides so,
+                      int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem<kD>();
+  static bool attr_set[kMaxDevices] = {};
+  cudaError_t err =
+      set_smem_once(flash_fwd_tc_kernel<kD>, smem, attr_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((lq + tc_rows(kD) - 1) / tc_rows(kD), batch * heads);
+  flash_fwd_tc_kernel<kD><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
       heads, lq, lk, sq, sk, sv, so, causal, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (tensor cores, 3xTF32), 1 = bfloat16 (tensor cores).
+// dtype: 0 = float32 (tensor cores, 3xTF32), 1 = bfloat16 (tensor cores);
+// head_dim: 64 or 128, the instantiation (q, k, v and o are that wide).
 // Strides are in elements.  Returns the launch's cudaError_t (0 on
 // success); the caller raises on anything else.
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                          const void* v, void* o, float* lse, int batch,
-                         int heads, int lq, int lk, long long q_sb,
-                         long long q_sl, long long q_sh, long long k_sb,
-                         long long k_sl, long long k_sh, long long v_sb,
-                         long long v_sl, long long v_sh, long long o_sb,
-                         long long o_sl, long long o_sh, int causal,
-                         float scale, void* stream) {
+                         int heads, int lq, int lk, int head_dim,
+                         long long q_sb, long long q_sl, long long q_sh,
+                         long long k_sb, long long k_sl, long long k_sh,
+                         long long v_sb, long long v_sl, long long v_sh,
+                         long long o_sb, long long o_sl, long long o_sh,
+                         int causal, float scale, void* stream) {
   const Strides sq{q_sb, q_sl, q_sh}, sk{k_sb, k_sl, k_sh},
       sv{v_sb, v_sl, v_sh}, so{o_sb, o_sl, o_sh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return static_cast<int>(launch_f32(q, k, v, o, lse, batch, heads, lq, lk,
-                                       sq, sk, sv, so, causal, scale, s));
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && head_dim == 64) {
+    err = launch_f32<64>(q, k, v, o, lse, batch, heads, lq, lk, sq, sk, sv,
+                         so, causal, scale, s);
+  } else if (dtype == 0 && head_dim == 128) {
+    err = launch_f32<128>(q, k, v, o, lse, batch, heads, lq, lk, sq, sk, sv,
+                          so, causal, scale, s);
+  } else if (dtype == 1 && head_dim == 64) {
+    err = launch_tc<64>(q, k, v, o, lse, batch, heads, lq, lk, sq, sk, sv,
+                        so, causal, scale, s);
+  } else if (dtype == 1 && head_dim == 128) {
+    err = launch_tc<128>(q, k, v, o, lse, batch, heads, lq, lk, sq, sk, sv,
+                         so, causal, scale, s);
   }
-  if (dtype == 1) {
-    launch_tc(q, k, v, o, lse, batch, heads, lq, lk, sq, sk, sv, so, causal,
-              scale, s);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
 }
 
 // The dynamic shared memory in bytes that each launch of flash_fwd asks for,
-// dtype as above (the bf16 kernel's is static: 0); -1 for an unknown dtype.
-extern "C" int flash_fwd_smem(int dtype) {
-  if (dtype == 0) return static_cast<int>(f32_smem());
-  if (dtype == 1) return 0;
+// dtype and head_dim as above; -1 for an unknown dtype or width.
+extern "C" int flash_fwd_smem(int dtype, int head_dim) {
+  if (dtype == 0 && head_dim == 64) return static_cast<int>(f32_smem<64>());
+  if (dtype == 0 && head_dim == 128) return static_cast<int>(f32_smem<128>());
+  if (dtype == 1 && head_dim == 64) return static_cast<int>(tc_smem<64>());
+  if (dtype == 1 && head_dim == 128) return static_cast<int>(tc_smem<128>());
   return -1;
 }

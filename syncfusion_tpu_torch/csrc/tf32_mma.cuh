@@ -6,8 +6,10 @@
 //
 // Every product runs on `mma.sync.m16n8k8` with tf32 operands and an f32
 // accumulator; in the attention kernels 4 warps a block, 16 rows (one m16
-// tile) a warp, over shared tiles of 64 rows of D = 64 columns (the
-// helpers below past `split`).  TF32 keeps 10 of f32's 23 mantissa
+// tile) a warp, over shared tiles of 64 rows of kD columns, the head width
+// (a template parameter of the helpers below past `split`: 64, or 128 for
+// heads of 65-128 features; a narrower head is zero-padded to 64 by the
+// wrapper).  TF32 keeps 10 of f32's 23 mantissa
 // bits, which alone misses the f32 gates by 4-9x, so an f32 operand x
 // enters as two tf32 values, big = x rounded and small = x - big, and a
 // product a·b as small·big + big·small + big·big, small terms first.  bf16
@@ -28,8 +30,9 @@
 // them as k = t and k = t + 4 in the order (2t + h, 2t + 1 - h), h = t / 2,
 // and B reads the matching tile rows.  That order spreads the four lanes of
 // a quad over four rows whose shared-memory banks differ, so every fragment
-// load is free of bank conflicts at a row pitch of 72 elements (f32 and
-// bf16 alike).
+// load is free of bank conflicts at a row pitch of kD + 8 elements (f32 and
+// bf16 alike, at kD = 64 and 128: the pitch is 8 banks mod 32 in f32 and 4
+// in bf16 either way).
 
 #pragma once
 
@@ -42,14 +45,22 @@
 
 namespace {
 
-constexpr int kD = 64;      // head dim
 constexpr int kTile = 64;   // rows of every tile: q rows and keys alike
 constexpr int kWarps = 4;   // 16 rows, one m16 tile, a warp
 constexpr int kThreads = 32 * kWarps;
-// Row pitch of the shared tiles, in elements, f32 and bf16 alike: with 8
-// elements of padding every fragment load below hits 32 distinct banks.
-constexpr int kP = kD + 8;
-constexpr int kTileElems = kTile * kP;
+// Row pitch of the shared tiles of kD columns, in elements, f32 and bf16
+// alike: with 8 elements of padding every fragment load below hits 32
+// distinct banks.
+__host__ __device__ constexpr int tile_pitch(int kd) { return kd + 8; }
+__host__ __device__ constexpr int tile_elems(int kd) {
+  return kTile * tile_pitch(kd);
+}
+// Blocks of `smem` bytes of shared memory that fit on one SM (228 KB, of
+// which the system takes 1 KB a block), capped at 2: the kernels' minimum
+// for __launch_bounds__.
+__host__ __device__ constexpr int blocks_per_sm(size_t smem) {
+  return 2 * (smem + 1024) <= 233472 ? 2 : 1;
+}
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
@@ -129,10 +140,11 @@ __device__ __forceinline__ void mma3_x4(D d, A ab, M am,
 // A of k-step kk from rows r0 + g and r0 + g + 8 of a shared tile whose
 // columns are the k index: columns 8kk + 2t and 8kk + 2t + 1 as k = t and
 // k = t + 4.
-template <typename T>
+template <int kD, typename T>
 __device__ __forceinline__ void a_rows(const T* tile, int r0, int kk, int g,
                                        int t, uint32_t (&big)[4],
                                        uint32_t (&small)[4]) {
+  constexpr int kP = tile_pitch(kD);
   load2(tile + (r0 + g) * kP + 8 * kk + 2 * t, big[0], big[2], small[0],
         small[2]);
   load2(tile + (r0 + g + 8) * kP + 8 * kk + 2 * t, big[1], big[3], small[1],
@@ -141,10 +153,11 @@ __device__ __forceinline__ void a_rows(const T* tile, int r0, int kk, int g,
 
 // B of k-step kk, n-tile j, from a shared tile whose rows are the n index
 // (the product with the tile transposed): row 8j + g, columns as a_rows.
-template <typename T>
+template <int kD, typename T>
 __device__ __forceinline__ void b_rows(const T* tile, int j, int kk, int g,
                                        int t, uint32_t (&big)[2],
                                        uint32_t (&small)[2]) {
+  constexpr int kP = tile_pitch(kD);
   load2(tile + (8 * j + g) * kP + 8 * kk + 2 * t, big[0], big[1], small[0],
         small[1]);
 }
@@ -164,20 +177,21 @@ __device__ __forceinline__ void a_from_c(const float (&c)[4], int t,
 
 // B of k-step j, n-tile n, from a shared tile whose rows are the k index,
 // in a_from_c's order: rows 8j + 2t + h and 8j + 2t + 1 - h, column 8n + g.
-template <typename T>
+template <int kD, typename T>
 __device__ __forceinline__ void b_cols(const T* tile, int j, int n, int g,
                                        int t, uint32_t (&big)[2],
                                        uint32_t (&small)[2]) {
+  constexpr int kP = tile_pitch(kD);
   const int h = t >> 1;
   load1(tile + (8 * j + 2 * t + h) * kP + 8 * n + g, big[0], small[0]);
   load1(tile + (8 * j + 2 * t + 1 - h) * kP + 8 * n + g, big[1], small[1]);
 }
 
 // sd[i] = a[i]·b[i]ᵀ for kN = 1 or 2 products of one 16-row m16 tile (8
-// n-tiles of 8 rows of the shared tiles b[i] each), by 8 k-steps over D: A
-// from rows r0 .. r0 + 15 of shared tiles a[i], four n-tiles at a time
+// n-tiles of 8 rows of the shared tiles b[i] each), by kD / 8 k-steps over
+// D: A from rows r0 .. r0 + 15 of shared tiles a[i], four n-tiles at a time
 // (two of each product when kN = 2).
-template <int kN, bool kSplit, typename T>
+template <int kD, int kN, bool kSplit, typename T>
 __device__ __forceinline__ void scores(float (&sd)[kN][8][4],
                                        const T* const (&a)[kN],
                                        const T* const (&b)[kN], int r0, int g,
@@ -190,16 +204,16 @@ __device__ __forceinline__ void scores(float (&sd)[kN][8][4],
 #pragma unroll
       for (int e = 0; e < 4; ++e) sd[i][j][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < kD / 8; ++kk) {
     uint32_t ab[kN][4], am[kN][4];
 #pragma unroll
-    for (int i = 0; i < kN; ++i) a_rows(a[i], r0, kk, g, t, ab[i], am[i]);
+    for (int i = 0; i < kN; ++i) a_rows<kD>(a[i], r0, kk, g, t, ab[i], am[i]);
 #pragma unroll
     for (int jp = 0; jp < 8; jp += kPer) {
       uint32_t bb[4][2], bm[4][2];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        b_rows(b[u / kPer], jp + u % kPer, kk, g, t, bb[u], bm[u]);
+        b_rows<kD>(b[u / kPer], jp + u % kPer, kk, g, t, bb[u], bm[u]);
       mma3_x4<kSplit, kSplit>(
           [&](int u) -> float(&)[4] { return sd[u / kPer][jp + u % kPer]; },
           [&](int u) -> const uint32_t(&)[4] { return ab[u / kPer]; },
@@ -209,38 +223,44 @@ __device__ __forceinline__ void scores(float (&sd)[kN][8][4],
 }
 
 // acc += c·tile for one m16 tile: c the C registers of a finished product
-// (8 n-tiles of 8 of the tile's rows), the tile's rows the k index, its 64
-// columns the n index.  The products of this call go to a partial sum that
-// starts at 0 and is added to acc in f32: the tensor cores truncate the sums
-// they accumulate, and a chain over every key of a long sequence drifts.
-template <bool kSplit, typename T>
-__device__ __forceinline__ void product_cb(float (&acc)[8][4],
+// (8 n-tiles of 8 of the tile's rows), the tile's rows the k index, its kD
+// columns the n index, taken in passes of 64 columns (one at kD = 64, two
+// at 128: the partial sum of a pass holds 32 registers, not 64).  The
+// products of a pass go to a partial sum that starts at 0 and is added to
+// acc in f32: the tensor cores truncate the sums they accumulate, and a
+// chain over every key of a long sequence drifts.
+template <int kD, bool kSplit, typename T>
+__device__ __forceinline__ void product_cb(float (&acc)[kD / 8][4],
                                            const float (&c)[8][4],
                                            const T* tile, int g, int t) {
-  float part[8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n0 = 0; n0 < kD / 8; n0 += 8) {
+    float part[8][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    uint32_t ab[4], am[4];
-    a_from_c(c[j], t, ab, am);
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
 #pragma unroll
-    for (int np = 0; np < 8; np += 4) {
-      uint32_t bb[4][2], bm[4][2];
+    for (int j = 0; j < 8; ++j) {
+      uint32_t ab[4], am[4];
+      a_from_c(c[j], t, ab, am);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) b_cols(tile, j, np + u, g, t, bb[u], bm[u]);
-      mma3_x4<true, kSplit>(
-          [&](int u) -> float(&)[4] { return part[np + u]; },
-          [&](int) -> const uint32_t(&)[4] { return ab; },
-          [&](int) -> const uint32_t(&)[4] { return am; }, bb, bm);
+      for (int np = 0; np < 8; np += 4) {
+        uint32_t bb[4][2], bm[4][2];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          b_cols<kD>(tile, j, n0 + np + u, g, t, bb[u], bm[u]);
+        mma3_x4<true, kSplit>(
+            [&](int u) -> float(&)[4] { return part[np + u]; },
+            [&](int) -> const uint32_t(&)[4] { return ab; },
+            [&](int) -> const uint32_t(&)[4] { return am; }, bb, bm);
+      }
     }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
   }
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -250,12 +270,13 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// cp.async rows row0 .. row0 + 63 of one (batch, head) slice, row r at
-// src + r·ld, into a tile of pitch kP, by the block's threads; rows at or
-// past `limit` are zero-filled.
-template <typename T>
+// cp.async rows row0 .. row0 + 63 of one (batch, head) slice of kD
+// columns, row r at src + r·ld, into a tile of pitch kD + 8, by the block's
+// threads; rows at or past `limit` are zero-filled.
+template <int kD, typename T>
 __device__ __forceinline__ void cp_tile(T* tile, const T* src, long long ld,
                                         int row0, int limit, int tid) {
+  constexpr int kP = tile_pitch(kD);
   constexpr int kPer = 16 / sizeof(T);   // elements a 16-byte chunk
   constexpr int kChunks = kD / kPer;     // chunks a row
   for (int i = tid; i < kTile * kChunks; i += kThreads) {
@@ -268,7 +289,8 @@ __device__ __forceinline__ void cp_tile(T* tile, const T* src, long long ld,
 }
 
 // Let a kernel take `bytes` of dynamic shared memory, and ask for the
-// largest carveout: two blocks of ~100 KB (f32 tiles) share an SM.
+// largest carveout: two blocks of ~100 KB (f32 tiles at kD = 64) share an
+// SM, one of ~210 KB (K2's f32 tiles at kD = 128) fills it.
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -277,6 +299,21 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// set_smem once per device for the launcher whose own static `done` it
+// is given: each attribute call is a driver round trip, and a launch at the
+// UNet's short levels takes tens of microseconds.
+constexpr int kMaxDevices = 64;
+template <typename K>
+cudaError_t set_smem_once(K kernel, size_t bytes, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = set_smem(kernel, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
 }
 
 }  // namespace

@@ -196,6 +196,83 @@ def test_misaligned_backward_operand_raises_on_card(card, dtype):
     assert ta.flash_attention.dq_launches == ta.flash_attention.dkv_launches == 0
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("length,causal", [(1024, False), (1000, True)])
+@pytest.mark.parametrize("d", [8, 32, 128])
+def test_any_head_width_forward_and_backward_on_card(card, d, dtype, tol, length, causal):
+    """Fault 7: ``flash_attention`` at head widths other than 64, forward
+    and backward.  D = 8 and 32 are zero-padded to the 64-wide kernels, D =
+    128 runs their 128-wide instantiations; one launch of K1, K2a and K2b
+    each, no plain call, against the plain versions at the true width (O
+    absolute, the gradients relative to max |plain|)."""
+    gen = torch.Generator(device="cuda").manual_seed(d + length)
+    qkv = torch.randn((2, length, 3, 8, d), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((2, length, 8, d), generator=gen, device="cuda").to(dtype)
+    q, k, v = (x.detach().requires_grad_() for x in qkv.unbind(2))
+    ta.reset_counts()
+    o, lse = ta.flash_attention(q, k, v, causal, return_lse=True)
+    o.backward(do)
+    assert {c: getattr(ta.flash_attention, c) for c in ta.COUNTS} == {
+        "kernel_launches": 1, "dq_launches": 1, "dkv_launches": 1, "plain_calls": 0,
+        "plain_bwd_calls": 0}
+    qr, kr, vr = (x.detach().requires_grad_() for x in qkv.unbind(2))
+    want, want_lse = ta.attention_reference(qr, kr, vr, causal, return_lse=True)
+    want.backward(do)
+    assert o.shape == want.shape and o.dtype == want.dtype
+    assert (o.float() - want.float()).abs().max().item() <= tol
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    for got, ref in ((q, qr), (k, kr), (v, vr)):
+        err = (got.grad.float() - ref.grad.float()).abs().max().item()
+        assert err <= tol * ref.grad.float().abs().max().item()
+
+
+def test_head_width_above_128_raises_on_card(card):
+    q = torch.zeros((1, 64, 2, 192), device="cuda")
+    ta.reset_counts()
+    with pytest.raises(ValueError, match="up to 128"):
+        ta.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="up to 128"):
+        ta.flash_fwd(q, q, q)
+    assert all(getattr(ta.flash_attention, c) == 0 for c in ta.COUNTS)
+
+
+# the tiny parity config of tests/test_diffusion_stack.py as it is: 2 heads
+# of 8 features
+TINY_MODEL = {
+    "model": dict(in_channels=1, channels=(4, 8, 16, 16), factors=(1, 4, 4, 2),
+                  items=(1, 1, 1, 2), attentions=(0, 0, 1, 1),
+                  cross_attentions=(1, 1, 1, 1), context_channels=(2, 8, 16, 16),
+                  attention_heads=2, attention_features=8, embedding_features=16,
+                  modulation_features=32, resnet_groups=2),
+    "onsets_encoder": dict(in_channels=1, channels=2, multipliers=(1, 1, 4, 8, 8),
+                           factors=(1, 4, 4, 2), num_blocks=(1, 1, 1, 1),
+                           resnet_groups=2)}
+
+
+def test_tiny_parity_config_runs_on_card(no_tf32):
+    """The UNet of the repo's tiny parity config (``attention_features`` 8)
+    on the card against the same weights on the CPU, f32 without TF32:
+    within 1e-4 of max |CPU| (sums in other orders through the net), 5 K1
+    launches a forward (as SMALL_MODEL's below, whose levels it shares)."""
+    cpu = SyncFusionDiffusion.from_config(TINY_MODEL, device="cpu", seed=0)
+    gpu = SyncFusionDiffusion.from_config(TINY_MODEL, device="cuda", seed=0)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 4096, 1), generator=gen)
+    onsets = torch.zeros((2, 4096, 1))
+    onsets[:, ::300] = 1.0
+    emb = torch.randn((2, 1, 16), generator=gen)
+    sigma = torch.tensor([0.3, 0.7])
+    with torch.no_grad():
+        want = cpu.unet(x, sigma, context=cpu.encode_context(onsets), embedding=emb)
+        ta.reset_counts()
+        got = gpu.unet(x.cuda(), sigma.cuda(), context=gpu.encode_context(onsets.cuda()),
+                       embedding=emb.cuda())
+        torch.cuda.synchronize()
+    assert ta.flash_attention.kernel_launches == 5 and ta.flash_attention.plain_calls == 0
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
 def test_gradient_goes_through_the_kernels_on_card(card):
     """Fault 1 on the card: a loss through ``flash_attention`` gets its
     gradient from K2a and K2b, equal to autograd through the plain

@@ -92,6 +92,14 @@ def test_guards_cover_the_tail_modules():
     assert (ROOT / "syncfusion_tpu_torch" / "csrc" / "sfx_io.cpp").is_file()
 
 
+def test_guards_cover_the_overfit_quality_modules():
+    """The two overfit-to-quality entry points, counterparts of the JAX
+    scripts that import the JAX package (and scikit-learn, optax)."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"syncfusion_tpu_torch/overfit_quality.py",
+            "syncfusion_tpu_torch/overfit_quality_stage2.py"} <= names
+
+
 def test_nothing_of_the_port_imports_the_exporter():
     """script/export_params_npz.py imports the JAX package; the port and
     chip_smoke.py reach it by no import, and it lies outside the package."""
