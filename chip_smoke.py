@@ -7,9 +7,9 @@ Phases, each printed with its seconds; any failure exits non-zero:
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: ``nvcc`` compiles every kernel of ``syncfusion_tpu_torch/csrc``;
      the registers, spills and static shared memory ptxas reports for K1,
-     K2a and K2b at head widths 64 and 128, and the dynamic shared memory
-     each launch asks for (read from the built library), go into the
-     kernels line;
+     K2a and K2b at head widths 64 and 128 and for their wide kernels
+     (``flash_wide.cu``), and the dynamic shared memory each launch asks for
+     (read from the built library), go into the kernels line;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes of the generation path (plus a ragged and a causal case), in
      bf16 and f32, and K1 in bf16 also at the 16 rows of the serving and fast
@@ -205,14 +205,22 @@ Phases, each printed with its seconds; any failure exits non-zero:
      128 (8 and 32 zero-padded to the 64-wide kernels, 128 on their 128-wide
      instantiations), bf16 and f32, at B = 2 x 8 heads, T = 1024, against
      the plain versions (gated as phases 3 and 5), one launch of K1, K2a and
-     K2b each (gated), timed beside SDPA and the bounds; a head of 192
-     raises ``ValueError`` (gated); the tiny parity config's UNet
-     (``attention_features`` 8) on the card against the CPU (gated); (b)
-     ``overfit_quality.main`` at a cut depth (40 steps on 4 clips at batch
-     4, evaluations of 8 sampler steps; K1 3 a training step and a sampling
-     step, K2a and K2b 3 a training step) and ``overfit_quality_stage2.main``
-     at 60 steps (no hand-written kernel): their JSON lines, exit codes and
-     counts (gated), no plain version on the card.
+     K2b each (gated), timed beside SDPA and the bounds; the tiny parity
+     config's UNet (``attention_features`` 8) on the card against the CPU
+     (gated); (b) ``overfit_quality.main`` at a cut depth (40 steps on 4
+     clips at batch 4, evaluations of 8 sampler steps; K1 3 a training step
+     and a sampling step, K2a and K2b 3 a training step) and
+     ``overfit_quality_stage2.main`` at 60 steps (no hand-written kernel):
+     their JSON lines, exit codes and counts (gated), no plain version on
+     the card; (c) heads wider than 128, the kernels of ``flash_wide.cu``:
+     as (a) at D = 160, 192, 256, 320 and 512 with heads x D = 512 (3, 3,
+     2, 2 and 1 heads), with the backend SDPA picks; the full-width UNet
+     with 2 heads of 256 (exp/model/diffusion.yaml's node, inner width 512
+     kept): one bf16 forward at 2 rows through the kernels against the
+     plain attention (phase 5's gate, 9 K1) and one f32 loss and gradient
+     (phase 7's gates, 9 K1, K2a, K2b); ``generate --model_config`` on one
+     clip (DPM++(2M) 8 steps, DeepCache K = 2) and ``train_diffusion
+     --model_config`` for 2 micro-steps, their outputs and counts (gated).
 Phase 3 also holds the backward kernels K2a and K2b against their plain
 versions at the training shapes (with the time of SDPA's backward), times
 K1's f32 kernel per forward beside SDPA's f32 forward, and holds K3 and K4
@@ -676,6 +684,13 @@ K2_KERNELS = {key: {f"{dtype}{sfx}": f"{name}I{arg}Li{d}E"
                     for dtype, arg in (("float32", "f"), ("bfloat16", "13__nv_bfloat16"))}
               for key, name in (("dq", "flash_bwd_dq_kernel"),
                                 ("dkv", "flash_bwd_dkv_kernel"))}
+# the wide kernels of flash_wide.cu (any multiple of 64 above 128), one
+# instantiation per input type, by kernel and type
+WIDE_KERNELS = {key: {dtype: f"{name}I{arg}E"
+                      for dtype, arg in (("float32", "f"), ("bfloat16", "13__nv_bfloat16"))}
+                for key, name in (("fwd", "flash_fwd_wide_kernel"),
+                                  ("dq", "flash_bwd_dq_wide_kernel"),
+                                  ("dkv", "flash_bwd_dkv_wide_kernel"))}
 
 
 # the fused kernel's two bodies in fused_resblock.cu (bf16: mma.sync
@@ -894,28 +909,37 @@ def compare_fused_times(roots, dtypes=("float32",)) -> dict:
 
 def attention_times_of(root: str) -> dict:
     """K1's (bf16 and f32, BH = 64) and K2a's and K2b's (f32, BH = 32)
-    kernel ms per forward or backward (the 9 calls of phase 3's main-path
-    shapes, through the wrappers on qkv views) for the
-    ``syncfusion_tpu_torch`` of the checkout at ``root``, e.g. a parent.
-    Call it in a fresh process, before anything imports the package."""
+    ms per forward or backward (the 9 calls of phase 3's main-path shapes,
+    through the wrappers on qkv views) for the ``syncfusion_tpu_torch`` of
+    the checkout at ``root``, e.g. a parent: eager (CUDA events around back
+    to back calls, which the host's launch cost may bound at the short
+    lengths) and, under ``<key>_device``, the kernel's own device time from
+    the profiler.  Call it in a fresh process, before anything imports the
+    package."""
     sys.path.insert(0, os.path.abspath(root))
     from syncfusion_tpu_torch.ops import attention as attn
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {"fwd_bf16": 0.0, "fwd_f32": 0.0, "dq_f32": 0.0, "dkv_f32": 0.0}
+    out = {f"{key}{sfx}": 0.0 for key in ("fwd_bf16", "fwd_f32", "dq_f32", "dkv_f32")
+           for sfx in ("", "_device")}
+
+    def add(key, n, fn, tag):
+        out[key] += n * time_ms(fn, 30)
+        out[f"{key}_device"] += n * device_ms(fn, tag)[0]
+
     for t, n in ATTN_CALLS.items():
         for dtype, key in ((torch.bfloat16, "fwd_bf16"), (torch.float32, "fwd_f32")):
             q, k, v = torch.randn((ROWS, t, 3, HEADS, HEAD_DIM), generator=gen,
                                   device="cuda").to(dtype).unbind(2)
-            out[key] += n * time_ms(lambda: attn.flash_fwd(q, k, v), 30)
+            add(key, n, lambda: attn.flash_fwd(q, k, v), "flash_fwd")
         q, k, v = torch.randn((TRAIN_ROWS, t, 3, HEADS, HEAD_DIM), generator=gen,
                               device="cuda").unbind(2)
         do = torch.randn((TRAIN_ROWS, t, HEADS, HEAD_DIM), generator=gen, device="cuda")
         o, lse = attn.flash_fwd(q, k, v)
         _, delta = attn.flash_bwd_dq(q, k, v, o, lse, do)
-        out["dq_f32"] += n * time_ms(lambda: attn.flash_bwd_dq(q, k, v, o, lse, do), 30)
-        out["dkv_f32"] += n * time_ms(lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta),
-                                      30)
+        add("dq_f32", n, lambda: attn.flash_bwd_dq(q, k, v, o, lse, do), "flash_bwd_dq")
+        add("dkv_f32", n, lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta),
+            "flash_bwd_dkv")
     return out
 
 
@@ -1084,8 +1108,8 @@ def time_generation(model, attn, fr, label: str, inputs: tuple, want: dict,
 def forward_full_vs_cached(model, attn, fr, inputs: tuple) -> dict:
     """One in-band UNet forward at the CFG batch of ``inputs`` (2B rows,
     the unconditional half masked), whole and on a DeepCache feature at
-    ``DEEP_SPLIT``: device ms from the profiler (every kernel) and eager ms
-    (CUDA events), and K1's launches per forward."""
+    ``DEEP_SPLIT``: device ms from the profiler (every kernel, and K1's
+    alone) and eager ms (CUDA events), and K1's launches per forward."""
     noise, onsets, embedding = inputs
     b = noise.shape[0]
     out = {}
@@ -1104,7 +1128,8 @@ def forward_full_vs_cached(model, attn, fr, inputs: tuple) -> dict:
             reset_counts(attn, fr)
             fn()
             out[f"{name}_k1"] = counts(attn, fr)["kernel_launches"]
-            out[f"{name}_device_ms"] = device_ms(fn, "", calls=3)[1]
+            out[f"{name}_k1_device_ms"], out[f"{name}_device_ms"], _ = device_ms(
+                fn, "flash_fwd", calls=3)
             out[f"{name}_eager_ms"] = time_ms(fn, 3, warmup=1)
     return out
 
@@ -1224,7 +1249,7 @@ def phase_train(attn, fr, tmp: str, name: str, model_cfg=None, embedder="none",
     # step (CFG runs both branches as one forward); backwards: one per
     # micro-step
     forwards, backwards = steps + 1 + SAMPLE_STEPS, steps
-    fused = model_cfg is not None
+    fused = bool(model_cfg and model_cfg["model"].get("fused_resnet"))
     want = {"kernel_launches": 9 * forwards, "dq_launches": 9 * backwards,
             "dkv_launches": 9 * backwards, "plain_calls": 0, "plain_bwd_calls": 0,
             "k3_kernel_launches": K3_PER_FORWARD * forwards if fused else 0,
@@ -3799,107 +3824,133 @@ TINY_K1 = 5  # attention calls a forward: levels 2-3 down and up, the bottleneck
 # steps)
 OQ_ARGS = {"--steps": 40, "--clips": 4, "--batch": 4, "--sampling_steps": 8}
 OQ2_STEPS = 60
+# phase 21c: heads wider than 128 (csrc/flash_wide.cu).  (a) K1, K2a and K2b
+# at these widths, as 21a, with heads x D = 512 as in the UNet (the nearest
+# whole number of heads at 160 and 320): 3, 3, 2, 2, 1 heads
+WIDE_WIDTHS = (160, 192, 256, 320, 512)
+WIDE_HEADS = {d: round(512 / d) for d in WIDE_WIDTHS}
+# (b) exp/model/diffusion.yaml's model node with 2 heads of 256 features in
+# place of 8 of 64: the inner width stays 512, so every parameter shape and
+# the 196M parameters stay; one forward at 2 rows, one f32 micro-step.
+# (c) generate --model_config on one clip, the fast configuration's sampler
+# (DPM++(2M), CFG 1.5 in the band, DeepCache K = 2) cut to WIDE_GEN_STEPS
+# steps, and train_diffusion --model_config for WIDE_TRAIN_STEPS micro-steps
+WIDE_SWITCHES = {"attention_heads": 2, "attention_features": 256}
+WIDE_ROWS = 2
+WIDE_GEN_STEPS = 8
+WIDE_TRAIN_STEPS = 2
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend that ``scaled_dot_product_attention``'s own dispatcher
+    picks for these (B, H, L, D) inputs, by name, or "unknown"."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        names = {int(b): name for name, b in SDPBackend.__members__.items()}
+        return names.get(int(torch._fused_sdp_choice(q, k, v)), "unknown")
+    except (ImportError, AttributeError, RuntimeError, TypeError):
+        return "unknown"
+
+
+def head_width_case(attn, d: int, heads: int, dtype, seed: int) -> dict:
+    """``flash_attention`` forward and backward at head width ``d``, B =
+    HW_ROWS x ``heads``, T = HW_T, against the plain versions at the true
+    width (O and LSE as phase 3, the gradients of q, k and v relative to max
+    |plain| as BWD_TOL), one launch of K1, K2a and K2b each and no plain
+    call (gated).  Times K1, K2a and K2b on the operands padded to the
+    kernel width, the autograd forward with its pad, the plain versions,
+    SDPA's forward and backward (with the backend it picks) and the bounds
+    at the true width.  Returns the record."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((HW_ROWS, HW_T, 3, heads, d), generator=gen,
+                      device="cuda").to(dtype)
+    do = torch.randn((HW_ROWS, HW_T, heads, d), generator=gen, device="cuda").to(dtype)
+    q, k, v = (x.detach().requires_grad_() for x in qkv.unbind(2))
+    attn.reset_counts()
+    o, lse = attn.flash_attention(q, k, v, return_lse=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    got = {c: getattr(attn.flash_attention, c) for c in attn.COUNTS}
+    qr, kr, vr = (x.detach().requires_grad_() for x in qkv.unbind(2))
+    o_ref, lse_ref = attn.attention_reference(qr, kr, vr, return_lse=True)
+    o_ref.backward(do)
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_l = (lse - lse_ref).abs().max().item()
+    rels = [((a.grad.float() - b.grad.float()).abs().max()
+             / b.grad.float().abs().max()).item()
+            for a, b in ((q, qr), (k, kr), (v, vr))]
+    ok = (err_o <= TOL[dtype]["o"] and err_l <= TOL[dtype]["lse"]
+          and max(rels) <= BWD_TOL[dtype])
+    width = attn.kernel_width(d)
+    qp, kp, vp, dop = (F.pad(x.detach(), (0, width - d)) for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(d)
+    op, lsep = attn.flash_fwd(qp, kp, vp, False, scale)
+    _, delta = attn.flash_bwd_dq(qp, kp, vp, op, lsep, dop, False, scale)
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    ms = time_ms(lambda: attn.flash_fwd(qp, kp, vp, False, scale), HW_ITERS)
+    ms_autograd = time_ms(lambda: attn.flash_attention(qd, kd, vd), HW_ITERS)
+    ms_dq = time_ms(lambda: attn.flash_bwd_dq(qp, kp, vp, op, lsep, dop, False, scale),
+                    HW_ITERS)
+    ms_dkv = time_ms(lambda: attn.flash_bwd_dkv(qp, kp, vp, dop, lsep, delta, False,
+                                                scale), HW_ITERS)
+    plain = time_ms(lambda: attn.attention_reference(qd, kd, vd), 5)
+    plain_dq = time_ms(lambda: attn.flash_bwd_dq_reference(
+        qd, kd, vd, o_ref.detach(), lse_ref, do), 3)
+    plain_dkv = time_ms(lambda: attn.flash_bwd_dkv_reference(
+        qd, kd, vd, do, lse_ref, delta), 3)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    backend = sdpa_backend(qt, kt, vt)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    lib = time_ms(sdpa_fwd, HW_ITERS)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot),
+                      HW_ITERS) - lib
+    bms, by = bound_ms(*attention_work(HW_ROWS, heads, HW_T, d, dtype, False), dtype)
+    work = bwd_work(HW_ROWS, heads, HW_T, d, dtype, False)
+    rec = {"max_abs_err": err_o, "lse_err": err_l, "grad_rel_err": max(rels),
+           "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+           "library_ms": lib, "library_backend": backend, "kernel_width": width,
+           "heads": heads, "autograd_ms": ms_autograd}
+    for key, kms, pms in (("dq", ms_dq, plain_dq), ("dkv", ms_dkv, plain_dkv)):
+        kb, kby = bound_ms(*work[key], dtype)
+        rec[key] = {"max_abs_err": max(rels), "ms": kms, "plain_ms": pms,
+                    "bound_ms": kb, "bound_by": kby, "library_ms": lib_bwd,
+                    "library_backend": backend}
+    print(f"  D={d:3d} {str(dtype)[6:]:8s} BH={HW_ROWS * heads} T={HW_T} (kernel "
+          f"width {width}): err O {err_o:.3e} (tol {TOL[dtype]['o']:.0e}) LSE "
+          f"{err_l:.3e} dq/dk/dv rel {max(rels):.3e} (tol {BWD_TOL[dtype]:.0e}) | "
+          f"K1 {ms:.4f} ms (autograd call with its pad {ms_autograd:.4f}, plain "
+          f"{plain:.4f}, sdpa {lib:.4f}, bound {bms:.4f} {by}), K2a {ms_dq:.4f} ms "
+          f"(plain {plain_dq:.4f}, bound {rec['dq']['bound_ms']:.4f}), K2b "
+          f"{ms_dkv:.4f} ms (plain {plain_dkv:.4f}, bound "
+          f"{rec['dkv']['bound_ms']:.4f}), sdpa bwd {lib_bwd:.4f} ms (sdpa backend "
+          f"{backend}); launches {got} {'ok' if ok else 'MISMATCH'}", flush=True)
+    check(ok, f"head width {d} {dtype} disagrees with the plain versions")
+    check(got == {"kernel_launches": 1, "dq_launches": 1, "dkv_launches": 1,
+                  "plain_calls": 0, "plain_bwd_calls": 0},
+          f"head width {d} {dtype}: launches {got}")
+    return rec
+
+
+def kernel_record(rec: dict, key: str) -> dict:
+    """K1's part (``key`` "fwd") of a ``head_width_case`` record, or K2a's
+    ("dq") or K2b's ("dkv")."""
+    return rec if key == "fwd" else rec[key]
 
 
 def phase_head_widths(attn) -> dict:
-    """Phase 21a: ``flash_attention`` forward and backward at each of
-    HEAD_WIDTHS in bf16 and f32, at B = 2 x 8 heads, T = 1024, against the
-    plain versions at the true width (O and LSE as phase 3, the gradients of
-    q, k and v relative to max |plain| as BWD_TOL), one launch of K1, K2a
-    and K2b each and no plain call (gated); D = 192 raises ``ValueError``
-    (gated).  Times K1, K2a and K2b on the operands padded to the kernel
-    width, the autograd forward with its pad, the plain versions, SDPA's
-    forward and backward and the bounds at the true width.  Then the tiny
-    parity config's UNet forward on the card against the CPU (gated).
-    Returns ``({(d, dtype): record}, the tiny config's record)``."""
-    import torch.nn.functional as F
-
-    out = {}
-    for d in HEAD_WIDTHS:
-        for dtype in (torch.bfloat16, torch.float32):
-            gen = torch.Generator(device="cuda").manual_seed(21 + d)
-            qkv = torch.randn((HW_ROWS, HW_T, 3, HEADS, d), generator=gen,
-                              device="cuda").to(dtype)
-            do = torch.randn((HW_ROWS, HW_T, HEADS, d), generator=gen,
-                             device="cuda").to(dtype)
-            q, k, v = (x.detach().requires_grad_() for x in qkv.unbind(2))
-            attn.reset_counts()
-            o, lse = attn.flash_attention(q, k, v, return_lse=True)
-            o.backward(do)
-            torch.cuda.synchronize()
-            got = {c: getattr(attn.flash_attention, c) for c in attn.COUNTS}
-            qr, kr, vr = (x.detach().requires_grad_() for x in qkv.unbind(2))
-            o_ref, lse_ref = attn.attention_reference(qr, kr, vr, return_lse=True)
-            o_ref.backward(do)
-            err_o = (o.float() - o_ref.float()).abs().max().item()
-            err_l = (lse - lse_ref).abs().max().item()
-            rels = [((a.grad.float() - b.grad.float()).abs().max()
-                     / b.grad.float().abs().max()).item()
-                    for a, b in ((q, qr), (k, kr), (v, vr))]
-            ok = (err_o <= TOL[dtype]["o"] and err_l <= TOL[dtype]["lse"]
-                  and max(rels) <= BWD_TOL[dtype])
-            width = attn.kernel_width(d)
-            qp, kp, vp, dop = (F.pad(x.detach(), (0, width - d)) for x in (q, k, v, do))
-            scale = 1.0 / math.sqrt(d)
-            op, lsep = attn.flash_fwd(qp, kp, vp, False, scale)
-            _, delta = attn.flash_bwd_dq(qp, kp, vp, op, lsep, dop, False, scale)
-            qd, kd, vd = (x.detach() for x in (q, k, v))
-            ms = time_ms(lambda: attn.flash_fwd(qp, kp, vp, False, scale), HW_ITERS)
-            ms_autograd = time_ms(lambda: attn.flash_attention(qd, kd, vd), HW_ITERS)
-            ms_dq = time_ms(lambda: attn.flash_bwd_dq(qp, kp, vp, op, lsep, dop, False,
-                                                      scale), HW_ITERS)
-            ms_dkv = time_ms(lambda: attn.flash_bwd_dkv(qp, kp, vp, dop, lsep, delta,
-                                                        False, scale), HW_ITERS)
-            plain = time_ms(lambda: attn.attention_reference(qd, kd, vd), 5)
-            plain_dq = time_ms(lambda: attn.flash_bwd_dq_reference(
-                qd, kd, vd, o_ref.detach(), lse_ref, do), 3)
-            plain_dkv = time_ms(lambda: attn.flash_bwd_dkv_reference(
-                qd, kd, vd, do, lse_ref, delta), 3)
-            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
-            dot = do.transpose(1, 2)
-
-            def sdpa_fwd():
-                return F.scaled_dot_product_attention(qt, kt, vt)
-
-            lib = time_ms(sdpa_fwd, HW_ITERS)
-            lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot),
-                              HW_ITERS) - lib
-            bms, by = bound_ms(*attention_work(HW_ROWS, HEADS, HW_T, d, dtype, False),
-                               dtype)
-            work = bwd_work(HW_ROWS, HEADS, HW_T, d, dtype, False)
-            rec = {"max_abs_err": err_o, "lse_err": err_l, "grad_rel_err": max(rels),
-                   "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                   "library_ms": lib, "kernel_width": width,
-                   "autograd_ms": ms_autograd}
-            for key, kms, pms in (("dq", ms_dq, plain_dq), ("dkv", ms_dkv, plain_dkv)):
-                kb, kby = bound_ms(*work[key], dtype)
-                rec[key] = {"max_abs_err": max(rels), "ms": kms, "plain_ms": pms,
-                            "bound_ms": kb, "bound_by": kby, "library_ms": lib_bwd}
-            out[d, str(dtype)[6:]] = rec
-            print(f"  D={d:3d} {str(dtype)[6:]:8s} BH={HW_ROWS * HEADS} T={HW_T} (kernel "
-                  f"width {width}): err O {err_o:.3e} (tol {TOL[dtype]['o']:.0e}) LSE "
-                  f"{err_l:.3e} dq/dk/dv rel {max(rels):.3e} (tol {BWD_TOL[dtype]:.0e}) | "
-                  f"K1 {ms:.4f} ms (autograd call with its pad {ms_autograd:.4f}, plain "
-                  f"{plain:.4f}, sdpa {lib:.4f}, bound {bms:.4f} {by}), K2a {ms_dq:.4f} ms (plain {plain_dq:.4f}, bound "
-                  f"{rec['dq']['bound_ms']:.4f}), K2b {ms_dkv:.4f} ms (plain "
-                  f"{plain_dkv:.4f}, bound {rec['dkv']['bound_ms']:.4f}), sdpa bwd "
-                  f"{lib_bwd:.4f} ms; launches {got} {'ok' if ok else 'MISMATCH'}",
-                  flush=True)
-            check(ok, f"head width {d} {dtype} disagrees with the plain versions")
-            check(got == {"kernel_launches": 1, "dq_launches": 1, "dkv_launches": 1,
-                          "plain_calls": 0, "plain_bwd_calls": 0},
-                  f"head width {d} {dtype}: launches {got}")
-            del qkv, do, q, k, v, qp, kp, vp, dop, op
-    wide = torch.zeros((1, 64, 2, 192), device="cuda")
-    attn.reset_counts()
-    try:
-        attn.flash_attention(wide, wide, wide)
-        raised = ""
-    except ValueError as err:
-        raised = str(err)
-    print(f"  D=192 raises ValueError: {raised!r}")
-    check(bool(raised) and attn.flash_attention.kernel_launches == 0,
-          "a head wider than 128 did not raise")
+    """Phase 21a: ``head_width_case`` at each of HEAD_WIDTHS in bf16 and
+    f32, 8 heads, then the tiny parity config's UNet forward on the card
+    against the CPU (gated).  Returns ``({(d, dtype): record}, the tiny
+    config's record)``."""
+    out = {(d, str(dtype)[6:]): head_width_case(attn, d, HEADS, dtype, 21 + d)
+           for d in HEAD_WIDTHS for dtype in (torch.bfloat16, torch.float32)}
     return out, tiny_parity_forward(attn)
 
 
@@ -3995,6 +4046,132 @@ def phase_overfit_quality(attn, fr, tmp: str) -> dict:
     return launched
 
 
+def wide_model_cfg() -> dict:
+    """exp/model/diffusion.yaml's model node with WIDE_SWITCHES: 2 heads of
+    256 features."""
+    from syncfusion_tpu_torch.core.config import EncoderConfig, UNetConfig
+
+    return {"model": {**dataclasses.asdict(UNetConfig()), **WIDE_SWITCHES},
+            "onsets_encoder": dataclasses.asdict(EncoderConfig())}
+
+
+def phase_wide_model(attn, fr, blocks, tmp: str, n_params: int, narrow: dict) -> dict:
+    """Phase 21c (b): the full-width UNet with 2 heads of 256, seeded
+    weights: its parameter count is the default model's (gated); one whole
+    bf16 forward at WIDE_ROWS rows (a 1-step sample, outside the band)
+    through the kernels against the same model with the plain attention on
+    the card, phase 5's gate (the share of O elements the kernel rounds
+    otherwise than the plain version) and 9 K1 launches; the in-band
+    forward at the serving shape whole and cached, timed as phase 4d times
+    the default model (``narrow``, its record), 9 and 0 K1 (gated); one f32
+    loss and gradient against the plain attention, phase 7's and 9's
+    gates, 9 K1, 9 K2a and 9 K2b (``train_vs_plain``).  Returns the
+    figures."""
+    from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
+
+    model = SyncFusionDiffusion.from_config(wide_model_cfg(), dtype=torch.bfloat16,
+                                            device="cuda", seed=0)
+    check(model.param_count() == n_params,
+          f"2 x 256 heads: {model.param_count()} parameters, not {n_params}")
+    noise, onsets, embedding = sampler_inputs(WIDE_ROWS)
+    census, tally = rounding_census(attn)
+    reset_counts(attn, fr)
+    rel = kernel_vs_plain(model, attn, blocks, noise, onsets, embedding, attend=census,
+                          num_steps=1, embedding_scale=SCALE, guidance_interval=BAND)
+    k1 = counts(attn, fr)["kernel_launches"]
+    share = tally["kernel_vs_plain"] / tally["elements"]
+    print(f"  2 x 256 heads, {model.param_count():,} params, one bf16 forward at "
+          f"{WIDE_ROWS} rows: O elements rounded otherwise than the plain version "
+          f"{tally['kernel_vs_plain']} of {tally['elements']}, share {share:.3e} (tol "
+          f"{BF16_FLIP_TOL:.0e}; the plain version against f64: {tally['plain_vs_f64']}); "
+          f"output max |diff| / max |plain| {rel.max().item():.3e} (not gated, as phase "
+          f"5); {k1} K1 (expected 9)", flush=True)
+    check(bool(torch.isfinite(rel).all()) and rel.numel() == WIDE_ROWS * LENGTH,
+          "2 x 256 heads: the forward is not finite or of the wrong shape")
+    check(share <= BF16_FLIP_TOL, "2 x 256 heads: the kernel rounds too many O "
+          "elements otherwise than the plain version")
+    check(k1 == 9, f"2 x 256 heads: {k1} K1 launches in one forward")
+    fwd = forward_full_vs_cached(model, attn, fr, sampler_inputs(SERVE_BATCH))
+    print(f"  2 x 256 heads, one in-band forward, {2 * SERVE_BATCH} rows, bf16: full "
+          f"{fwd['full_device_ms']:.3f} ms device, K1 {fwd['full_k1_device_ms']:.3f} of it "
+          f"({fwd['full_eager_ms']:.3f} eager, {fwd['full_k1']} K1), cached "
+          f"{fwd['cached_device_ms']:.3f} ms device ({fwd['cached_k1']} K1); 8 x 64 heads "
+          f"(phase 4d): full {narrow['full_device_ms']:.3f} ms device, K1 "
+          f"{narrow['full_k1_device_ms']:.3f} of it; wide / narrow "
+          f"{fwd['full_device_ms'] / narrow['full_device_ms']:.4f}", flush=True)
+    check(fwd["full_k1"] == 9 and fwd["cached_k1"] == 0,
+          f"2 x 256 heads: K1 per forward full / cached {fwd['full_k1']} / "
+          f"{fwd['cached_k1']}")
+    model32 = SyncFusionDiffusion.from_config(wide_model_cfg(), dtype=torch.float32,
+                                              device="cuda", seed=0)
+    model32.load_state_dict(model.state_dict(), strict=True)
+    del model
+    write_shard(os.path.join(tmp, "shard.tar"))
+    rel_loss, rel_grad = train_vs_plain(model32, attn, fr, blocks, tmp)
+    print(f"  2 x 256 heads, f32 loss and gradient, kernels vs plain attention: loss "
+          f"{rel_loss:.3e} relative (tol {TRAIN_LOSS_TOL:.0e}), gradients max |diff| / "
+          f"max |plain| {rel_grad:.3e} (tol {TRAIN_GRAD_TOL:.0e})", flush=True)
+    check(rel_loss <= TRAIN_LOSS_TOL, "2 x 256 heads: loss cross-check disagrees")
+    check(rel_grad <= TRAIN_GRAD_TOL, "2 x 256 heads: gradient cross-check disagrees")
+    del model32
+    torch.cuda.empty_cache()
+    return {"flip_share": share, "output_rel": rel.max().item(), "loss_rel": rel_loss,
+            "grad_rel": rel_grad, "forward_device_ms": fwd["full_device_ms"],
+            "forward_k1_device_ms": fwd["full_k1_device_ms"], "launched": {
+                "forward": {"kernel_launches": k1},
+                "micro_step": {"kernel_launches": 9, "dq_launches": 9,
+                               "dkv_launches": 9}}}
+
+
+def phase_wide_entry_points(attn, fr, tmp: str) -> dict:
+    """Phase 21c (c): ``generate.main`` with ``--model_config`` of the 2 x
+    256 model on one clip (DPM++(2M), DeepCache K = FAST_K, WIDE_GEN_STEPS
+    steps): exit, a finite wav of LENGTH samples, 9 K1 a whole forward and
+    none elsewhere (gated); then ``train_diffusion.main`` with it for
+    WIDE_TRAIN_STEPS micro-steps through ``phase_train`` (its gates: losses,
+    checkpoint, media, 9 K1 a forward and 9 K2a and K2b a backward).
+    Returns the launch counts by entry point."""
+    from syncfusion_tpu_torch import generate
+    from syncfusion_tpu_torch.ops.wav import read_wav
+
+    cfg = os.path.join(tmp, "wide.json")
+    with open(cfg, "w") as f:
+        json.dump(wide_model_cfg(), f)
+    times = os.path.join(tmp, "times.txt")
+    with open(times, "w") as f:
+        f.write("0.5\n1.5\n3.25\n")
+    out = os.path.join(tmp, "wide.wav")
+    argv = ["--onset_times", times, "--model_config", cfg, "--output", out,
+            "--length", str(LENGTH), "--sampler", "dpm", "--num_steps", str(WIDE_GEN_STEPS), "--embedding_scale",
+            str(FAST_SCALE), "--deep_cache_interval", str(FAST_K)]
+    want = {"kernel_launches": 9 * full_forwards(WIDE_GEN_STEPS, FAST_K),
+            "dq_launches": 0, "dkv_launches": 0, "plain_calls": 0, "plain_bwd_calls": 0}
+    reset_counts(attn, fr)
+    t0 = time.perf_counter()
+    rc = generate.main(argv)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = counts(attn, fr)
+    wav, sr = read_wav(out)
+    print(f"  generate --model_config (2 x 256 heads), DPM++(2M) {WIDE_GEN_STEPS} steps, "
+          f"DeepCache K={FAST_K}: {sec:.3f} s, wav {wav.shape} at {sr} Hz, max |wav| "
+          f"{np.abs(wav).max():.4f}, launches { {k: got[k] for k in want} } (expected "
+          f"{want})", flush=True)
+    check(rc in (None, 0), f"generate returned {rc}")
+    check(wav.size == LENGTH and sr == SR and bool(np.isfinite(wav).all()),
+          f"generate wrote {wav.shape} at {sr} Hz")
+    check({k: got[k] for k in want} == want, f"generate (2 x 256 heads): launches {got}")
+    launched = {"generate_wide": got}
+    state, launched["train_wide"], sec_t, peak, _ = phase_train(
+        attn, fr, tmp, "wide", wide_model_cfg(), steps=WIDE_TRAIN_STEPS)
+    print(f"  train_diffusion --model_config (2 x 256 heads), f32, B={BATCH}, "
+          f"L={LENGTH}: {sec_t:.4f} s at micro-step {WIDE_TRAIN_STEPS}, peak memory "
+          f"{peak:.3f} GiB", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return launched
+
+
 def trace_child(trace_dir: str) -> int:
     """``chip_smoke.py --trace DIR``: ``core.profiler.trace`` around
     ``TRACE_LAUNCHES`` K1 launches (f32, 2 x 2048 x 8 x 64), written to
@@ -4066,6 +4243,14 @@ def main() -> int:
                                                 128 if dtype.endswith("_d128") else 64)
             check(report["dynamic_smem_bytes"] > 0, f"no shared memory for K2 {key}")
     print(f"  K2a and K2b registers and spills: {k2_regs}")
+    wide_log = libs["flash_wide"].with_suffix(".so.log").read_text()
+    wide_smem = _build.library("flash_wide").flash_wide_smem
+    wide_regs = {key: pick_ptxas(wide_log, picks) for key, picks in WIDE_KERNELS.items()}
+    for key, by_type in wide_regs.items():
+        for dtype, report in by_type.items():
+            report["dynamic_smem_bytes"] = wide_smem(int(dtype == "bfloat16"))
+            check(report["dynamic_smem_bytes"] > 0, f"no shared memory for wide {key}")
+    print(f"  wide K1, K2a and K2b (flash_wide.cu) registers and spills: {wide_regs}")
     fused_log = libs["fused_resblock"].with_suffix(".so.log").read_text()
     fused_smem = _build.library("fused_resblock").fused_resblock_smem
     fused_regs = {dtype: fused_ptxas(fused_log, tag)
@@ -4086,7 +4271,8 @@ def main() -> int:
     t0 = time.perf_counter()
     model = SyncFusionDiffusion.from_config(None, dtype=torch.bfloat16,
                                             device="cuda", seed=0)
-    print(f"  params: {model.param_count():,}")
+    n_params = model.param_count()
+    print(f"  params: {n_params:,}")
     noise, onsets, embedding = sampler_inputs()
     torch.cuda.synchronize()
     phase("4a build the full-width model", t0)
@@ -4127,8 +4313,8 @@ def main() -> int:
     t0 = time.perf_counter()
     fwd = forward_full_vs_cached(model, attn, fr, serve_inputs)
     print(f"  one in-band UNet forward, {2 * SERVE_BATCH} rows, bf16: full "
-          f"{fwd['full_device_ms']:.3f} ms device ({fwd['full_eager_ms']:.3f} eager, "
-          f"{fwd['full_k1']} K1), cached at split {DEEP_SPLIT} "
+          f"{fwd['full_device_ms']:.3f} ms device, K1 {fwd['full_k1_device_ms']:.3f} of it "
+          f"({fwd['full_eager_ms']:.3f} eager, {fwd['full_k1']} K1), cached at split {DEEP_SPLIT} "
           f"{fwd['cached_device_ms']:.3f} ms device ({fwd['cached_eager_ms']:.3f} "
           f"eager, {fwd['cached_k1']} K1): cached / full {fwd['cached_device_ms'] / fwd['full_device_ms']:.4f} "
           f"device, {fwd['cached_eager_ms'] / fwd['full_eager_ms']:.4f} eager")
@@ -4347,6 +4533,17 @@ def main() -> int:
         t0 = time.perf_counter()
         oq_launched = phase_overfit_quality(attn, fr, tmp)
         phase("21b the overfit-to-quality entry points", t0)
+    t0 = time.perf_counter()
+    wide = {(d, str(dtype)[6:]): head_width_case(attn, d, WIDE_HEADS[d], dtype, 210 + d)
+            for d in WIDE_WIDTHS for dtype in (torch.bfloat16, torch.float32)}
+    phase("21c(a) K1, K2a and K2b at heads wider than 128", t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        wide_model = phase_wide_model(attn, fr, blocks, tmp, n_params, fwd)
+        phase("21c(b) the full-width UNet with 2 heads of 256", t0)
+        t0 = time.perf_counter()
+        wide_launched = phase_wide_entry_points(attn, fr, tmp)
+        phase("21c(c) generate and train_diffusion with 2 heads of 256", t0)
 
     fwd16, fwd32 = total[torch.bfloat16, ROWS], total[torch.float32, ROWS]
     serve16 = total[torch.bfloat16, SERVE_ROWS]
@@ -4459,6 +4656,52 @@ def main() -> int:
                                 "on operands padded to the kernel width; library_ms "
                                 "is SDPA's whole backward (dq, dk and dv)",
         })
+    wide_paths = {"wide_forward": wide_model["launched"]["forward"],
+                  "wide_micro_step": wide_model["launched"]["micro_step"],
+                  **wide_launched}
+    for name, replaces, key in (
+            ("flash_fwd_wide", "syncfusion_tpu/ops/attention.py:34", "fwd"),
+            ("flash_bwd_dq_wide", "syncfusion_tpu/ops/attention.py:137", "dq"),
+            ("flash_bwd_dkv_wide", "syncfusion_tpu/ops/attention.py:181", "dkv")):
+        count = {"fwd": "kernel_launches"}.get(key, f"{key}_launches")
+        by_path = {p_: c_.get(count, 0) for p_, c_ in wide_paths.items()}
+        main_rec = kernel_record(wide[256, "bfloat16" if key == "fwd" else "float32"], key)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "syncfusion_tpu_torch/csrc/flash_wide.cu",
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(kernel_record(rec, key)["max_abs_err"]
+                               for rec in wide.values()),
+            "ms": main_rec["ms"],
+            "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"],
+            "library_ms": main_rec["library_ms"],
+            "library_backend": main_rec["library_backend"],
+            "work": f"one call at B={HW_ROWS} x 2 heads of 256, T={HW_T}, "
+                    f"{'bf16 (generation' if key == 'fwd' else 'f32 (training'}'s "
+                    "type); max_abs_err over every width and type of phase 21c "
+                    "(O absolute; gradients relative to max |plain|)",
+            "design": "head dim streamed in pieces of 64 columns through a "
+                      "cp.async ring of 2 stages, a grid dimension over chunks of "
+                      "128 output columns (S and dP recomputed a chunk; K2b a dK "
+                      "and a dV block a chunk), mma.sync m16n8k8 tf32, f32 as "
+                      "3xTF32, bf16 operands unsplit, 4 warps of 16 rows a block",
+            "ptxas": wide_regs[key],
+            "head_widths": {f"d{d}_{dtype}": {k_: r_ for k_, r_
+                                               in kernel_record(rec, key).items()
+                                               if k_ not in ("dq", "dkv")}
+                            for (d, dtype), rec in wide.items()},
+            "head_widths_work": f"one call at B={HW_ROWS}, T={HW_T}, heads x D = 512 "
+                                "(3, 3, 2, 2, 1 heads at D = 160, 192, 256, 320, "
+                                "512); D = 160 padded to 192",
+            "wide_model": {k_: wide_model[k_] for k_ in (
+                "flip_share", "output_rel", "loss_rel", "grad_rel", "forward_device_ms",
+                "forward_k1_device_ms")},
+        })
     for name, replaces, key, work in (
             ("fused_resblock_k3",
              "syncfusion_tpu/ops/fused_resblock.py:54, "
@@ -4515,7 +4758,8 @@ def main() -> int:
                               if k_.endswith("stats" + str(int(key == "k4")))}
                       for dtype, reports in fused_regs.items()},
         })
-    rows[3]["ms_fused_resnet_alone"] = k3_alone_ms
+    next(r_ for r_ in rows if r_["name"] == "fused_resblock_k3")[
+        "ms_fused_resnet_alone"] = k3_alone_ms
     print(f"  CLAP card vs CPU errors: {clap_err}")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -48,7 +48,11 @@
 // and at 128; the wrapper zero-pads a narrower head to the next of the two
 // and passes the true width's scale (the zero columns change no logit, no
 // delta, and come out of dq, dk and dv as 0).  At 128 the f32 tiles take
-// ~205 KB, one block an SM, and the bf16 tiles ~103 KB, two.
+// ~205 KB, one block an SM, and the bf16 tiles ~103 KB, two; at 256 they
+// would take ~405 KB, above the 232,448 B a block may have on the NVIDIA
+// H100 80GB HBM3 (700 W), so a head wider than 128 goes to flash_wide.cu
+// (the head dim in 64-column pieces, the outputs in 128-column chunks over
+// a grid dimension).
 //
 // Layout: q, k, v, o, dO and the outputs are (B, L, H, kD) with any such
 // element strides for B, L and H and a contiguous head dim (q, k, v may be

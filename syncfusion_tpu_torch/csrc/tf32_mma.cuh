@@ -1,8 +1,10 @@
 // f32-accurate products on the tensor cores (3xTF32), shared by the
 // kernels that take f32 operands: the flash-attention kernels K1's f32
-// forward (flash_fwd.cu) and K2a/K2b (flash_bwd.cu), and the fused resnet
-// kernel's f32 body (fused_resblock.cu), which takes `round_tf32` and
-// `split` and lays out its own tiles.
+// forward (flash_fwd.cu), K2a/K2b (flash_bwd.cu) and all three kernels for
+// heads wider than 128 (flash_wide.cu, which takes the helpers at kD = 64
+// on 64-column pieces of the head dim), and the fused resnet kernel's f32
+// body (fused_resblock.cu), which takes `round_tf32` and `split` and lays
+// out its own tiles.
 //
 // Every product runs on `mma.sync.m16n8k8` with tf32 operands and an f32
 // accumulator; in the attention kernels 4 warps a block, 16 rows (one m16

@@ -9,21 +9,26 @@ the two kernels of ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``, K2a,
 then ``_flash_bwd_dkv_kernel``, K2b; on the tensor cores likewise).  All
 three copy with ``cp.async`` and so take 16-byte aligned operands with B, L
 and H strides in multiples of 16 bytes, see ``cp_async_misalignment``.
-The kernels are built for heads of 64 and of 128 features
-(``KERNEL_WIDTHS``); on the card the Function zero-pads a narrower head to
-the next of the two and passes the kernels the true width's scale: the zero
-columns change no logit, LSE or delta, and the padded columns of O, dq, dk
-and dv come out exactly 0 and are sliced off.  A head wider than 128
-raises ``ValueError`` (``kernel_width``).  On a CPU tensor the same
-Function runs their plain versions, so the CPU tests reach the wiring the
-card runs.  It never falls back from a kernel to a plain version on the
-card.
+Those kernels are built for heads of 64 and of 128 features
+(``KERNEL_WIDTHS``).  A wider head goes to the three kernels of
+``csrc/flash_wide.cu``, which take any multiple of 64 above 128: they
+stream the head dim in pieces of 64 columns and run a grid dimension over
+chunks of 128 output columns, so their shared memory and registers do not
+grow with the width (S and dP are recomputed once a chunk).  On the card
+the Function zero-pads a head to ``kernel_width(D)`` (64, 128, or the
+least multiple of 64 not below D) and passes the kernels the true width's
+scale: the zero columns change no logit, LSE or delta, and the padded
+columns of O, dq, dk and dv come out exactly 0 and are sliced off.  On a
+CPU tensor the same Function runs their plain versions, so the CPU tests
+reach the wiring the card runs.  It never falls back from a kernel to a
+plain version on the card.
 
 Each wrapper (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``) launches
 its kernel on a CUDA tensor and takes its plain version on a CPU tensor, and
 counts which, on ``flash_attention``: ``kernel_launches`` (K1),
-``dq_launches`` (K2a), ``dkv_launches`` (K2b); ``plain_calls`` (K1's plain
-version) and ``plain_bwd_calls`` (K2a's and K2b's).
+``dq_launches`` (K2a), ``dkv_launches`` (K2b), at every head width;
+``plain_calls`` (K1's plain version) and ``plain_bwd_calls`` (K2a's and
+K2b's).
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ import torch
 
 from syncfusion_tpu_torch.ops import _build
 
-KERNEL_WIDTHS = (64, 128)  # the head widths the kernels are built for
+KERNEL_WIDTHS = (64, 128)  # the widths of flash_fwd.cu's and flash_bwd.cu's kernels
+WIDE_STEP = 64  # flash_wide.cu takes multiples of this above KERNEL_WIDTHS
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -47,14 +53,13 @@ def _up(x):
 
 
 def kernel_width(d: int) -> int:
-    """The width of the kernel instantiation that takes a head of ``d``
-    features: the least of ``KERNEL_WIDTHS`` not below it.  Raises
-    ``ValueError`` above the widest."""
+    """The width of the kernel that takes a head of ``d`` features: the
+    least of ``KERNEL_WIDTHS`` not below it, and above those the least
+    multiple of ``WIDE_STEP`` not below it (``flash_wide.cu``)."""
     for width in KERNEL_WIDTHS:
         if d <= width:
             return width
-    raise ValueError(f"the attention kernels take heads of up to "
-                     f"{KERNEL_WIDTHS[-1]} features; got {d}")
+    return -(-d // WIDE_STEP) * WIDE_STEP
 
 
 def _scale(q, scale):
@@ -130,17 +135,24 @@ def flash_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
 
 
 @functools.cache
-def _kernels():
-    fwd = _build.library("flash_fwd").flash_fwd
-    bwd = _build.library("flash_bwd")
+def _kernels(wide: bool = False):
+    """The C entries of K1, K2a and K2b: those of ``flash_fwd.cu`` and
+    ``flash_bwd.cu`` (heads of 64 and 128 features), or with ``wide`` those
+    of ``flash_wide.cu`` (wider heads), which take the same arguments."""
+    if wide:
+        lib = _build.library("flash_wide")
+        fns = (lib.flash_fwd_wide, lib.flash_bwd_dq_wide, lib.flash_bwd_dkv_wide)
+    else:
+        bwd = _build.library("flash_bwd")
+        fns = (_build.library("flash_fwd").flash_fwd, bwd.flash_bwd_dq,
+               bwd.flash_bwd_dkv)
     i, ll, p, f = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float
-    fwd.argtypes = [i, p, p, p, p, p, i, i, i, i, i, *([ll] * 12), i, f, p]
-    bwd_args = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, p, i, f, p]
-    bwd.flash_bwd_dq.argtypes = bwd_args
-    bwd.flash_bwd_dkv.argtypes = bwd_args
-    for fn in (fwd, bwd.flash_bwd_dq, bwd.flash_bwd_dkv):
+    fns[0].argtypes = [i, p, p, p, p, p, i, i, i, i, i, *([ll] * 12), i, f, p]
+    for fn in fns[1:]:
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, p, i, f, p]
+    for fn in fns:
         fn.restype = i
-    return fwd, bwd.flash_bwd_dq, bwd.flash_bwd_dkv
+    return fns
 
 
 def cp_async_misalignment(name: str, ptr: int, shape, strides,
@@ -172,11 +184,11 @@ def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, L, H, D)")
     (b, _, h, d), (bk, lk, hk, dk) = q.shape, k.shape
-    if d not in KERNEL_WIDTHS or dk != d or v.shape[-1] != d:
-        width = kernel_width(d)  # raises above the widest
-        raise ValueError(f"the kernels are built for head dims {KERNEL_WIDTHS}; "
-                         f"got q {d}, k {dk}, v {v.shape[-1]} (flash_attention "
-                         f"pads a head of {d} to {width})")
+    if d != kernel_width(d) or dk != d or v.shape[-1] != d:
+        raise ValueError(f"the kernels take head dims {KERNEL_WIDTHS} and "
+                         f"multiples of {WIDE_STEP} above; got q {d}, k {dk}, "
+                         f"v {v.shape[-1]} (flash_attention pads a head of {d} "
+                         f"to {kernel_width(d)})")
     if (bk, hk) != (b, h) or v.shape != k.shape:
         raise ValueError(f"shapes disagree: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -227,9 +239,9 @@ def _stream(x) -> int:
 def flash_fwd(q, k, v, causal: bool = False, scale: float | None = None):
     """K1: ``(o, lse)``, O in q's dtype, LSE (B, H, Lq) f32; ``scale``
     multiplies the logits (default 1/sqrt(D)).  The kernel on a CUDA tensor
-    of head dim 64 or 128 (raises ``ValueError`` for another width or a q,
-    k or v ``cp.async`` cannot take), ``attention_reference`` on a CPU
-    tensor."""
+    of head dim 64, 128 or a multiple of 64 above (raises ``ValueError``
+    for another width or a q, k or v ``cp.async`` cannot take),
+    ``attention_reference`` on a CPU tensor."""
     if q.device.type == "cpu":
         flash_attention.plain_calls += 1
         return attention_reference(q, k, v, causal, return_lse=True, scale=scale)
@@ -240,7 +252,7 @@ def flash_fwd(q, k, v, causal: bool = False, scale: float | None = None):
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = [t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)]
-    _raise_on(_kernels()[0](
+    _raise_on(_entry(0, d)(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, h, lq, lk, d, *strides, int(causal),
         _scale(q, scale), _stream(q)), "flash_fwd")
@@ -251,6 +263,11 @@ def flash_fwd(q, k, v, causal: bool = False, scale: float | None = None):
 def _stride_array(*tensors):
     return (ctypes.c_longlong * 18)(
         *[t.stride(i) for t in tensors for i in (0, 1, 2)])
+
+
+def _entry(index: int, d: int):
+    """The C entry of K1 (0), K2a (1) or K2b (2) for heads of ``d``."""
+    return _kernels(d > KERNEL_WIDTHS[-1])[index]
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False,
@@ -267,7 +284,7 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False,
     b, lq, h, d = q.shape
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    _raise_on(_kernels()[1](
+    _raise_on(_entry(1, d)(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), b, h, lq, k.shape[1], d, _stride_array(q, k, v, o, do, dq),
@@ -290,7 +307,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     b, lq, h, d = q.shape
-    _raise_on(_kernels()[2](
+    _raise_on(_entry(2, d)(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, h, lq, k.shape[1], d, _stride_array(q, k, v, do, dk, dv),
@@ -320,9 +337,9 @@ def _cut_head(x, d):
 class _FlashAttention(torch.autograd.Function):
     """Forward K1, backward K2a then K2b (each wrapper takes its plain
     version on a CPU tensor).  On the card a head of D features is
-    zero-padded to ``kernel_width(D)`` (a head wider than 128 raises), the
-    kernels take 1/sqrt(D), and O, dq, dk and dv are sliced back to D.
-    Saves q, k, v, O (padded) and the LSE."""
+    zero-padded to ``kernel_width(D)``, the kernels take 1/sqrt(D), and O,
+    dq, dk and dv are sliced back to D.  Saves q, k, v, O (padded) and the
+    LSE."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):

@@ -1,17 +1,19 @@
-"""Attention at any head width up to 128: the port's padding against the
-unpadded plain versions and the JAX package.
+"""Attention at any head width: the port's padding against the unpadded
+plain versions and the JAX package.
 
-The kernels are built for heads of 64 and 128 features; on the card
-``flash_attention``'s autograd Function zero-pads a narrower head to the
-next of the two, passes the true width's scale and slices O, dq, dk and dv
-back.  Here that padded path runs through the plain versions on the CPU
-(``ta._pads`` patched to say yes), so the padding, the scale and the
-slicing are held without a card: forward and backward equal the unpadded
-plain versions within 1e-6 (f32 and f64; zero columns add exact zeros to
-every sum), the padded columns of O, dq, dk and dv are exactly 0, and the
-padded path matches the JAX Pallas kernels in interpret mode within
-tests/test_attention.py's tolerances.  The kernels themselves run at these
-widths in tests/test_torch_cuda.py and chip_smoke.py phase 21.
+The kernels are built for heads of 64 and 128 features, and above 128 for
+any multiple of 64 (``csrc/flash_wide.cu``); on the card
+``flash_attention``'s autograd Function zero-pads a head to its kernel
+width (``kernel_width``), passes the true width's scale and slices O, dq,
+dk and dv back.  Here that padded path runs through the plain versions on
+the CPU (``ta._pads`` patched to say yes), so the padding, the scale and
+the slicing are held without a card: forward and backward equal the
+unpadded plain versions within 1e-6 (f32 and f64; zero columns add exact
+zeros to every sum), the padded columns of O, dq, dk and dv are exactly 0,
+and the padded path matches the JAX Pallas kernels in interpret mode
+within tests/test_attention.py's tolerances.  The kernels themselves run
+at these widths in tests/test_torch_cuda.py and chip_smoke.py phases 21a
+and 21c.
 """
 
 import math
@@ -26,7 +28,7 @@ from syncfusion_tpu.ops import attention as ja
 from syncfusion_tpu_torch.ops import attention as ta
 from torch_port_helpers import n, t
 
-WIDTHS = [8, 32, 48, 128]
+WIDTHS = [8, 32, 48, 128, 160, 192, 200, 256, 320]
 DTYPES = [torch.float32, torch.float64]
 
 
@@ -107,27 +109,17 @@ def test_the_scale_argument_keeps_the_default_at_64(causal):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("d,width", [(1, 64), (8, 64), (64, 64), (65, 128), (128, 128)])
+@pytest.mark.parametrize("d,width", [
+    (1, 64), (8, 64), (64, 64), (65, 128), (128, 128),
+    # above 128, flash_wide.cu's widths: the least multiple of 64 not below d
+    (129, 192), (160, 192), (192, 192), (200, 256), (256, 256), (320, 320),
+    (512, 512)])
 def test_kernel_width(d, width):
     assert ta.kernel_width(d) == width
 
 
-@pytest.mark.parametrize("d", [129, 192, 256])
-def test_width_check_raises_above_128(d):
-    with pytest.raises(ValueError, match="up to 128"):
-        ta.kernel_width(d)
-
-
-def test_padded_path_raises_above_128_and_counts_nothing(padded):
-    q = torch.zeros((1, 16, 2, 192))
-    ta.reset_counts()
-    with pytest.raises(ValueError, match="up to 128"):
-        ta.flash_attention(q, q, q)
-    assert all(getattr(ta.flash_attention, c) == 0 for c in ta.COUNTS)
-
-
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [8, 128])
+@pytest.mark.parametrize("d", [8, 128, 192, 256])
 def test_padded_path_matches_the_pallas_kernels(padded, d, causal):
     """The padded path's O and gradients against ``jax.grad`` of the JAX
     ``flash_attention`` in interpret mode (the Pallas forward and backward

@@ -196,18 +196,13 @@ def test_misaligned_backward_operand_raises_on_card(card, dtype):
     assert ta.flash_attention.dq_launches == ta.flash_attention.dkv_launches == 0
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
-@pytest.mark.parametrize("length,causal", [(1024, False), (1000, True)])
-@pytest.mark.parametrize("d", [8, 32, 128])
-def test_any_head_width_forward_and_backward_on_card(card, d, dtype, tol, length, causal):
-    """Fault 7: ``flash_attention`` at head widths other than 64, forward
-    and backward.  D = 8 and 32 are zero-padded to the 64-wide kernels, D =
-    128 runs their 128-wide instantiations; one launch of K1, K2a and K2b
-    each, no plain call, against the plain versions at the true width (O
-    absolute, the gradients relative to max |plain|)."""
+def _head_width_case(d, heads, dtype, tol, length, causal):
+    """``flash_attention`` at head width d, forward and backward: one launch
+    of K1, K2a and K2b each, no plain call, against the plain versions at
+    the true width (O absolute, the gradients relative to max |plain|)."""
     gen = torch.Generator(device="cuda").manual_seed(d + length)
-    qkv = torch.randn((2, length, 3, 8, d), generator=gen, device="cuda").to(dtype)
-    do = torch.randn((2, length, 8, d), generator=gen, device="cuda").to(dtype)
+    qkv = torch.randn((2, length, 3, heads, d), generator=gen, device="cuda").to(dtype)
+    do = torch.randn((2, length, heads, d), generator=gen, device="cuda").to(dtype)
     q, k, v = (x.detach().requires_grad_() for x in qkv.unbind(2))
     ta.reset_counts()
     o, lse = ta.flash_attention(q, k, v, causal, return_lse=True)
@@ -226,14 +221,22 @@ def test_any_head_width_forward_and_backward_on_card(card, d, dtype, tol, length
         assert err <= tol * ref.grad.float().abs().max().item()
 
 
-def test_head_width_above_128_raises_on_card(card):
-    q = torch.zeros((1, 64, 2, 192), device="cuda")
-    ta.reset_counts()
-    with pytest.raises(ValueError, match="up to 128"):
-        ta.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="up to 128"):
-        ta.flash_fwd(q, q, q)
-    assert all(getattr(ta.flash_attention, c) == 0 for c in ta.COUNTS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("length,causal", [(1024, False), (1000, True)])
+@pytest.mark.parametrize("d", [8, 32, 128])
+def test_any_head_width_forward_and_backward_on_card(card, d, dtype, tol, length, causal):
+    """Fault 7: D = 8 and 32 are zero-padded to the 64-wide kernels, D = 128
+    runs their 128-wide instantiations."""
+    _head_width_case(d, 8, dtype, tol, length, causal)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("length,causal", [(1024, False), (1000, True)])
+@pytest.mark.parametrize("d", [192, 256])
+def test_head_width_above_128_runs_on_card(card, d, dtype, tol, length, causal):
+    """Fault 7's rest: heads wider than 128 run the chunked kernels of
+    ``csrc/flash_wide.cu`` (heads x D = 512 as in the UNet's levels)."""
+    _head_width_case(d, 512 // d, dtype, tol, length, causal)
 
 
 # the tiny parity config of tests/test_diffusion_stack.py as it is: 2 heads
@@ -258,6 +261,32 @@ def test_tiny_parity_config_runs_on_card(no_tf32):
     gpu = SyncFusionDiffusion.from_config(TINY_MODEL, device="cuda", seed=0)
     gpu.load_state_dict(cpu.state_dict())
     gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 4096, 1), generator=gen)
+    onsets = torch.zeros((2, 4096, 1))
+    onsets[:, ::300] = 1.0
+    emb = torch.randn((2, 1, 16), generator=gen)
+    sigma = torch.tensor([0.3, 0.7])
+    with torch.no_grad():
+        want = cpu.unet(x, sigma, context=cpu.encode_context(onsets), embedding=emb)
+        ta.reset_counts()
+        got = gpu.unet(x.cuda(), sigma.cuda(), context=gpu.encode_context(onsets.cuda()),
+                       embedding=emb.cuda())
+        torch.cuda.synchronize()
+    assert ta.flash_attention.kernel_launches == 5 and ta.flash_attention.plain_calls == 0
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_wide_head_tiny_config_runs_on_card(no_tf32):
+    """The tiny parity config with one head of 192 features (the UNet of
+    tests/test_torch_wide_heads.py) on the card against the same weights on
+    the CPU, f32 without TF32, within 1e-4 of max |CPU|, through the wide
+    kernels: 5 K1 launches a forward, no plain call."""
+    cfg = {**TINY_MODEL, "model": {**TINY_MODEL["model"], "attention_heads": 1,
+                                   "attention_features": 192}}
+    cpu = SyncFusionDiffusion.from_config(cfg, device="cpu", seed=0)
+    gpu = SyncFusionDiffusion.from_config(cfg, device="cuda", seed=0)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(4)
     x = torch.randn((2, 4096, 1), generator=gen)
     onsets = torch.zeros((2, 4096, 1))
     onsets[:, ::300] = 1.0
