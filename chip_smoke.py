@@ -7,9 +7,12 @@ Phases, each printed with its seconds; any failure exits non-zero:
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: ``nvcc`` compiles every kernel of ``syncfusion_tpu_torch/csrc``;
      the registers, spills and static shared memory ptxas reports for K1,
-     K2a and K2b at head widths 64 and 128 and for their wide kernels
-     (``flash_wide.cu``), and the dynamic shared memory each launch asks for
-     (read from the built library), go into the kernels line;
+     K2a and K2b at head widths 64 and 128 and for their wide kernels (K1
+     of ``flash_fwd_wide_sm90.cu`` at each width 192-512, gated to no
+     spills, with its launch plan checked against ``wide_fwd_plan``; K2a
+     and K2b of ``flash_wide.cu``), and the dynamic shared memory each
+     launch asks for (read from the built library), go into the kernels
+     line;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes of the generation path (plus a ragged and a causal case), in
      bf16 and f32, and K1 in bf16 also at the 16 rows of the serving and fast
@@ -212,9 +215,13 @@ Phases, each printed with its seconds; any failure exits non-zero:
      and a sampling step, K2a and K2b 3 a training step) and
      ``overfit_quality_stage2.main`` at 60 steps (no hand-written kernel):
      their JSON lines, exit codes and counts (gated), no plain version on
-     the card; (c) heads wider than 128, the kernels of ``flash_wide.cu``:
-     as (a) at D = 160, 192, 256, 320 and 512 with heads x D = 512 (3, 3,
-     2, 2 and 1 heads), with the backend SDPA picks; the full-width UNet
+     the card; (c) heads wider than 128, K1 of ``flash_fwd_wide_sm90.cu``
+     (TMA, wgmma) and K2a and K2b of ``flash_wide.cu``: as (a) at D = 160,
+     192, 256, 320 and 512 with heads x D = 512 (3, 3, 2, 2 and 1 heads),
+     with the backend SDPA picks, and K1 alone at the 2 x 256 UNet's
+     largest calls (bf16 16 rows x 2 heads, f32 4 x 2, T = 2048: gated as
+     phase 3, 1 launch a call, timed beside its bound, the plain version
+     and SDPA); the full-width UNet
      with 2 heads of 256 (exp/model/diffusion.yaml's node, inner width 512
      kept): one bf16 forward at 2 rows through the kernels against the
      plain attention (phase 5's gate, 9 K1) and one f32 loss and gradient
@@ -684,13 +691,20 @@ K2_KERNELS = {key: {f"{dtype}{sfx}": f"{name}I{arg}Li{d}E"
                     for dtype, arg in (("float32", "f"), ("bfloat16", "13__nv_bfloat16"))}
               for key, name in (("dq", "flash_bwd_dq_kernel"),
                                 ("dkv", "flash_bwd_dkv_kernel"))}
-# the wide kernels of flash_wide.cu (any multiple of 64 above 128), one
-# instantiation per input type, by kernel and type
+# the wide backward kernels of flash_wide.cu (any multiple of 64 above
+# 128), one instantiation per input type, by kernel and type
 WIDE_KERNELS = {key: {dtype: f"{name}I{arg}E"
                       for dtype, arg in (("float32", "f"), ("bfloat16", "13__nv_bfloat16"))}
-                for key, name in (("fwd", "flash_fwd_wide_kernel"),
-                                  ("dq", "flash_bwd_dq_wide_kernel"),
+                for key, name in (("dq", "flash_bwd_dq_wide_kernel"),
                                   ("dkv", "flash_bwd_dkv_wide_kernel"))}
+# the wide K1 of flash_fwd_wide_sm90.cu, one instantiation per input type
+# and head width, by "<type>_d<width>"
+WIDE_FWD_WIDTHS = tuple(range(192, 513, 64))
+WIDE_FWD_KERNELS = {f"{dtype}_d{w}": f"flash_fwd_wide_sm90_kernelI{arg}Li{w}EE"
+                    for w in WIDE_FWD_WIDTHS
+                    for dtype, arg in (("float32", "f"), ("bfloat16", "13__nv_bfloat16"))}
+PLAN_KEYS = ("q_rows", "key_tile", "stages", "row_groups", "col_groups", "threads",
+             "smem_bytes", "box_cols", "ops_per_pair")
 
 
 # the fused kernel's two bodies in fused_resblock.cu (bf16: mma.sync
@@ -698,6 +712,36 @@ WIDE_KERNELS = {key: {dtype: f"{name}I{arg}E"
 # (TCO, RESIDUAL, STATS)
 FUSED_KERNELS = {"bfloat16": "fused_resblock_tc_kernel",
                  "float32": "fused_resblock_3xtf32_kernel"}
+
+
+def wide_fwd_ptxas(build, libs) -> dict:
+    """The wide K1's ptxas report at each width and type, with the launch
+    plan its library returns, which must equal ``wide_fwd_plan``'s; gated:
+    at most 255 registers, no spills, shared memory within SMEM_MAX."""
+    import ctypes
+
+    from syncfusion_tpu_torch.ops import attention as attn
+
+    log = libs["flash_fwd_wide_sm90"].with_suffix(".so.log").read_text()
+    reports = pick_ptxas(log, WIDE_FWD_KERNELS)
+    plan_of = build.library("flash_fwd_wide_sm90").flash_fwd_wide_plan
+    plan_of.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for key, report in reports.items():
+        dtype, width = key.split("_d")
+        out = (ctypes.c_int * len(PLAN_KEYS))()
+        check(plan_of(int(dtype == "bfloat16"), int(width), out) == 0,
+              f"no plan for wide K1 {key}")
+        plan = dict(zip(PLAN_KEYS, out))
+        want = attn.wide_fwd_plan(int(width), getattr(torch, dtype))
+        check(plan == want, f"wide K1 {key}: the library's plan {plan} is not "
+                            f"wide_fwd_plan's {want}")
+        report["plan"] = plan
+        report["dynamic_smem_bytes"] = plan["smem_bytes"]
+        check(report["registers"] <= 255 and report.get("spill_stores", 0) == 0
+              and report.get("spill_loads", 0) == 0
+              and plan["smem_bytes"] + report["smem_bytes"] <= attn.SMEM_MAX,
+              f"wide K1 {key}: registers, spills or shared memory {report}")
+    return reports
 
 
 def fused_ptxas(log: str, tag: str) -> dict:
@@ -943,15 +987,42 @@ def attention_times_of(root: str) -> dict:
     return out
 
 
-def compare_attention_times(roots) -> dict:
-    """``attention_times_of`` for each checkout of ``roots``, each in a
-    fresh process, in the order given (parent, tree, tree, parent), printed
-    side by side; returns ``{root: [times, ...]}``:
+def wide_times_of(root: str) -> dict:
+    """The wide K1's ms a call for the ``syncfusion_tpu_torch`` of the
+    checkout at ``root``, eager (CUDA events) and, under ``<key>_device``,
+    its device time from the profiler: at the 2 x 256 UNet's largest calls
+    (WIDE_LARGEST, T = WIDE_T) and at phase 21c(a)'s shapes (B = HW_ROWS, T
+    = HW_T, heads x D = 512, D = 192-512), on qkv views.  Call it in a fresh
+    process, as ``attention_times_of``."""
+    sys.path.insert(0, os.path.abspath(root))
+    from syncfusion_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shapes = [(f"largest_{str(dtype)[6:]}", dtype, rows, 2, WIDE_T, 256)
+              for dtype, rows in WIDE_LARGEST]
+    shapes += [(f"d{d}_{str(dtype)[6:]}", dtype, HW_ROWS, WIDE_HEADS[d], HW_T, d)
+               for d in WIDE_WIDTHS if d % 64 == 0
+               for dtype in (torch.bfloat16, torch.float32)]
+    out = {}
+    for key, dtype, rows, heads, t, d in shapes:
+        q, k, v = torch.randn((rows, t, 3, heads, d), generator=gen,
+                              device="cuda").to(dtype).unbind(2)
+        out[key] = time_ms(lambda: attn.flash_fwd(q, k, v), 30)
+        out[f"{key}_device"] = device_ms(lambda: attn.flash_fwd(q, k, v),
+                                         "flash_fwd_wide")[0]
+    return out
+
+
+def compare_attention_times(roots, of: str = "attention_times_of") -> dict:
+    """``attention_times_of`` (or the function of this module named ``of``,
+    e.g. ``wide_times_of``) for each checkout of ``roots``, each in a fresh
+    process, in the order given (parent, tree, tree, parent), printed side
+    by side; returns ``{root: [times, ...]}``:
     ``python3 -c "import chip_smoke as c; c.compare_attention_times(['<parent>',
     '.', '.', '<parent>'])"``."""
     here = os.path.dirname(os.path.abspath(__file__))
     code = ("import json, sys, chip_smoke as c; "
-            "print('ATTN_TIMES ' + json.dumps(c.attention_times_of(sys.argv[1])))")
+            f"print('ATTN_TIMES ' + json.dumps(c.{of}(sys.argv[1])))")
     out = {}
     for root in roots:
         proc = subprocess.run([sys.executable, "-c", code, os.path.abspath(root)],
@@ -3836,6 +3907,11 @@ WIDE_HEADS = {d: round(512 / d) for d in WIDE_WIDTHS}
 # (DPM++(2M), CFG 1.5 in the band, DeepCache K = 2) cut to WIDE_GEN_STEPS
 # steps, and train_diffusion --model_config for WIDE_TRAIN_STEPS micro-steps
 WIDE_SWITCHES = {"attention_heads": 2, "attention_features": 256}
+# (a) also K1 alone at that UNet's largest calls, T = 2048: the in-band
+# forward of the serving and fast configurations (16 rows, bf16) and the
+# training forward (4 rows, f32)
+WIDE_LARGEST = ((torch.bfloat16, 2 * SERVE_BATCH), (torch.float32, TRAIN_ROWS))
+WIDE_T = 2048
 WIDE_ROWS = 2
 WIDE_GEN_STEPS = 8
 WIDE_TRAIN_STEPS = 2
@@ -3936,6 +4012,54 @@ def head_width_case(attn, d: int, heads: int, dtype, seed: int) -> dict:
                   "plain_calls": 0, "plain_bwd_calls": 0},
           f"head width {d} {dtype}: launches {got}")
     return rec
+
+
+def wide_largest_calls(attn) -> dict:
+    """Phase 21c(a): K1 at the 2 x 256 UNet's largest calls (WIDE_LARGEST,
+    T = WIDE_T; q, k and v views of one packed projection, as the UNet
+    makes them) against the plain version (phase 3's gates), one launch a
+    call and no plain call (gated), timed beside the plain version, SDPA
+    (with the backend it picks) and the bound.  Returns ``{type: record}``."""
+    import torch.nn.functional as F
+
+    heads, d = WIDE_SWITCHES["attention_heads"], WIDE_SWITCHES["attention_features"]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out = {}
+    for dtype, rows in WIDE_LARGEST:
+        qkv = torch.randn((rows, WIDE_T, 3, heads, d), generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = qkv.unbind(2)
+        attn.reset_counts()
+        o, lse = attn.flash_fwd(q, k, v)
+        torch.cuda.synchronize()
+        got = {c: getattr(attn.flash_attention, c) for c in attn.COUNTS}
+        o_ref, lse_ref = attn.attention_reference(q, k, v, return_lse=True)
+        err_o = (o.float() - o_ref.float()).abs().max().item()
+        err_l = (lse - lse_ref).abs().max().item()
+        del o_ref, lse_ref
+        ok = err_o <= TOL[dtype]["o"] and err_l <= TOL[dtype]["lse"]
+        ms = time_ms(lambda: attn.flash_fwd(q, k, v), HW_ITERS)
+        plain = time_ms(lambda: attn.attention_reference(q, k, v), 3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        backend = sdpa_backend(qt, kt, vt)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), HW_ITERS)
+        bms, by = bound_ms(*attention_work(rows, heads, WIDE_T, d, dtype, False), dtype)
+        print(f"  K1 at the 2 x 256 UNet's largest call, {str(dtype)[6:]} BH="
+              f"{rows * heads} T={WIDE_T} D={d}: err O {err_o:.3e} (tol "
+              f"{TOL[dtype]['o']:.0e}) LSE {err_l:.3e} | kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, sdpa {lib:.4f} ms ({backend}), bound {bms:.4f} ms "
+              f"({by}); launches {got} {'ok' if ok else 'MISMATCH'}", flush=True)
+        check(ok, f"wide K1 at BH={rows * heads} {dtype} disagrees with its plain version")
+        check(got == {"kernel_launches": 1, "dq_launches": 0, "dkv_launches": 0,
+                      "plain_calls": 0, "plain_bwd_calls": 0},
+              f"wide K1 at BH={rows * heads} {dtype}: launches {got}")
+        out[str(dtype)[6:]] = {"max_abs_err": err_o, "lse_err": err_l, "ms": ms,
+                               "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                               "library_ms": lib, "library_backend": backend,
+                               "rows": rows}
+        del qkv, q, k, v, o, lse
+        torch.cuda.empty_cache()
+    return out
 
 
 def kernel_record(rec: dict, key: str) -> dict:
@@ -4250,7 +4374,10 @@ def main() -> int:
         for dtype, report in by_type.items():
             report["dynamic_smem_bytes"] = wide_smem(int(dtype == "bfloat16"))
             check(report["dynamic_smem_bytes"] > 0, f"no shared memory for wide {key}")
-    print(f"  wide K1, K2a and K2b (flash_wide.cu) registers and spills: {wide_regs}")
+    print(f"  wide K2a and K2b (flash_wide.cu) registers and spills: {wide_regs}")
+    wide_regs["fwd"] = wide_fwd_ptxas(_build, libs)
+    print(f"  wide K1 (flash_fwd_wide_sm90.cu) registers, spills and plans: "
+          f"{wide_regs['fwd']}")
     fused_log = libs["fused_resblock"].with_suffix(".so.log").read_text()
     fused_smem = _build.library("fused_resblock").fused_resblock_smem
     fused_regs = {dtype: fused_ptxas(fused_log, tag)
@@ -4536,6 +4663,7 @@ def main() -> int:
     t0 = time.perf_counter()
     wide = {(d, str(dtype)[6:]): head_width_case(attn, d, WIDE_HEADS[d], dtype, 210 + d)
             for d in WIDE_WIDTHS for dtype in (torch.bfloat16, torch.float32)}
+    largest = wide_largest_calls(attn)
     phase("21c(a) K1, K2a and K2b at heads wider than 128", t0)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -4665,31 +4793,50 @@ def main() -> int:
             ("flash_bwd_dkv_wide", "syncfusion_tpu/ops/attention.py:181", "dkv")):
         count = {"fwd": "kernel_launches"}.get(key, f"{key}_launches")
         by_path = {p_: c_.get(count, 0) for p_, c_ in wide_paths.items()}
-        main_rec = kernel_record(wide[256, "bfloat16" if key == "fwd" else "float32"], key)
+        fwd = key == "fwd"
+        main_rec = (largest["bfloat16"] if fwd
+                    else kernel_record(wide[256, "float32"], key))
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": "syncfusion_tpu_torch/csrc/flash_wide.cu",
+            "source": "syncfusion_tpu_torch/csrc/"
+                      + ("flash_fwd_wide_sm90.cu" if fwd else "flash_wide.cu"),
             "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            "max_abs_err": max(kernel_record(rec, key)["max_abs_err"]
-                               for rec in wide.values()),
+            "max_abs_err": max([kernel_record(rec, key)["max_abs_err"]
+                                for rec in wide.values()]
+                               + ([r_["max_abs_err"] for r_ in largest.values()]
+                                  if fwd else [])),
             "ms": main_rec["ms"],
             "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
             "library_backend": main_rec["library_backend"],
-            "work": f"one call at B={HW_ROWS} x 2 heads of 256, T={HW_T}, "
-                    f"{'bf16 (generation' if key == 'fwd' else 'f32 (training'}'s "
-                    "type); max_abs_err over every width and type of phase 21c "
-                    "(O absolute; gradients relative to max |plain|)",
-            "design": "head dim streamed in pieces of 64 columns through a "
-                      "cp.async ring of 2 stages, a grid dimension over chunks of "
-                      "128 output columns (S and dP recomputed a chunk; K2b a dK "
-                      "and a dV block a chunk), mma.sync m16n8k8 tf32, f32 as "
-                      "3xTF32, bf16 operands unsplit, 4 warps of 16 rows a block",
+            "work": (f"the 2 x 256 UNet's largest call, bf16 (generation's "
+                     f"type), B={WIDE_LARGEST[0][1]} x 2 heads of 256, T={WIDE_T}; "
+                     "float32: its training forward's, B="
+                     f"{WIDE_LARGEST[1][1]} x 2; max_abs_err over every width "
+                     "and type of phase 21c and those calls (O absolute)") if fwd
+                    else (f"one call at B={HW_ROWS} x 2 heads of 256, T={HW_T}, f32 "
+                          "(training's type); max_abs_err over every width and "
+                          "type of phase 21c (gradients relative to max |plain|)"),
+            "design": ("TMA (4-D tensor maps of the strided operands, 128-byte "
+                       "boxes, 128-byte swizzle) into a ring of 2 slots signalled "
+                       "by mbarriers, the loads issued by one lane; two "
+                       "warpgroups, over two 64-row q tiles (bf16, W <= 256) or "
+                       "over O's columns (each computing S), O at the full width "
+                       "in registers, S once a key tile a group; bf16 on wgmma "
+                       "m64n64k16 (P as hi + lo bf16 from registers, V MN-major), "
+                       "f32 as 3xTF32 on mma.sync m16n8k8 from the swizzled "
+                       "tiles") if fwd
+                      else ("head dim streamed in pieces of 64 columns through a "
+                            "cp.async ring of 2 stages, a grid dimension over "
+                            "chunks of 128 output columns (S and dP recomputed a "
+                            "chunk; K2b a dK and a dV block a chunk), mma.sync "
+                            "m16n8k8 tf32, f32 as 3xTF32, bf16 operands unsplit, 4 "
+                            "warps of 16 rows a block"),
             "ptxas": wide_regs[key],
             "head_widths": {f"d{d}_{dtype}": {k_: r_ for k_, r_
                                                in kernel_record(rec, key).items()
@@ -4702,6 +4849,8 @@ def main() -> int:
                 "flip_share", "output_rel", "loss_rel", "grad_rel", "forward_device_ms",
                 "forward_k1_device_ms")},
         })
+        if fwd:
+            rows[-1]["float32"] = largest["float32"]
     for name, replaces, key, work in (
             ("fused_resblock_k3",
              "syncfusion_tpu/ops/fused_resblock.py:54, "

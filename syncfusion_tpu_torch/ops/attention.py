@@ -7,14 +7,20 @@ kernel of ``csrc/flash_fwd.cu`` (the port of the TPU kernel
 ``_flash_kernel``, K1, on the tensor cores, f32 as 3xTF32) and its backward
 the two kernels of ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``, K2a,
 then ``_flash_bwd_dkv_kernel``, K2b; on the tensor cores likewise).  All
-three copy with ``cp.async`` and so take 16-byte aligned operands with B, L
-and H strides in multiples of 16 bytes, see ``cp_async_misalignment``.
+three copy with ``cp.async`` (or TMA) and so take 16-byte aligned operands
+with B, L and H strides in multiples of 16 bytes, see
+``cp_async_misalignment``.
 Those kernels are built for heads of 64 and of 128 features
-(``KERNEL_WIDTHS``).  A wider head goes to the three kernels of
-``csrc/flash_wide.cu``, which take any multiple of 64 above 128: they
-stream the head dim in pieces of 64 columns and run a grid dimension over
-chunks of 128 output columns, so their shared memory and registers do not
-grow with the width (S and dP are recomputed once a chunk).  On the card
+(``KERNEL_WIDTHS``).  A wider head goes to K1 of
+``csrc/flash_fwd_wide_sm90.cu`` (any multiple of 64 from 192 to
+``WIDE_FWD_MAX``: TMA loads into an mbarrier-signalled ring, bf16 on
+wgmma, f32 as 3xTF32 on mma.sync, S computed once a key tile with O at
+the full width in registers of two warpgroups; its tiles are
+``wide_fwd_plan``'s) and to K2a
+and K2b of ``csrc/flash_wide.cu`` (any multiple of 64 above 128: the head
+dim in pieces of 64 columns, a grid dimension over chunks of 128 output
+columns, S and dP recomputed once a chunk).  A head wider than
+``WIDE_FWD_MAX`` raises on the card.  On the card
 the Function zero-pads a head to ``kernel_width(D)`` (64, 128, or the
 least multiple of 64 not below D) and passes the kernels the true width's
 scale: the zero columns change no logit, LSE or delta, and the padded
@@ -42,7 +48,9 @@ import torch
 from syncfusion_tpu_torch.ops import _build
 
 KERNEL_WIDTHS = (64, 128)  # the widths of flash_fwd.cu's and flash_bwd.cu's kernels
-WIDE_STEP = 64  # flash_wide.cu takes multiples of this above KERNEL_WIDTHS
+WIDE_STEP = 64  # the wide kernels take multiples of this above KERNEL_WIDTHS
+WIDE_FWD_MAX = 512  # the widest head of flash_fwd_wide_sm90.cu's K1
+SMEM_MAX = 232448  # shared memory a block may have on an H100
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -55,7 +63,7 @@ def _up(x):
 def kernel_width(d: int) -> int:
     """The width of the kernel that takes a head of ``d`` features: the
     least of ``KERNEL_WIDTHS`` not below it, and above those the least
-    multiple of ``WIDE_STEP`` not below it (``flash_wide.cu``)."""
+    multiple of ``WIDE_STEP`` not below it (the wide kernels)."""
     for width in KERNEL_WIDTHS:
         if d <= width:
             return width
@@ -134,14 +142,48 @@ def flash_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
     return dq, dk, dv
 
 
+def wide_fwd_plan(width: int, dtype) -> dict:
+    """The launch plan of the wide K1 at a head ``width`` (a multiple of
+    ``WIDE_STEP`` above 128, at most ``WIDE_FWD_MAX``) and ``dtype``, as
+    ``Plan`` of ``csrc/flash_fwd_wide_sm90.cu`` sets it (its C entry
+    ``flash_fwd_wide_plan`` returns the same): q rows a block, keys a tile,
+    ring slots, the block's two warpgroups split over q tiles of 64 rows
+    (``row_groups`` 2: up to 256 columns, each group all of O's columns) or
+    over O's 64-column pieces (``col_groups`` 2: each group half of them and
+    S itself), threads (thread 0 also issues the TMA loads), dynamic shared
+    memory (the q tiles, the slots, the barriers and 1024 bytes for the
+    alignment), the columns of a TMA box (128 bytes) and the
+    operations per (query, key) pair in units of the width, against the
+    function's 4 (bf16: S on wgmma once a column group, P·V as hi + lo
+    bf16; f32: tf32 products of 3xTF32 on mma.sync)."""
+    if width % WIDE_STEP or not KERNEL_WIDTHS[-1] < width <= WIDE_FWD_MAX:
+        raise ValueError(f"the wide K1 takes multiples of {WIDE_STEP} from "
+                         f"{KERNEL_WIDTHS[-1] + WIDE_STEP} to {WIDE_FWD_MAX}; got {width}")
+    f32 = dtype == torch.float32
+    esize = 4 if f32 else 2
+    row_groups = 2 if width <= 256 else 1
+    col_groups = 2 // row_groups
+
+    def smem(q_tiles, key_tile):
+        return 1024 + q_tiles * 64 * width * esize + 2 * key_tile * width * esize + 64
+
+    key_tile = (32 if smem(row_groups, 32) <= SMEM_MAX else 16) if f32 else 64
+    return {"q_rows": 64 * row_groups, "key_tile": key_tile, "stages": 2,
+            "row_groups": row_groups, "col_groups": col_groups, "threads": 256,
+            "smem_bytes": smem(row_groups, key_tile), "box_cols": 128 // esize,
+            "ops_per_pair": 3 * (2 * col_groups + 2) if f32 else 2 * col_groups + 4}
+
+
 @functools.cache
 def _kernels(wide: bool = False):
     """The C entries of K1, K2a and K2b: those of ``flash_fwd.cu`` and
     ``flash_bwd.cu`` (heads of 64 and 128 features), or with ``wide`` those
-    of ``flash_wide.cu`` (wider heads), which take the same arguments."""
+    of ``flash_fwd_wide_sm90.cu`` (K1) and ``flash_wide.cu`` (K2a, K2b) for
+    wider heads, which take the same arguments."""
     if wide:
         lib = _build.library("flash_wide")
-        fns = (lib.flash_fwd_wide, lib.flash_bwd_dq_wide, lib.flash_bwd_dkv_wide)
+        fns = (_build.library("flash_fwd_wide_sm90").flash_fwd_wide,
+               lib.flash_bwd_dq_wide, lib.flash_bwd_dkv_wide)
     else:
         bwd = _build.library("flash_bwd")
         fns = (_build.library("flash_fwd").flash_fwd, bwd.flash_bwd_dq,
@@ -239,15 +281,18 @@ def _stream(x) -> int:
 def flash_fwd(q, k, v, causal: bool = False, scale: float | None = None):
     """K1: ``(o, lse)``, O in q's dtype, LSE (B, H, Lq) f32; ``scale``
     multiplies the logits (default 1/sqrt(D)).  The kernel on a CUDA tensor
-    of head dim 64, 128 or a multiple of 64 above (raises ``ValueError``
-    for another width or a q, k or v ``cp.async`` cannot take),
-    ``attention_reference`` on a CPU tensor."""
+    of head dim 64, 128 or a multiple of 64 up to ``WIDE_FWD_MAX`` (raises
+    ``ValueError`` for another width or a q, k or v ``cp.async`` or TMA
+    cannot take), ``attention_reference`` on a CPU tensor."""
     if q.device.type == "cpu":
         flash_attention.plain_calls += 1
         return attention_reference(q, k, v, causal, return_lse=True, scale=scale)
     _check(q, k, v)
     _check_aligned(q=q, k=k, v=v)
     b, lq, h, d = q.shape
+    if d > WIDE_FWD_MAX:
+        raise ValueError(f"K1 takes heads of at most {WIDE_FWD_MAX} features on "
+                         f"the card; got {d}")
     lk = k.shape[1]
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)

@@ -234,9 +234,70 @@ def test_any_head_width_forward_and_backward_on_card(card, d, dtype, tol, length
 @pytest.mark.parametrize("length,causal", [(1024, False), (1000, True)])
 @pytest.mark.parametrize("d", [192, 256])
 def test_head_width_above_128_runs_on_card(card, d, dtype, tol, length, causal):
-    """Fault 7's rest: heads wider than 128 run the chunked kernels of
+    """Fault 7's rest: heads wider than 128 run K1 of
+    ``csrc/flash_fwd_wide_sm90.cu`` and the chunked K2a and K2b of
     ``csrc/flash_wide.cu`` (heads x D = 512 as in the UNet's levels)."""
     _head_width_case(d, 512 // d, dtype, tol, length, causal)
+
+
+def _wide_forward_case(d, heads, rows, length, dtype, tol, causal, seed):
+    """K1 alone at head width d above 128: q, k, v views of one packed qkv
+    (as the UNet makes them), zero-padded to the kernel width where d is
+    not one; one launch, no plain call, O and the LSE against the plain
+    version at the true width."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((rows, length, 3, heads, d), generator=gen, device="cuda").to(dtype)
+    q, k, v = qkv.unbind(2)
+    width = ta.kernel_width(d)
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, width - d)) if width != d else x
+                  for x in (q, k, v))
+    ta.reset_counts()
+    o, lse = ta.flash_fwd(qp, kp, vp, causal, 1.0 / math.sqrt(d))
+    torch.cuda.synchronize()
+    assert {c: getattr(ta.flash_attention, c) for c in ta.COUNTS} == {
+        "kernel_launches": 1, "dq_launches": 0, "dkv_launches": 0, "plain_calls": 0,
+        "plain_bwd_calls": 0}
+    want, want_lse = ta.attention_reference(q, k, v, causal, return_lse=True)
+    assert o.shape == (rows, length, heads, width) and o.dtype == dtype
+    assert (o[..., :d].float() - want.float()).abs().max().item() <= tol
+    assert not o[..., d:].any()
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    return o, lse
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("length,causal", [(40, False), (1001, False), (1001, True)])
+@pytest.mark.parametrize("d", [160, 192, 256, 320, 384, 448, 512])
+def test_wide_forward_kernel_matches_plain_on_card(card, d, dtype, tol, length, causal):
+    """K1 of ``csrc/flash_fwd_wide_sm90.cu`` (TMA into an mbarrier ring;
+    bf16 on wgmma, f32 as 3xTF32 on mma.sync) at every width it takes, a
+    sequence below one tile and a ragged one, causal too."""
+    _wide_forward_case(d, max(1, round(512 / d)), 2, length, dtype, tol, causal, d + length)
+
+
+@pytest.mark.parametrize("dtype,tol,rows", [(torch.bfloat16, 8e-3, 16),
+                                            (torch.float32, 1e-4, 4)])
+def test_wide_forward_kernel_at_the_2x256_unets_largest_call_on_card(card, dtype, tol,
+                                                                     rows):
+    """The 2 x 256 UNet's largest K1 calls, T = 2048: its in-band forward's
+    16 rows in bf16 and its training forward's 4 in f32; O and the LSE the
+    same bits on a second call (no atomics)."""
+    o, lse = _wide_forward_case(256, 2, rows, 2048, dtype, tol, False, 7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    qkv = torch.randn((rows, 2048, 3, 2, 256), generator=gen, device="cuda").to(dtype)
+    o2, lse2 = ta.flash_fwd(*qkv.unbind(2), False, 1.0 / 16)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_wide_forward_kernel_refuses_heads_above_512_on_card(card):
+    """No fallback: a head wider than 512 raises, and nothing launches."""
+    q = torch.randn((1, 64, 1, 576), device="cuda", dtype=torch.bfloat16)
+    ta.reset_counts()
+    with pytest.raises(ValueError, match="at most 512"):
+        ta.flash_fwd(q, q, q)
+    with pytest.raises(ValueError, match="at most 512"):
+        ta.flash_attention(q[..., :550], q[..., :550], q[..., :550])
+    assert ta.flash_attention.kernel_launches == 0 and ta.flash_attention.plain_calls == 0
 
 
 # the tiny parity config of tests/test_diffusion_stack.py as it is: 2 heads
