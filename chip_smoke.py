@@ -8,11 +8,12 @@ Phases, each printed with its seconds; any failure exits non-zero:
   2. build: ``nvcc`` compiles every kernel of ``syncfusion_tpu_torch/csrc``;
      the registers, spills and static shared memory ptxas reports for K1,
      K2a and K2b at head widths 64 and 128 and for their wide kernels (K1
-     of ``flash_fwd_wide_sm90.cu`` at each width 192-512, gated to no
-     spills, with its launch plan checked against ``wide_fwd_plan``; K2a
-     and K2b of ``flash_wide.cu``), and the dynamic shared memory each
-     launch asks for (read from the built library), go into the kernels
-     line;
+     of ``flash_fwd_wide_sm90.cu`` and K2a and K2b of
+     ``flash_bwd_wide_sm90.cu`` at each width 192-512, gated to no spills,
+     with their launch plans checked against ``wide_fwd_plan`` and
+     ``wide_bwd_plan``; the chunked K1, K2a and K2b of ``flash_wide.cu``
+     for heads wider than 512), and the dynamic shared memory each launch
+     asks for (read from the built library), go into the kernels line;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes of the generation path (plus a ragged and a causal case), in
      bf16 and f32, and K1 in bf16 also at the 16 rows of the serving and fast
@@ -216,12 +217,16 @@ Phases, each printed with its seconds; any failure exits non-zero:
      ``overfit_quality_stage2.main`` at 60 steps (no hand-written kernel):
      their JSON lines, exit codes and counts (gated), no plain version on
      the card; (c) heads wider than 128, K1 of ``flash_fwd_wide_sm90.cu``
-     (TMA, wgmma) and K2a and K2b of ``flash_wide.cu``: as (a) at D = 160,
-     192, 256, 320 and 512 with heads x D = 512 (3, 3, 2, 2 and 1 heads),
-     with the backend SDPA picks, and K1 alone at the 2 x 256 UNet's
-     largest calls (bf16 16 rows x 2 heads, f32 4 x 2, T = 2048: gated as
-     phase 3, 1 launch a call, timed beside its bound, the plain version
-     and SDPA); the full-width UNet
+     and K2a and K2b of ``flash_bwd_wide_sm90.cu`` (TMA, wgmma) up to 512,
+     the chunked ones of ``flash_wide.cu`` above: as (a) at D = 160, 192,
+     256, 320, 512, 576 and 1024 with heads x D = 512 (3, 3, 2, 2, 1, 1
+     and 1 heads), with the backend SDPA picks and the C entries that ran
+     (gated by width), and K1 alone at the 2 x 256 UNet's largest calls
+     (bf16 16 rows x 2 heads, f32 4 x 2, T = 2048: gated as phase 3, 1
+     launch a call, timed beside its bound, the plain version and SDPA),
+     K2a and K2b at its training call (f32 4 x 2, T = 2048: gated as phase
+     5, timed beside their bounds, the plain versions and SDPA's backward);
+     the full-width UNet
      with 2 heads of 256 (exp/model/diffusion.yaml's node, inner width 512
      kept): one bf16 forward at 2 rows through the kernels against the
      plain attention (phase 5's gate, 9 K1) and one f32 loss and gradient
@@ -691,11 +696,12 @@ K2_KERNELS = {key: {f"{dtype}{sfx}": f"{name}I{arg}Li{d}E"
                     for dtype, arg in (("float32", "f"), ("bfloat16", "13__nv_bfloat16"))}
               for key, name in (("dq", "flash_bwd_dq_kernel"),
                                 ("dkv", "flash_bwd_dkv_kernel"))}
-# the wide backward kernels of flash_wide.cu (any multiple of 64 above
-# 128), one instantiation per input type, by kernel and type
+# the chunked kernels of flash_wide.cu (heads wider than 512), one
+# instantiation per input type, by kernel and type
 WIDE_KERNELS = {key: {dtype: f"{name}I{arg}E"
                       for dtype, arg in (("float32", "f"), ("bfloat16", "13__nv_bfloat16"))}
-                for key, name in (("dq", "flash_bwd_dq_wide_kernel"),
+                for key, name in (("fwd", "flash_fwd_wide_kernel"),
+                                  ("dq", "flash_bwd_dq_wide_kernel"),
                                   ("dkv", "flash_bwd_dkv_wide_kernel"))}
 # the wide K1 of flash_fwd_wide_sm90.cu, one instantiation per input type
 # and head width, by "<type>_d<width>"
@@ -705,6 +711,16 @@ WIDE_FWD_KERNELS = {f"{dtype}_d{w}": f"flash_fwd_wide_sm90_kernelI{arg}Li{w}EE"
                     for dtype, arg in (("float32", "f"), ("bfloat16", "13__nv_bfloat16"))}
 PLAN_KEYS = ("q_rows", "key_tile", "stages", "row_groups", "col_groups", "threads",
              "smem_bytes", "box_cols", "ops_per_pair")
+# the wide K2a and K2b of flash_bwd_wide_sm90.cu, one instantiation per
+# input type and head width, by kernel and "<type>_d<width>"
+WIDE_BWD_KERNELS = {key: {f"{dtype}_d{w}": f"{name}I{arg}Li{w}EE"
+                          for w in WIDE_FWD_WIDTHS
+                          for dtype, arg in (("float32", "f"),
+                                             ("bfloat16", "13__nv_bfloat16"))}
+                    for key, name in (("dq", "flash_bwd_dq_wide_sm90_kernel"),
+                                      ("dkv", "flash_bwd_dkv_wide_sm90_kernel"))}
+BWD_PLAN_KEYS = ("rows", "ring_rows", "stages", "parts", "roles", "threads",
+                 "smem_bytes", "box_cols", "dq_ops_per_pair", "dkv_ops_per_pair")
 
 
 # the fused kernel's two bodies in fused_resblock.cu (bf16: mma.sync
@@ -742,6 +758,39 @@ def wide_fwd_ptxas(build, libs) -> dict:
               and plan["smem_bytes"] + report["smem_bytes"] <= attn.SMEM_MAX,
               f"wide K1 {key}: registers, spills or shared memory {report}")
     return reports
+
+
+def wide_bwd_ptxas(build, libs) -> dict:
+    """The wide K2a's and K2b's ptxas reports at each width and type, with
+    the launch plan their library returns, which must equal
+    ``wide_bwd_plan``'s; gated: at most 255 registers, no spills, shared
+    memory within SMEM_MAX.  Returns ``{"dq": {key: report}, "dkv": ...}``."""
+    import ctypes
+
+    from syncfusion_tpu_torch.ops import attention as attn
+
+    log = libs["flash_bwd_wide_sm90"].with_suffix(".so.log").read_text()
+    plan_of = build.library("flash_bwd_wide_sm90").flash_bwd_wide_plan
+    plan_of.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = {}
+    for kernel, picks in WIDE_BWD_KERNELS.items():
+        out[kernel] = pick_ptxas(log, picks)
+        for key, report in out[kernel].items():
+            dtype, width = key.split("_d")
+            buf = (ctypes.c_int * len(BWD_PLAN_KEYS))()
+            check(plan_of(int(dtype == "bfloat16"), int(width), buf) == 0,
+                  f"no plan for wide K2 {key}")
+            plan = dict(zip(BWD_PLAN_KEYS, buf))
+            want = attn.wide_bwd_plan(int(width), getattr(torch, dtype))
+            check(plan == want, f"wide K2 {key}: the library's plan {plan} is not "
+                                f"wide_bwd_plan's {want}")
+            report["plan"] = plan
+            report["dynamic_smem_bytes"] = plan["smem_bytes"]
+            check(report["registers"] <= 255 and report.get("spill_stores", 0) == 0
+                  and report.get("spill_loads", 0) == 0
+                  and plan["smem_bytes"] + report["smem_bytes"] <= attn.SMEM_MAX,
+                  f"wide {kernel} {key}: registers, spills or shared memory {report}")
+    return out
 
 
 def fused_ptxas(log: str, tag: str) -> dict:
@@ -988,12 +1037,13 @@ def attention_times_of(root: str) -> dict:
 
 
 def wide_times_of(root: str) -> dict:
-    """The wide K1's ms a call for the ``syncfusion_tpu_torch`` of the
-    checkout at ``root``, eager (CUDA events) and, under ``<key>_device``,
-    its device time from the profiler: at the 2 x 256 UNet's largest calls
-    (WIDE_LARGEST, T = WIDE_T) and at phase 21c(a)'s shapes (B = HW_ROWS, T
-    = HW_T, heads x D = 512, D = 192-512), on qkv views.  Call it in a fresh
-    process, as ``attention_times_of``."""
+    """The wide K1's, K2a's and K2b's ms a call for the
+    ``syncfusion_tpu_torch`` of the checkout at ``root``, eager (CUDA
+    events) and, under ``<key>_device``, their device time from the
+    profiler: at the 2 x 256 UNet's largest calls (WIDE_LARGEST, T =
+    WIDE_T; the f32 one is its training call) and at phase 21c(a)'s shapes
+    (B = HW_ROWS, T = HW_T, heads x D = 512, D = 192-512), on qkv views.
+    Call it in a fresh process, as ``attention_times_of``."""
     sys.path.insert(0, os.path.abspath(root))
     from syncfusion_tpu_torch.ops import attention as attn
 
@@ -1001,15 +1051,25 @@ def wide_times_of(root: str) -> dict:
     shapes = [(f"largest_{str(dtype)[6:]}", dtype, rows, 2, WIDE_T, 256)
               for dtype, rows in WIDE_LARGEST]
     shapes += [(f"d{d}_{str(dtype)[6:]}", dtype, HW_ROWS, WIDE_HEADS[d], HW_T, d)
-               for d in WIDE_WIDTHS if d % 64 == 0
+               for d in WIDE_WIDTHS if d % 64 == 0 and d <= 512
                for dtype in (torch.bfloat16, torch.float32)]
     out = {}
     for key, dtype, rows, heads, t, d in shapes:
         q, k, v = torch.randn((rows, t, 3, heads, d), generator=gen,
                               device="cuda").to(dtype).unbind(2)
-        out[key] = time_ms(lambda: attn.flash_fwd(q, k, v), 30)
-        out[f"{key}_device"] = device_ms(lambda: attn.flash_fwd(q, k, v),
-                                         "flash_fwd_wide")[0]
+        do = torch.randn((rows, t, heads, d), generator=gen, device="cuda").to(dtype)
+        o, lse = attn.flash_fwd(q, k, v)
+        _, delta = attn.flash_bwd_dq(q, k, v, o, lse, do)
+        for kernel, fn, tag in (
+                ("fwd", lambda: attn.flash_fwd(q, k, v), "flash_fwd_wide"),
+                ("dq", lambda: attn.flash_bwd_dq(q, k, v, o, lse, do), "flash_bwd_dq"),
+                ("dkv", lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta),
+                 "flash_bwd_dkv")):
+            name = key if kernel == "fwd" else f"{key}_{kernel}"
+            out[name] = time_ms(fn, 30)
+            out[f"{name}_device"] = device_ms(fn, tag)[0]
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3895,11 +3955,12 @@ TINY_K1 = 5  # attention calls a forward: levels 2-3 down and up, the bottleneck
 # steps)
 OQ_ARGS = {"--steps": 40, "--clips": 4, "--batch": 4, "--sampling_steps": 8}
 OQ2_STEPS = 60
-# phase 21c: heads wider than 128 (csrc/flash_wide.cu).  (a) K1, K2a and K2b
-# at these widths, as 21a, with heads x D = 512 as in the UNet (the nearest
-# whole number of heads at 160 and 320): 3, 3, 2, 2, 1 heads
-WIDE_WIDTHS = (160, 192, 256, 320, 512)
-WIDE_HEADS = {d: round(512 / d) for d in WIDE_WIDTHS}
+# phase 21c: heads wider than 128 (the Hopper sources csrc/*_wide_sm90.cu up
+# to 512, csrc/flash_wide.cu above).  (a) K1, K2a and K2b at these widths,
+# as 21a, with heads x D = 512 as in the UNet (the nearest whole number of
+# heads at 160 and 320; one head above 512): 3, 3, 2, 2, 1, 1, 1 heads
+WIDE_WIDTHS = (160, 192, 256, 320, 512, 576, 1024)
+WIDE_HEADS = {d: max(1, round(512 / d)) for d in WIDE_WIDTHS}
 # (b) exp/model/diffusion.yaml's model node with 2 heads of 256 features in
 # place of 8 of 64: the inner width stays 512, so every parameter shape and
 # the 196M parameters stay; one forward at 2 rows, one f32 micro-step.
@@ -3950,6 +4011,9 @@ def head_width_case(attn, d: int, heads: int, dtype, seed: int) -> dict:
     o.backward(do)
     torch.cuda.synchronize()
     got = {c: getattr(attn.flash_attention, c) for c in attn.COUNTS}
+    entries = dict(attn.flash_attention.entry_launches)
+    width = attn.kernel_width(d)
+    want_entries = {attn._ENTRIES[attn.kernel_source(i, width)][i]: 1 for i in range(3)}
     qr, kr, vr = (x.detach().requires_grad_() for x in qkv.unbind(2))
     o_ref, lse_ref = attn.attention_reference(qr, kr, vr, return_lse=True)
     o_ref.backward(do)
@@ -3960,7 +4024,6 @@ def head_width_case(attn, d: int, heads: int, dtype, seed: int) -> dict:
             for a, b in ((q, qr), (k, kr), (v, vr))]
     ok = (err_o <= TOL[dtype]["o"] and err_l <= TOL[dtype]["lse"]
           and max(rels) <= BWD_TOL[dtype])
-    width = attn.kernel_width(d)
     qp, kp, vp, dop = (F.pad(x.detach(), (0, width - d)) for x in (q, k, v, do))
     scale = 1.0 / math.sqrt(d)
     op, lsep = attn.flash_fwd(qp, kp, vp, False, scale)
@@ -3992,7 +4055,7 @@ def head_width_case(attn, d: int, heads: int, dtype, seed: int) -> dict:
     rec = {"max_abs_err": err_o, "lse_err": err_l, "grad_rel_err": max(rels),
            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
            "library_ms": lib, "library_backend": backend, "kernel_width": width,
-           "heads": heads, "autograd_ms": ms_autograd}
+           "heads": heads, "autograd_ms": ms_autograd, "entries": entries}
     for key, kms, pms in (("dq", ms_dq, plain_dq), ("dkv", ms_dkv, plain_dkv)):
         kb, kby = bound_ms(*work[key], dtype)
         rec[key] = {"max_abs_err": max(rels), "ms": kms, "plain_ms": pms,
@@ -4006,11 +4069,14 @@ def head_width_case(attn, d: int, heads: int, dtype, seed: int) -> dict:
           f"(plain {plain_dq:.4f}, bound {rec['dq']['bound_ms']:.4f}), K2b "
           f"{ms_dkv:.4f} ms (plain {plain_dkv:.4f}, bound "
           f"{rec['dkv']['bound_ms']:.4f}), sdpa bwd {lib_bwd:.4f} ms (sdpa backend "
-          f"{backend}); launches {got} {'ok' if ok else 'MISMATCH'}", flush=True)
+          f"{backend}); launches {got} by entry {entries} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
     check(ok, f"head width {d} {dtype} disagrees with the plain versions")
     check(got == {"kernel_launches": 1, "dq_launches": 1, "dkv_launches": 1,
                   "plain_calls": 0, "plain_bwd_calls": 0},
           f"head width {d} {dtype}: launches {got}")
+    check(entries == want_entries,
+          f"head width {d} {dtype}: C entries {entries}, want {want_entries}")
     return rec
 
 
@@ -4059,6 +4125,75 @@ def wide_largest_calls(attn) -> dict:
                                "rows": rows}
         del qkv, q, k, v, o, lse
         torch.cuda.empty_cache()
+    return out
+
+
+def wide_training_backward(attn) -> dict:
+    """Phase 21c(a): K2a and K2b at the 2 x 256 UNet's training call (f32,
+    TRAIN_ROWS x 2 heads of 256, T = WIDE_T; q, k and v views of one packed
+    projection) against their plain versions (phase 5's gate: dq, dk and dv
+    relative to max |plain|, BWD_TOL; delta as the LSE), one launch each and
+    no plain call (gated), timed beside the plain versions, SDPA's backward
+    (with the backend it picks) and the bounds.  Returns ``{"dq": record,
+    "dkv": record}``."""
+    import torch.nn.functional as F
+
+    heads, d = WIDE_SWITCHES["attention_heads"], WIDE_SWITCHES["attention_features"]
+    rows, dtype = TRAIN_ROWS, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    qkv = torch.randn((rows, WIDE_T, 3, heads, d), generator=gen, device="cuda")
+    q, k, v = qkv.unbind(2)
+    do = torch.randn((rows, WIDE_T, heads, d), generator=gen, device="cuda")
+    o, lse = attn.flash_fwd(q, k, v)
+    attn.reset_counts()
+    dq, delta = attn.flash_bwd_dq(q, k, v, o, lse, do)
+    dk, dv = attn.flash_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    got = {c: getattr(attn.flash_attention, c) for c in attn.COUNTS}
+    want_dq, want_delta = attn.flash_bwd_dq_reference(q, k, v, o, lse, do)
+    want_dk, want_dv = attn.flash_bwd_dkv_reference(q, k, v, do, lse, want_delta)
+    rels = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+            for a, b in ((dq, want_dq), (dk, want_dk), (dv, want_dv))]
+    err_delta = (delta - want_delta).abs().max().item()
+    del want_dq, want_dk, want_dv
+    ok = max(rels) <= BWD_TOL[dtype] and err_delta <= TOL[dtype]["lse"]
+    ms = {"dq": time_ms(lambda: attn.flash_bwd_dq(q, k, v, o, lse, do), HW_ITERS),
+          "dkv": time_ms(lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta), HW_ITERS)}
+    plain = {"dq": time_ms(lambda: attn.flash_bwd_dq_reference(q, k, v, o, lse, do), 3),
+             "dkv": time_ms(lambda: attn.flash_bwd_dkv_reference(q, k, v, do, lse, delta),
+                            3)}
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    backend = sdpa_backend(qt, kt, vt)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    lib = time_ms(sdpa_fwd, HW_ITERS)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot),
+                      HW_ITERS) - lib
+    work = bwd_work(rows, heads, WIDE_T, d, dtype, False)
+    blocks = attn.wide_bwd_blocks(d, dtype, rows * heads, WIDE_T, WIDE_T)
+    out = {}
+    for key in ("dq", "dkv"):
+        bms, by = bound_ms(*work[key], dtype)
+        out[key] = {"max_abs_err": max(rels), "delta_err": err_delta, "ms": ms[key],
+                    "plain_ms": plain[key], "bound_ms": bms, "bound_by": by,
+                    "library_ms": lib_bwd, "library_backend": backend, "rows": rows,
+                    "blocks": blocks[key]}
+    print(f"  K2a and K2b at the 2 x 256 UNet's training call, f32 BH={rows * heads} "
+          f"T={WIDE_T} D={d}: dq/dk/dv rel {max(rels):.3e} (tol {BWD_TOL[dtype]:.0e}) "
+          f"delta {err_delta:.3e} | K2a {ms['dq']:.4f} ms (plain {plain['dq']:.4f}, "
+          f"bound {out['dq']['bound_ms']:.4f}), K2b {ms['dkv']:.4f} ms (plain "
+          f"{plain['dkv']:.4f}, bound {out['dkv']['bound_ms']:.4f}), sdpa bwd "
+          f"{lib_bwd:.4f} ms ({backend}); blocks {blocks}; launches {got} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    check(ok, "wide K2a/K2b at the training call disagree with their plain versions")
+    check(got == {"kernel_launches": 0, "dq_launches": 1, "dkv_launches": 1,
+                  "plain_calls": 0, "plain_bwd_calls": 0},
+          f"wide K2a/K2b at the training call: launches {got}")
+    del qkv, q, k, v, do, o, lse, dq, dk, dv, delta
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4374,10 +4509,14 @@ def main() -> int:
         for dtype, report in by_type.items():
             report["dynamic_smem_bytes"] = wide_smem(int(dtype == "bfloat16"))
             check(report["dynamic_smem_bytes"] > 0, f"no shared memory for wide {key}")
-    print(f"  wide K2a and K2b (flash_wide.cu) registers and spills: {wide_regs}")
-    wide_regs["fwd"] = wide_fwd_ptxas(_build, libs)
+    print(f"  chunked K1, K2a and K2b (flash_wide.cu) registers and spills: "
+          f"{wide_regs}")
+    chunked_regs = wide_regs
+    wide_regs = {"fwd": wide_fwd_ptxas(_build, libs), **wide_bwd_ptxas(_build, libs)}
     print(f"  wide K1 (flash_fwd_wide_sm90.cu) registers, spills and plans: "
           f"{wide_regs['fwd']}")
+    print(f"  wide K2a and K2b (flash_bwd_wide_sm90.cu) registers, spills and plans: "
+          f"dq {wide_regs['dq']}, dkv {wide_regs['dkv']}")
     fused_log = libs["fused_resblock"].with_suffix(".so.log").read_text()
     fused_smem = _build.library("fused_resblock").fused_resblock_smem
     fused_regs = {dtype: fused_ptxas(fused_log, tag)
@@ -4664,6 +4803,7 @@ def main() -> int:
     wide = {(d, str(dtype)[6:]): head_width_case(attn, d, WIDE_HEADS[d], dtype, 210 + d)
             for d in WIDE_WIDTHS for dtype in (torch.bfloat16, torch.float32)}
     largest = wide_largest_calls(attn)
+    train_bwd = wide_training_backward(attn)
     phase("21c(a) K1, K2a and K2b at heads wider than 128", t0)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -4787,6 +4927,8 @@ def main() -> int:
     wide_paths = {"wide_forward": wide_model["launched"]["forward"],
                   "wide_micro_step": wide_model["launched"]["micro_step"],
                   **wide_launched}
+    hopper = {dk_: rec for dk_, rec in wide.items() if dk_[0] <= attn.WIDE_FWD_MAX}
+    chunked = {dk_: rec for dk_, rec in wide.items() if dk_[0] > attn.WIDE_FWD_MAX}
     for name, replaces, key in (
             ("flash_fwd_wide", "syncfusion_tpu/ops/attention.py:34", "fwd"),
             ("flash_bwd_dq_wide", "syncfusion_tpu/ops/attention.py:137", "dq"),
@@ -4794,20 +4936,19 @@ def main() -> int:
         count = {"fwd": "kernel_launches"}.get(key, f"{key}_launches")
         by_path = {p_: c_.get(count, 0) for p_, c_ in wide_paths.items()}
         fwd = key == "fwd"
-        main_rec = (largest["bfloat16"] if fwd
-                    else kernel_record(wide[256, "float32"], key))
+        main_rec = largest["bfloat16"] if fwd else train_bwd[key]
         rows.append({
             "name": name,
             "route": "cuda",
             "source": "syncfusion_tpu_torch/csrc/"
-                      + ("flash_fwd_wide_sm90.cu" if fwd else "flash_wide.cu"),
+                      + ("flash_fwd_wide_sm90.cu" if fwd else "flash_bwd_wide_sm90.cu"),
             "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max([kernel_record(rec, key)["max_abs_err"]
-                                for rec in wide.values()]
-                               + ([r_["max_abs_err"] for r_ in largest.values()]
-                                  if fwd else [])),
+                                for rec in hopper.values()]
+                               + [r_["max_abs_err"] for r_ in
+                                  (largest.values() if fwd else [train_bwd[key]])]),
             "ms": main_rec["ms"],
             "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"],
@@ -4818,10 +4959,12 @@ def main() -> int:
                      f"type), B={WIDE_LARGEST[0][1]} x 2 heads of 256, T={WIDE_T}; "
                      "float32: its training forward's, B="
                      f"{WIDE_LARGEST[1][1]} x 2; max_abs_err over every width "
-                     "and type of phase 21c and those calls (O absolute)") if fwd
-                    else (f"one call at B={HW_ROWS} x 2 heads of 256, T={HW_T}, f32 "
-                          "(training's type); max_abs_err over every width and "
-                          "type of phase 21c (gradients relative to max |plain|)"),
+                     "192-512 and type of phase 21c and those calls (O absolute)") if fwd
+                    else (f"the 2 x 256 UNet's training call, f32, B={TRAIN_ROWS} x 2 "
+                          f"heads of 256, T={WIDE_T}; library_ms is SDPA's whole "
+                          "backward (dq, dk and dv); max_abs_err over it and every "
+                          "width 192-512 and type of phase 21c (gradients relative "
+                          "to max |plain|)"),
             "design": ("TMA (4-D tensor maps of the strided operands, 128-byte "
                        "boxes, 128-byte swizzle) into a ring of 2 slots signalled "
                        "by mbarriers, the loads issued by one lane; two "
@@ -4831,17 +4974,24 @@ def main() -> int:
                        "m64n64k16 (P as hi + lo bf16 from registers, V MN-major), "
                        "f32 as 3xTF32 on mma.sync m16n8k8 from the swizzled "
                        "tiles") if fwd
-                      else ("head dim streamed in pieces of 64 columns through a "
-                            "cp.async ring of 2 stages, a grid dimension over "
-                            "chunks of 128 output columns (S and dP recomputed a "
-                            "chunk; K2b a dK and a dV block a chunk), mma.sync "
-                            "m16n8k8 tf32, f32 as 3xTF32, bf16 operands unsplit, 4 "
-                            "warps of 16 rows a block"),
+                      else ("TMA (4-D tensor maps, 128-byte boxes and swizzle; the "
+                            "LSE and delta as flat maps) into a ring of 2 slots "
+                            "signalled by mbarriers, the loads issued by one lane; "
+                            "the block's own rows (K2a q, K2b keys) and their two "
+                            "operands stay, the other side's stream; outputs at the "
+                            "full width in registers of 8 warps split by columns, "
+                            "no recompute per chunk; bf16: 64-row blocks, S and dP "
+                            "on wgmma m64n32k16 once a warpgroup, outputs on "
+                            "m64n64k16 with P/dS as hi + lo bf16 from registers, "
+                            "K2b a dK and a dV block; f32: 32-row blocks, 3xTF32 on "
+                            "mma.sync from the swizzled tiles, S and dP split over "
+                            "four column parts whose partial sums are exchanged "
+                            "through shared memory, K2b dK and dV in one block"),
             "ptxas": wide_regs[key],
             "head_widths": {f"d{d}_{dtype}": {k_: r_ for k_, r_
                                                in kernel_record(rec, key).items()
                                                if k_ not in ("dq", "dkv")}
-                            for (d, dtype), rec in wide.items()},
+                            for (d, dtype), rec in hopper.items()},
             "head_widths_work": f"one call at B={HW_ROWS}, T={HW_T}, heads x D = 512 "
                                 "(3, 3, 2, 2, 1 heads at D = 160, 192, 256, 320, "
                                 "512); D = 160 padded to 192",
@@ -4851,6 +5001,44 @@ def main() -> int:
         })
         if fwd:
             rows[-1]["float32"] = largest["float32"]
+    for name, replaces, key in (
+            ("flash_fwd_chunked", "syncfusion_tpu/ops/attention.py:34", "fwd"),
+            ("flash_bwd_dq_chunked", "syncfusion_tpu/ops/attention.py:137", "dq"),
+            ("flash_bwd_dkv_chunked", "syncfusion_tpu/ops/attention.py:181", "dkv")):
+        by_path = {f"head_width_{d}_{dtype}": rec["entries"].get(name, 0)
+                   for (d, dtype), rec in chunked.items()}
+        main_rec = kernel_record(chunked[576, "float32"], key)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "syncfusion_tpu_torch/csrc/flash_wide.cu",
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(kernel_record(rec, key)["max_abs_err"]
+                               for rec in chunked.values()),
+            "ms": main_rec["ms"],
+            "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"],
+            "library_ms": main_rec["library_ms"],
+            "library_backend": main_rec["library_backend"],
+            "work": f"one call at B={HW_ROWS} x 1 head of 576, T={HW_T}, f32; "
+                    "max_abs_err over D = 576 and 1024 in both types (O absolute, "
+                    "gradients relative to max |plain|); no configuration has "
+                    "heads wider than 512",
+            "design": "head dim streamed in pieces of 64 columns through a cp.async "
+                      "ring of 2 stages, a grid dimension over chunks of 128 output "
+                      "columns (S and dP recomputed a chunk; K2b a dK and a dV "
+                      "block a chunk), mma.sync m16n8k8 tf32, f32 as 3xTF32, bf16 "
+                      "operands unsplit, 4 warps of 16 rows a block",
+            "ptxas": chunked_regs[key],
+            "head_widths": {f"d{d}_{dtype}": {k_: r_ for k_, r_
+                                               in kernel_record(rec, key).items()
+                                               if k_ not in ("dq", "dkv")}
+                            for (d, dtype), rec in chunked.items()},
+            "head_widths_work": f"one call at B={HW_ROWS} x 1 head, T={HW_T}",
+        })
     for name, replaces, key, work in (
             ("fused_resblock_k3",
              "syncfusion_tpu/ops/fused_resblock.py:54, "

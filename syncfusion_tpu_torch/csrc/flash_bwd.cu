@@ -50,9 +50,11 @@
 // delta, and come out of dq, dk and dv as 0).  At 128 the f32 tiles take
 // ~205 KB, one block an SM, and the bf16 tiles ~103 KB, two; at 256 they
 // would take ~405 KB, above the 232,448 B a block may have on the NVIDIA
-// H100 80GB HBM3 (700 W), so a head wider than 128 goes to flash_wide.cu
-// (the head dim in 64-column pieces, the outputs in 128-column chunks over
-// a grid dimension).
+// H100 80GB HBM3 (700 W), so a head wider than 128 goes to
+// flash_bwd_wide_sm90.cu (up to 512: TMA-fed, the outputs at the full width
+// in the registers of two warpgroups) or flash_wide.cu (above: the head dim
+// in 64-column pieces, the outputs in 128-column chunks over a grid
+// dimension).
 //
 // Layout: q, k, v, o, dO and the outputs are (B, L, H, kD) with any such
 // element strides for B, L and H and a contiguous head dim (q, k, v may be

@@ -61,9 +61,10 @@
 // KB of tiles) and the bf16 kernel one m16 tile a warp (64 query rows a
 // block, 80 KB of tiles): two tiles a warp would hold a 128-register O
 // accumulator beside S.  These tilings hold a whole row of q, K, V and O,
-// and cannot stretch past 128: a wider head goes to flash_wide.cu, which
-// streams the head dim in 64-column pieces and splits O into 128-column
-// chunks over a grid dimension.
+// and cannot stretch past 128: a wider head goes to flash_fwd_wide_sm90.cu
+// (up to 512: TMA-fed, O at the full width in the registers of two
+// warpgroups) or flash_wide.cu (above: the head dim streamed in 64-column
+// pieces, O split into 128-column chunks over a grid dimension).
 //
 // Layout: q, k, v, o are (B, L, H, kD) with such element strides for B, L
 // and H and a contiguous head dim (so q, k, v may be views of one qkv
@@ -564,7 +565,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 
 // dtype: 0 = float32 (tensor cores, 3xTF32), 1 = bfloat16 (tensor cores);
 // head_dim: 64 or 128, the instantiation (q, k, v and o are that wide;
-// flash_wide.cu's flash_fwd_wide takes wider heads with these arguments).
+// flash_fwd_wide_sm90.cu's flash_fwd_wide and flash_wide.cu's
+// flash_fwd_chunked take wider heads with these arguments).
 // Strides are in elements.  Returns the launch's cudaError_t (0 on
 // success); the caller raises on anything else.
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,

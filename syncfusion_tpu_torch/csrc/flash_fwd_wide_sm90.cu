@@ -75,8 +75,9 @@
 // tile, and the five barriers, with 1024 bytes for the alignment; `Plan`
 // below sets each width's tiles (`flash_fwd_wide_plan` returns them, and
 // syncfusion_tpu_torch/ops/attention.py's `wide_fwd_plan` mirrors them).
-// Wider than 512, O of 64 rows no longer fits two groups' registers: the
-// wrapper raises there.
+// Wider than 512, O of 64 rows no longer fits two groups' registers: heads
+// that wide go to flash_wide.cu's chunked K1 (ops/attention.py's
+// `kernel_source` picks the source by width).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -87,6 +88,8 @@
 #include <type_traits>
 
 #include "sm90.cuh"
+#include "sm90_tiles.cuh"
+#include "tensor_map.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -139,33 +142,6 @@ struct Plan {
   static_assert(kSmem <= kSmemMax, "shared memory");
   static_assert(kGroupPieces * 32 <= 128, "O's registers");
 };
-
-__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
-
-// Byte offset of element (r, c) of an R-row tile of W columns that TMA
-// wrote as 128-byte boxes of R rows with the 128-byte swizzle: the 16-byte
-// chunk index within a row XORed with r mod 8.
-template <typename T, int R>
-__device__ __forceinline__ uint32_t sw128(int r, int c) {
-  constexpr int kBoxCols = 128 / sizeof(T);
-  const uint32_t byte = (c % kBoxCols) * sizeof(T);
-  return (c / kBoxCols) * (R * 128) + r * 128 +
-         ((((byte >> 4) ^ r) & 7) << 4) + (byte & 15);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
-// (x0, x1) as two bf16 pairs whose sum carries 16 bits of each value: hi is
-// the rounded value, lo the rounded remainder.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                          uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
-}
 
 // ---------------------------------------------------------------------------
 // S = q kᵀ for the 64 q rows and the key tile, in S's accumulator layout:
@@ -572,62 +548,8 @@ __global__ void __launch_bounds__(kThreadsWide, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Host: tensor maps and launch
+// Host: launch (the tensor maps are tensor_map.cuh's)
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry
-// point query (so no -lcuda at link time), or null where it is missing.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The 4-D map (W, L, H, B) of a (B, L, H, W) operand at `base` with element
-// strides sb, sl, sh (a dim of size 1 gets a stride TMA takes; it is never
-// stepped), boxes of 128 bytes by `rows` rows, 128-byte swizzle, rows past
-// L read as 0.
-cudaError_t tensor_map(CUtensorMap* map, const void* base, bool f32, int width,
-                       int len, int heads, int batch, long long sb,
-                       long long sl, long long sh, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const long long es = f32 ? 4 : 2;
-  const long long row_bytes = width * es;
-  const cuuint64_t dims[4] = {cuuint64_t(width), cuuint64_t(len),
-                              cuuint64_t(heads), cuuint64_t(batch)};
-  const cuuint64_t strides[3] = {
-      cuuint64_t(len > 1 ? sl * es : row_bytes),
-      cuuint64_t(heads > 1 ? sh * es : row_bytes),
-      cuuint64_t(batch > 1 ? sb * es : row_bytes)};
-  const cuuint32_t box[4] = {cuuint32_t(128 / es), cuuint32_t(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      4, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 template <typename T, int kW>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,

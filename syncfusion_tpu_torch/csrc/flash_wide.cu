@@ -1,18 +1,25 @@
-// The flash-attention backward for heads wider than 128 on Hopper (sm_90a):
-// dQ, and dK with dV, at any head width that is a multiple of 64 above 128.
+// Flash attention for heads wider than 512 on Hopper (sm_90a): forward,
+// dQ, and dK with dV, at any head width that is a multiple of 64 above 512.
+// (The entries take any multiple of 64 above 128; ops/attention.py's
+// `kernel_source` sends them only the widths above 512, where the Hopper
+// kernels of flash_fwd_wide_sm90.cu and flash_bwd_wide_sm90.cu stop: those
+// hold a 64-row output tile at the full width in the registers of two
+// warpgroups, at most 128 a thread, and past 512 it no longer fits.)
 //
-// Replaces, at those widths, the same two TPU kernels of
-// syncfusion_tpu/ops/attention.py as flash_bwd.cu:
-//   flash_bwd_dq_wide   <- `_flash_bwd_dq_kernel` (K2a), with the reduction
-//                          delta = rowsum(dO∘O) fused in;
-//   flash_bwd_dkv_wide  <- `_flash_bwd_dkv_kernel` (K2b).
-// The forward at those widths (K1) is flash_fwd_wide_sm90.cu's.
+// Replaces, at those widths, the same three TPU kernels of
+// syncfusion_tpu/ops/attention.py as flash_fwd.cu and flash_bwd.cu:
+//   flash_fwd_chunked      <- `_flash_kernel` (K1);
+//   flash_bwd_dq_chunked   <- `_flash_bwd_dq_kernel` (K2a), with the
+//                             reduction delta = rowsum(dO∘O) fused in;
+//   flash_bwd_dkv_chunked  <- `_flash_bwd_dkv_kernel` (K2b).
 // The Pallas kernels' BlockSpecs carry the full head width, so they take
 // any; the 64- and 128-wide kernels of flash_fwd.cu and flash_bwd.cu hold a
 // whole row of every operand tile and every accumulator, and past 128 that
 // no longer fits (the f32 K2a tiles alone would take 405,504 B at D = 256,
 // above the 232,448 B a block may have on the NVIDIA H100 80GB HBM3, 700
-// W).  Here shared memory and registers stay fixed whatever the width W is:
+// W).  Here shared memory (111,104 B in f32, 55,808 B in bf16) and
+// registers stay fixed whatever the width W is, so every multiple of 64
+// fits:
 //
 // * Pieces.  Every operand tile is a 64-row piece of 64 columns (pitch 72,
 //   tf32_mma.cuh's layout at kD = 64).  The products that contract over the
@@ -22,24 +29,26 @@
 //   sums are (the tensor cores truncate what they accumulate).
 // * Chunks.  A third grid dimension runs over chunks of 128 output columns
 //   (two pieces; the last one piece when W is an odd multiple of 64).  A
-//   block owns its output rows and its chunk's columns of dQ (K2a), or dK
-//   or dV (K2b), whose accumulators are those of the 128-wide kernels.  The
-//   operand of the chunk's own product (K in K2a, dO or q in K2b) is loaded
-//   per key or query tile into a buffer of two pieces.
+//   block owns its output rows and its chunk's columns of O (K1), dQ (K2a),
+//   or dK or dV (K2b), whose accumulators are those of the 128-wide kernels.
+//   The operand of the chunk's own product (V in K1, K in K2a, dO or q in
+//   K2b) is loaded per key or query tile into a buffer of two pieces.
 // * No atomics, so the result is bitwise the same from run to run; S, P,
-//   dP and dS live in registers only.  Every chunk computes delta (K2a) by
-//   the same operations in the same order, and the chunk-0 block alone
-//   writes it.
+//   dP and dS live in registers only.  Every chunk computes the LSE (K1)
+//   and delta (K2a) by the same operations in the same order, and the
+//   chunk-0 block alone writes them.
 // * K2b's grid has two blocks per chunk: one for dK (S and dP over the full
 //   width, then dS) and one for dV (S alone, then P), so that neither holds
 //   both 64-register accumulators beside S and dP.
 //
 // The price is the recompute of S (and dP) once per chunk.  With NC =
 // ceil(W / 128) chunks, per (query, key) pair in units of W operations:
-//   K2a: NC·4 (S, dP) + 2 (dS·K), against 6: (2NC + 1) / 3, 1.67x at W =
-//        192 and 256, 2.33x at 320, 3x at 512;
+//   K1:  NC·2 (S) + 2 (P·V), against the function's 4: (NC + 1) / 2,
+//        3x at W = 576 and 640, 4.5x at 1024;
+//   K2a: NC·4 (S, dP) + 2 (dS·K), against 6: (2NC + 1) / 3, 3.67x at 576
+//        and 640, 5.67x at 1024;
 //   K2b: NC·2 (S for dV) + 2 + NC·4 (S, dP for dK) + 2, against 8:
-//        (3NC + 2) / 4, 2x, 2.75x, 3.5x.
+//        (3NC + 2) / 4, 4.25x at 576 and 640, 6.5x at 1024.
 // Launches stay one a call for each kernel: the chunks are a grid
 // dimension.
 //
@@ -155,6 +164,151 @@ __device__ __forceinline__ void store_chunk(
                acc[h][n][2 * r + 1] * mul);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K1: one block, one 64-row q tile and one chunk of O; loops over the K/V
+// tiles, and within each over the W / 64 pieces of q and K.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(wide_smem<T>()))
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int heads, int lq, int lk,
+                      int pieces, Strides sq, Strides sk, Strides sv,
+                      Strides so, int causal, float scale) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);  // stage s: q piece, K piece
+  T* chunk = ring + 4 * kPieceElems;     // V: the chunk's pieces
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int c = blockIdx.z;
+  const int n_pieces = chunk_pieces(pieces, c);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = 16 * (tid >> 5);  // the warp's first row in the tile
+  const int q0 = blockIdx.x * kTile;
+
+  const T* qp = q + b * sq.b + h * sq.h;
+  const T* kp = k + b * sk.b + h * sk.h;
+  const T* vp = v + b * sv.b + h * sv.h;
+  int tiles = (lk + kTile - 1) / kTile;
+  if (causal) tiles = min(tiles, (int)blockIdx.x + 1);
+  const int items = tiles * pieces;  // (K/V tile, piece) in that order
+
+  auto fetch = [&](int i) {
+    T* stage = ring + (i & 1) * 2 * kPieceElems;
+    const int p = i % pieces;
+    cp_piece(stage, qp, sq.l, p, q0, lq, tid);
+    cp_piece(stage + kPieceElems, kp, sk.l, p, (i / pieces) * kTile, lk, tid);
+  };
+  if (items > 0) fetch(0);
+  cp_async_commit();
+
+  const float sl = scale * kLog2e;
+  float acc[kChunkPieces][8][4];  // O's chunk: two halves of 8 n-tiles
+  zero(acc[0]);
+  zero(acc[1]);
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * kTile;
+    float s[8][4];
+    zero(s);
+    for (int p = 0; p < pieces; ++p) {
+      const int i = it * pieces + p;
+      // item i has landed, and every warp is done with item i - 1, whose
+      // stage the next load overwrites (and, at p = 0, with the previous
+      // tile's V chunk)
+      cp_async_wait_all();
+      __syncthreads();
+      if (i + 1 < items) fetch(i + 1);
+      if (p == 0) {
+        // this tile's V chunk; waited for with item 1 (pieces >= 3)
+        for (int hh = 0; hh < n_pieces; ++hh)
+          cp_piece(chunk + hh * kPieceElems, vp, sv.l, kChunkPieces * c + hh,
+                   k0, lk, tid);
+      }
+      cp_async_commit();
+      const T* stage = ring + (i & 1) * 2 * kPieceElems;
+      add_scores<kF32>(s, stage, stage + kPieceElems, r0, g, t);
+    }
+
+    // online softmax on rows g (e = 0, 1) and g + 8 (e = 2, 3), log2 domain,
+    // as flash_fwd.cu
+    const bool edge = k0 + kTile > lk || (causal && k0 + kTile - 1 > q0 + r0);
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const int row = q0 + r0 + g + 8 * (e >> 1);
+          if (key >= lk || (causal && key > row)) s[j][e] = -CUDART_INF_F;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    }
+    float alpha[2], shift[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * sl);
+      shift[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[r] = ex2(m[r] - shift[r]);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = ex2(fmaf(s[j][e], sl, -shift[e >> 1]));
+        s[j][e] = pe;
+        l[e >> 1] += pe;
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < kChunkPieces; ++hh)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[hh][n][e] *= alpha[e >> 1];
+
+    // O's chunk += P V's chunk (landed and visible since item 1's barrier)
+    add_chunk<kF32>(acc, s, chunk, n_pieces, g, t);
+  }
+  cp_async_wait_all();  // nothing in flight
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float l_safe = fmaxf(sum, 1e-30f);
+    inv[r] = 1.f / l_safe;
+    const int qi = q0 + r0 + g + 8 * r;
+    if (c == 0 && t == 0 && qi < lq)
+      lse[(long long)bh * lq + qi] = (m[r] + log2f(l_safe)) * 0.6931471805599453f;
+  }
+#pragma unroll
+  for (int hh = 0; hh < kChunkPieces; ++hh)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[hh][n][e] *= inv[e >> 1];
+  store_chunk(o + b * so.b + h * so.h, so.l, acc, n_pieces, c, q0 + r0, lq,
+              1.f, g, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -481,6 +635,25 @@ int chunks_of(int pieces) {
 }
 
 template <typename T>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int batch, int heads, int lq, int lk,
+                       int pieces, const long long* st, int causal,
+                       float scale, cudaStream_t stream) {
+  auto kernel = flash_fwd_wide_kernel<T>;
+  constexpr size_t smem = wide_smem<T>();
+  static bool attr_set[kMaxDevices] = {};
+  cudaError_t err = set_smem_once(kernel, smem, attr_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((lq + kTile - 1) / kTile, batch * heads, chunks_of(pieces));
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, heads, lq, lk, pieces,
+      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
+      strides_at(st, 3), causal, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       float* delta, void* dq, int batch, int heads, int lq,
@@ -532,10 +705,36 @@ int pieces_of(int head_dim) {
 
 }  // namespace
 
+// As flash_fwd.cu's flash_fwd (the same arguments), at a head_dim that is
+// a multiple of 64 above 128: writes o and lse.  Returns the launch's
+// cudaError_t (0 on success); the caller raises on anything else.
+extern "C" int flash_fwd_chunked(int dtype, const void* q, const void* k,
+                              const void* v, void* o, float* lse, int batch,
+                              int heads, int lq, int lk, int head_dim,
+                              long long q_sb, long long q_sl, long long q_sh,
+                              long long k_sb, long long k_sl, long long k_sh,
+                              long long v_sb, long long v_sl, long long v_sh,
+                              long long o_sb, long long o_sl, long long o_sh,
+                              int causal, float scale, void* stream) {
+  const long long st[12] = {q_sb, q_sl, q_sh, k_sb, k_sl, k_sh,
+                            v_sb, v_sl, v_sh, o_sb, o_sl, o_sh};
+  const int pieces = pieces_of(head_dim);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pieces == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return static_cast<int>(launch_fwd<float>(q, k, v, o, lse, batch, heads,
+                                              lq, lk, pieces, st, causal,
+                                              scale, s));
+  if (dtype == 1)
+    return static_cast<int>(launch_fwd<__nv_bfloat16>(
+        q, k, v, o, lse, batch, heads, lq, lk, pieces, st, causal, scale, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // As flash_bwd.cu's flash_bwd_dq, at a head_dim that is a multiple of 64
 // above 128: writes dq and delta = rowsum(dout∘o); `strides` holds those of
 // q, k, v, o, dout, dq (18 values).
-extern "C" int flash_bwd_dq_wide(int dtype, const void* q, const void* k,
+extern "C" int flash_bwd_dq_chunked(int dtype, const void* q, const void* k,
                                  const void* v, const void* o,
                                  const void* dout, const float* lse,
                                  float* delta, void* dq, int batch, int heads,
@@ -558,8 +757,8 @@ extern "C" int flash_bwd_dq_wide(int dtype, const void* q, const void* k,
 
 // As flash_bwd.cu's flash_bwd_dkv, at such a head_dim: writes dk and dv;
 // `strides` holds those of q, k, v, dout, dk, dv (18 values); delta is
-// flash_bwd_dq_wide's.
-extern "C" int flash_bwd_dkv_wide(int dtype, const void* q, const void* k,
+// flash_bwd_dq_chunked's.
+extern "C" int flash_bwd_dkv_chunked(int dtype, const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const float* lse, const float* delta,
                                   void* dk, void* dv, int batch, int heads,
@@ -580,7 +779,7 @@ extern "C" int flash_bwd_dkv_wide(int dtype, const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The dynamic shared memory in bytes that every launch of the two asks
+// The dynamic shared memory in bytes that every launch of the three asks
 // for, by dtype as above; -1 for an unknown dtype.
 extern "C" int flash_wide_smem(int dtype) {
   if (dtype == 0) return static_cast<int>(wide_smem<float>());

@@ -202,6 +202,24 @@ __device__ __forceinline__ void wgmma_64x64x16_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// As wgmma_64x64x16_ss at n32: d (+)= a·b with b the 16 x 32 tile of
+// descriptor `db`, K-major (32 rows of the N index), d 4 n-tiles of 8.
+__device__ __forceinline__ void wgmma_64x32x16_ss(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d += a·b, m64n64k16, bf16 in, f32 accumulate: a from registers, lane (g,
 // t) of warp w holding rows 16w + g and 16w + g + 8 as mma.sync m16n8k16's
 // A: a[0] = (g, 2t..2t+1), a[1] = (g + 8, 2t..), a[2] = (g, 2t + 8..),

@@ -1,8 +1,11 @@
 // f32-accurate products on the tensor cores (3xTF32), shared by the
 // kernels that take f32 operands: the flash-attention kernels K1's f32
-// forward (flash_fwd.cu), K2a/K2b (flash_bwd.cu) and all three kernels for
-// heads wider than 128 (flash_wide.cu, which takes the helpers at kD = 64
-// on 64-column pieces of the head dim), and the fused resnet kernel's f32
+// forward (flash_fwd.cu), K2a/K2b (flash_bwd.cu), all three kernels for
+// heads wider than 512 (flash_wide.cu, which takes the helpers at kD = 64
+// on 64-column pieces of the head dim), the f32 bodies of the TMA-fed
+// kernels for heads of 192-512 (flash_fwd_wide_sm90.cu and
+// flash_bwd_wide_sm90.cu: `split`, `load1`/`load2`, `a_from_c`,
+// `mma3_x4`), and the fused resnet kernel's f32
 // body (fused_resblock.cu), which takes `round_tf32` and `split` and lays
 // out its own tiles.
 //

@@ -11,16 +11,17 @@ three copy with ``cp.async`` (or TMA) and so take 16-byte aligned operands
 with B, L and H strides in multiples of 16 bytes, see
 ``cp_async_misalignment``.
 Those kernels are built for heads of 64 and of 128 features
-(``KERNEL_WIDTHS``).  A wider head goes to K1 of
-``csrc/flash_fwd_wide_sm90.cu`` (any multiple of 64 from 192 to
-``WIDE_FWD_MAX``: TMA loads into an mbarrier-signalled ring, bf16 on
-wgmma, f32 as 3xTF32 on mma.sync, S computed once a key tile with O at
-the full width in registers of two warpgroups; its tiles are
-``wide_fwd_plan``'s) and to K2a
-and K2b of ``csrc/flash_wide.cu`` (any multiple of 64 above 128: the head
-dim in pieces of 64 columns, a grid dimension over chunks of 128 output
-columns, S and dP recomputed once a chunk).  A head wider than
-``WIDE_FWD_MAX`` raises on the card.  On the card
+(``KERNEL_WIDTHS``).  A wider head goes, by width (``kernel_source``), to
+the Hopper kernels of ``csrc/flash_fwd_wide_sm90.cu`` (K1) and
+``csrc/flash_bwd_wide_sm90.cu`` (K2a, K2b) at any multiple of 64 from 192 to
+``WIDE_FWD_MAX`` (TMA loads into an mbarrier-signalled ring, bf16 on wgmma,
+f32 as 3xTF32 on mma.sync; K1 holds O and K2 dQ, dK and dV at the full width
+in registers, with S computed once a key tile, never once per chunk of
+output columns; their tiles are ``wide_fwd_plan``'s and ``wide_bwd_plan``'s),
+and above that to the three chunked kernels of ``csrc/flash_wide.cu`` (any
+multiple of 64: the head dim in pieces of 64 columns, a grid dimension over
+chunks of 128 output columns, S and dP recomputed once a chunk).  Each
+width has one hand-written kernel of each of the three.  On the card
 the Function zero-pads a head to ``kernel_width(D)`` (64, 128, or the
 least multiple of 64 not below D) and passes the kernels the true width's
 scale: the zero columns change no logit, LSE or delta, and the padded
@@ -34,11 +35,13 @@ its kernel on a CUDA tensor and takes its plain version on a CPU tensor, and
 counts which, on ``flash_attention``: ``kernel_launches`` (K1),
 ``dq_launches`` (K2a), ``dkv_launches`` (K2b), at every head width;
 ``plain_calls`` (K1's plain version) and ``plain_bwd_calls`` (K2a's and
-K2b's).
+K2b's); and ``entry_launches``, the launches by C entry (each source's
+entries have names of their own), which shows which source ran.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -49,7 +52,7 @@ from syncfusion_tpu_torch.ops import _build
 
 KERNEL_WIDTHS = (64, 128)  # the widths of flash_fwd.cu's and flash_bwd.cu's kernels
 WIDE_STEP = 64  # the wide kernels take multiples of this above KERNEL_WIDTHS
-WIDE_FWD_MAX = 512  # the widest head of flash_fwd_wide_sm90.cu's K1
+WIDE_FWD_MAX = 512  # the widest head of the Hopper sources (*_wide_sm90.cu)
 SMEM_MAX = 232448  # shared memory a block may have on an H100
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -174,26 +177,85 @@ def wide_fwd_plan(width: int, dtype) -> dict:
             "ops_per_pair": 3 * (2 * col_groups + 2) if f32 else 2 * col_groups + 4}
 
 
+def wide_bwd_plan(width: int, dtype) -> dict:
+    """The launch plan of the wide K2a and K2b at a head ``width`` (a
+    multiple of ``WIDE_STEP`` above 128, at most ``WIDE_FWD_MAX``) and
+    ``dtype``, as ``BwdPlan`` of ``csrc/flash_bwd_wide_sm90.cu`` sets it (its
+    C entry ``flash_bwd_wide_plan`` returns the same): the block's own rows
+    (K2a q rows, K2b keys: one wgmma M of 64 in bf16, two m16 tiles in f32),
+    the rows of a ring tile (the other side's), ring slots, the column parts
+    the outputs are split into (bf16: the two warpgroups; f32: four, each
+    the columns of two warps, which also split S's and dP's sums), K2b's
+    blocks a row tile (bf16: a dK and a dV block), threads, dynamic shared
+    memory (the two own tiles, the ring, f32's exchange buffers of partial
+    sums, 512 bytes of LSE and delta, the barriers and 1024 bytes for the
+    alignment), the columns of a TMA box and K2a's and K2b's operations per
+    (query, key) pair in units of the width, against the function's 6 and
+    8 (bf16: each warpgroup S and dP on wgmma, the outputs as hi + lo bf16;
+    f32: tf32 products of 3xTF32, none repeated)."""
+    if width % WIDE_STEP or not KERNEL_WIDTHS[-1] < width <= WIDE_FWD_MAX:
+        raise ValueError(f"the wide K2 takes multiples of {WIDE_STEP} from "
+                         f"{KERNEL_WIDTHS[-1] + WIDE_STEP} to {WIDE_FWD_MAX}; got {width}")
+    f32 = dtype == torch.float32
+    esize = 4 if f32 else 2
+    rows, parts = (32, 4) if f32 else (64, 2)
+
+    def smem(ring_rows):
+        return (1024 + 2 * rows * width * esize + 2 * ring_rows * width * esize
+                + (2 * 2 * parts * rows * ring_rows * 4 if f32 else 0) + 512 + 64)
+
+    ring_rows = (32 if smem(32) <= SMEM_MAX else 16) if f32 else 32
+    return {"rows": rows, "ring_rows": ring_rows, "stages": 2, "parts": parts,
+            "roles": 1 if f32 else 2, "threads": 256, "smem_bytes": smem(ring_rows),
+            "box_cols": 128 // esize, "dq_ops_per_pair": 18 if f32 else 12,
+            "dkv_ops_per_pair": 24 if f32 else 20}
+
+
+def wide_bwd_blocks(width: int, dtype, batch_heads: int, lq: int, lk: int) -> dict:
+    """The blocks of one call of the wide K2a and K2b (``wide_bwd_plan``'s
+    tiles) at ``batch_heads`` (B x H) and sequence lengths ``lq``, ``lk``."""
+    plan = wide_bwd_plan(width, dtype)
+    rows = plan["rows"]
+    return {"dq": -(-lq // rows) * batch_heads,
+            "dkv": -(-lk // rows) * batch_heads * plan["roles"]}
+
+
+def kernel_source(index: int, d: int) -> str:
+    """The source (``csrc/<name>.cu``) of K1 (``index`` 0), K2a (1) or K2b
+    (2) at kernel width ``d``: ``flash_fwd`` and ``flash_bwd`` at 64 and
+    128, the Hopper sources ``flash_fwd_wide_sm90`` and
+    ``flash_bwd_wide_sm90`` at 192 to ``WIDE_FWD_MAX``, ``flash_wide`` (the
+    chunked kernels) above."""
+    if d <= KERNEL_WIDTHS[-1]:
+        return "flash_fwd" if index == 0 else "flash_bwd"
+    if d <= WIDE_FWD_MAX:
+        return "flash_fwd_wide_sm90" if index == 0 else "flash_bwd_wide_sm90"
+    return "flash_wide"
+
+
+# the C entries of each source, by kernel index: K1 0, K2a 1, K2b 2
+_ENTRIES = {"flash_fwd": {0: "flash_fwd"},
+            "flash_bwd": {1: "flash_bwd_dq", 2: "flash_bwd_dkv"},
+            "flash_fwd_wide_sm90": {0: "flash_fwd_wide"},
+            "flash_bwd_wide_sm90": {1: "flash_bwd_dq_wide", 2: "flash_bwd_dkv_wide"},
+            "flash_wide": {0: "flash_fwd_chunked", 1: "flash_bwd_dq_chunked",
+                           2: "flash_bwd_dkv_chunked"}}
+
+
 @functools.cache
-def _kernels(wide: bool = False):
-    """The C entries of K1, K2a and K2b: those of ``flash_fwd.cu`` and
-    ``flash_bwd.cu`` (heads of 64 and 128 features), or with ``wide`` those
-    of ``flash_fwd_wide_sm90.cu`` (K1) and ``flash_wide.cu`` (K2a, K2b) for
-    wider heads, which take the same arguments."""
-    if wide:
-        lib = _build.library("flash_wide")
-        fns = (_build.library("flash_fwd_wide_sm90").flash_fwd_wide,
-               lib.flash_bwd_dq_wide, lib.flash_bwd_dkv_wide)
-    else:
-        bwd = _build.library("flash_bwd")
-        fns = (_build.library("flash_fwd").flash_fwd, bwd.flash_bwd_dq,
-               bwd.flash_bwd_dkv)
+def _kernels(source: str) -> dict:
+    """The C entries of ``csrc/<source>.cu`` by kernel index, typed: every
+    K1 takes one argument list, every K2a and K2b another."""
+    lib = _build.library(source)
     i, ll, p, f = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float
-    fns[0].argtypes = [i, p, p, p, p, p, i, i, i, i, i, *([ll] * 12), i, f, p]
-    for fn in fns[1:]:
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, p, i, f, p]
-    for fn in fns:
+    fns = {}
+    for index, name in _ENTRIES[source].items():
+        fn = getattr(lib, name)
+        fn.argtypes = ([i, p, p, p, p, p, i, i, i, i, i, *([ll] * 12), i, f, p]
+                       if index == 0 else
+                       [i, p, p, p, p, p, p, p, p, i, i, i, i, i, p, i, f, p])
         fn.restype = i
+        fns[index] = fn
     return fns
 
 
@@ -280,19 +342,17 @@ def _stream(x) -> int:
 
 def flash_fwd(q, k, v, causal: bool = False, scale: float | None = None):
     """K1: ``(o, lse)``, O in q's dtype, LSE (B, H, Lq) f32; ``scale``
-    multiplies the logits (default 1/sqrt(D)).  The kernel on a CUDA tensor
-    of head dim 64, 128 or a multiple of 64 up to ``WIDE_FWD_MAX`` (raises
-    ``ValueError`` for another width or a q, k or v ``cp.async`` or TMA
-    cannot take), ``attention_reference`` on a CPU tensor."""
+    multiplies the logits (default 1/sqrt(D)).  The kernel of
+    ``kernel_source`` on a CUDA tensor of head dim 64, 128 or a multiple of
+    64 above (raises ``ValueError`` for another width or a q, k or v
+    ``cp.async`` or TMA cannot take), ``attention_reference`` on a CPU
+    tensor."""
     if q.device.type == "cpu":
         flash_attention.plain_calls += 1
         return attention_reference(q, k, v, causal, return_lse=True, scale=scale)
     _check(q, k, v)
     _check_aligned(q=q, k=k, v=v)
     b, lq, h, d = q.shape
-    if d > WIDE_FWD_MAX:
-        raise ValueError(f"K1 takes heads of at most {WIDE_FWD_MAX} features on "
-                         f"the card; got {d}")
     lk = k.shape[1]
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -301,7 +361,7 @@ def flash_fwd(q, k, v, causal: bool = False, scale: float | None = None):
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, h, lq, lk, d, *strides, int(causal),
         _scale(q, scale), _stream(q)), "flash_fwd")
-    flash_attention.kernel_launches += 1
+    _launched(0, d)
     return o, lse
 
 
@@ -312,7 +372,18 @@ def _stride_array(*tensors):
 
 def _entry(index: int, d: int):
     """The C entry of K1 (0), K2a (1) or K2b (2) for heads of ``d``."""
-    return _kernels(d > KERNEL_WIDTHS[-1])[index]
+    return _kernels(kernel_source(index, d))[index]
+
+
+_COUNT_OF = ("kernel_launches", "dq_launches", "dkv_launches")
+
+
+def _launched(index: int, d: int) -> None:
+    """Count one launch of K1 (0), K2a (1) or K2b (2) at heads of ``d``:
+    the kernel's count and its C entry's."""
+    name = _COUNT_OF[index]
+    setattr(flash_attention, name, getattr(flash_attention, name) + 1)
+    flash_attention.entry_launches[_ENTRIES[kernel_source(index, d)][index]] += 1
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False,
@@ -334,7 +405,7 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False,
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), b, h, lq, k.shape[1], d, _stride_array(q, k, v, o, do, dq),
         int(causal), _scale(q, scale), _stream(q)), "flash_bwd_dq")
-    flash_attention.dq_launches += 1
+    _launched(1, d)
     return dq, delta
 
 
@@ -357,7 +428,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, h, lq, k.shape[1], d, _stride_array(q, k, v, do, dk, dv),
         int(causal), _scale(q, scale), _stream(q)), "flash_bwd_dkv")
-    flash_attention.dkv_launches += 1
+    _launched(2, d)
     return dk, dv
 
 
@@ -434,9 +505,11 @@ def flash_attention(q, k, v, causal: bool = False, return_lse: bool = False):
 
 
 def reset_counts() -> None:
-    """Set every launch and plain-call count of ``flash_attention`` to 0."""
+    """Set every launch and plain-call count of ``flash_attention`` to 0,
+    and empty its launches by C entry."""
     for name in COUNTS:
         setattr(flash_attention, name, 0)
+    flash_attention.entry_launches = collections.Counter()
 
 
 COUNTS = ("kernel_launches", "dq_launches", "dkv_launches", "plain_calls",

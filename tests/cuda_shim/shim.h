@@ -52,6 +52,8 @@ inline float __uint_as_float(uint32_t u) {
   std::memcpy(&f, &u, 4);
   return f;
 }
+using std::max;
+using std::min;
 using std::fmaxf;
 using std::fminf;
 using std::fmaf;
@@ -90,6 +92,7 @@ struct ShimGroup {
     int kind;  // 0: ss, 1: rs, MN-major B
     uint64_t da, db;
     int accumulate;
+    int n;  // the product's N: 64 or 32
     std::vector<float*> d;
     std::vector<const uint32_t*> a;
   };
@@ -203,7 +206,8 @@ inline cudaError_t cudaGetLastError() {
   return e;
 }
 
-// Runs the grid: blocks one after another, one std::thread per CUDA thread.
+// Runs the grid (x fastest, then y, then z): blocks one after another, one
+// std::thread per CUDA thread.
 template <typename F>
 void shim_launch(dim3 grid, int threads, size_t smem, cudaStream_t, F body) {
   if (smem + kShimDynOff > kShimWindow || smem > 232448 || threads > 1024 ||
@@ -214,6 +218,7 @@ void shim_launch(dim3 grid, int threads, size_t smem, cudaStream_t, F body) {
   auto blk = std::make_unique<ShimBlock>();
   gridDim = grid;
   blockDim = dim3(threads);
+  for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       std::memset(blk->window, 0xff, kShimWindow);  // unwritten reads: NaN
@@ -230,7 +235,7 @@ void shim_launch(dim3 grid, int threads, size_t smem, cudaStream_t, F body) {
       for (int i = 0; i < threads; ++i)
         ts.emplace_back([&, i] {
           threadIdx = {unsigned(i), 0, 0};
-          blockIdx = {bx, by, 0};
+          blockIdx = {bx, by, bz};
           body();
         });
       for (auto& t : ts) t.join();

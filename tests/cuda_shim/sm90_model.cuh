@@ -1,6 +1,6 @@
 // CPU models of sm90.cuh's instructions: mbarrier phases, the TMA tile copy
 // with zero fill and the 128-byte swizzle, the wgmma descriptor and the
-// m64n64k16 bf16 products (run when their group is waited for, so a result
+// m64n64k16 and m64n32k16 bf16 products (run when their group is waited for, so a result
 // read early or an operand released early shows).
 #pragma once
 #include <cuda.h>
@@ -78,6 +78,8 @@ inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
   const bool sw = m.swizzle == CU_TENSOR_MAP_SWIZZLE_128B;
   SHIM_CHECK(!sw || dst % 1024 == 0, "a 128B-swizzled box off a 1024-byte boundary");
   SHIM_CHECK(dst % 128 == 0, "a TMA box off a 128-byte boundary");
+  SHIM_CHECK((long long)c0 * m.esize % 16 == 0,
+             "a TMA box whose innermost start is not 16-byte aligned");
   const int c[4] = {c0, c1, c2, c3};
   const uint32_t row = m.box[0] * m.esize;
   uint32_t off = 0;
@@ -143,7 +145,7 @@ inline void shim_run(const ShimGroup::Op& op) {
   float A[64][16], B[16][64];
   const ShimDesc db = shim_desc(op.db);
   for (int k = 0; k < 16; ++k)
-    for (int n = 0; n < 64; ++n)
+    for (int n = 0; n < op.n; ++n)
       B[k][n] = op.kind == 0 ? shim_kmajor(db, n, k) : shim_mnmajor(db, k, n);
   if (op.kind == 0) {
     const ShimDesc da = shim_desc(op.da);
@@ -158,7 +160,7 @@ inline void shim_run(const ShimGroup::Op& op) {
       }
   }
   for (int m = 0; m < 64; ++m)
-    for (int n = 0; n < 64; ++n) {
+    for (int n = 0; n < op.n; ++n) {
       const int tw = 32 * (m / 16) + 4 * (m % 8) + (n % 8) / 2;
       float& d = op.d[tw][4 * (n / 8) + 2 * ((m % 16) / 8) + (n % 2)];
       double sum = op.accumulate ? d : 0.0;
@@ -170,14 +172,14 @@ inline ShimGroup& shim_group() {
   return *g_block->groups[threadIdx.x / 128];
 }
 inline void shim_issue(int kind, float* d, const uint32_t* a, uint64_t da,
-                       uint64_t db, int accumulate) {
+                       uint64_t db, int accumulate, int n = 64) {
   ShimGroup& G = shim_group();
   const int tw = threadIdx.x % 128;
   G.d[tw] = d;
   G.a[tw] = a;
   G.bar.arrive_and_wait();
   if (tw == 0) {
-    ShimGroup::Op op{kind, da, db, accumulate, {}, {}};
+    ShimGroup::Op op{kind, da, db, accumulate, n, {}, {}};
     for (int i = 0; i < 128; ++i) {
       op.d.push_back(static_cast<float*>(G.d[i]));
       op.a.push_back(G.a[i]);
@@ -188,6 +190,9 @@ inline void shim_issue(int kind, float* d, const uint32_t* a, uint64_t da,
 }
 inline void wgmma_64x64x16_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
   shim_issue(0, d, nullptr, da, db, accumulate);
+}
+inline void wgmma_64x32x16_ss(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  shim_issue(0, d, nullptr, da, db, accumulate, 32);
 }
 inline void wgmma_64x64x16_rs_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   shim_issue(1, d, a, 0, db, 1);

@@ -2,7 +2,8 @@
 plain versions and the JAX package.
 
 The kernels are built for heads of 64 and 128 features, and above 128 for
-any multiple of 64 (``csrc/flash_wide.cu``); on the card
+any multiple of 64 (the Hopper sources ``csrc/*_wide_sm90.cu`` up to 512,
+the chunked ``csrc/flash_wide.cu`` above, ``kernel_source``); on the card
 ``flash_attention``'s autograd Function zero-pads a head to its kernel
 width (``kernel_width``), passes the true width's scale and slices O, dq,
 dk and dv back.  Here that padded path runs through the plain versions on
@@ -28,7 +29,7 @@ from syncfusion_tpu.ops import attention as ja
 from syncfusion_tpu_torch.ops import attention as ta
 from torch_port_helpers import n, t
 
-WIDTHS = [8, 32, 48, 128, 160, 192, 200, 256, 320]
+WIDTHS = [8, 32, 48, 128, 160, 192, 200, 256, 320, 576]
 DTYPES = [torch.float32, torch.float64]
 
 
@@ -93,6 +94,30 @@ def test_plain_versions_on_padded_operands_leave_zero_columns(d, dtype):
 
 
 @pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 4e-6), (torch.float64, 1e-12)])
+def test_padded_path_at_1000_features(monkeypatch, dtype, tol, causal):
+    """D = 1000, padded to 1024 (flash_wide.cu's chunked kernels on the
+    card): the padded path against the unpadded plain versions, as above,
+    within f32's (f64's) rounding of sums over 1000 columns taken in another
+    blocking than 1024's (1.4e-6 and 3e-15 read), the padded columns of O,
+    dq, dk and dv exactly 0, one plain call a wrapper."""
+    q, k, v, do = _inputs(1000, dtype, seed=1000)
+    want, _ = _run(q, k, v, do, causal)
+    monkeypatch.setattr(ta, "_pads", lambda q: True)
+    got, counts = _run(q, k, v, do, causal)
+    for name, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert (g - w).abs().max().item() <= tol, name
+    assert counts == {"kernel_launches": 0, "dq_launches": 0, "dkv_launches": 0,
+                      "plain_calls": 1, "plain_bwd_calls": 2}
+    pq, pk, pv, pdo = (torch.nn.functional.pad(x, (0, 24)) for x in (q, k, v, do))
+    po, plse = ta.flash_fwd(pq, pk, pv, causal, 1.0 / math.sqrt(1000))
+    for x in (po, *ta.flash_bwd_reference(pq, pk, pv, po, plse, pdo, causal,
+                                          1.0 / math.sqrt(1000))):
+        assert x.shape[-1] == 1024 and not x[..., 1000:].any()
+
+
+@pytest.mark.parametrize("causal", [False, True])
 def test_the_scale_argument_keeps_the_default_at_64(causal):
     """Each wrapper's ``scale`` at 1/sqrt(64) gives what its default gives,
     bit for bit."""
@@ -111,11 +136,26 @@ def test_the_scale_argument_keeps_the_default_at_64(causal):
 
 @pytest.mark.parametrize("d,width", [
     (1, 64), (8, 64), (64, 64), (65, 128), (128, 128),
-    # above 128, flash_wide.cu's widths: the least multiple of 64 not below d
+    # above 128, the wide kernels' widths: the least multiple of 64 not below d
     (129, 192), (160, 192), (192, 192), (200, 256), (256, 256), (320, 320),
-    (512, 512)])
+    (512, 512), (513, 576), (576, 576), (1000, 1024)])
 def test_kernel_width(d, width):
     assert ta.kernel_width(d) == width
+
+
+@pytest.mark.parametrize("width,sources", [
+    (64, ("flash_fwd", "flash_bwd", "flash_bwd")),
+    (128, ("flash_fwd", "flash_bwd", "flash_bwd")),
+    (192, ("flash_fwd_wide_sm90", "flash_bwd_wide_sm90", "flash_bwd_wide_sm90")),
+    (512, ("flash_fwd_wide_sm90", "flash_bwd_wide_sm90", "flash_bwd_wide_sm90")),
+    (576, ("flash_wide",) * 3), (1024, ("flash_wide",) * 3)])
+def test_kernel_source_by_width(width, sources):
+    """One hand-written source for each of K1, K2a and K2b at each kernel
+    width, each exporting that kernel's C entry."""
+    got = tuple(ta.kernel_source(index, width) for index in range(3))
+    assert got == sources
+    for index, source in enumerate(got):
+        assert index in ta._ENTRIES[source]
 
 
 @pytest.mark.parametrize("causal", [False, True])

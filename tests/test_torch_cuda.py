@@ -235,8 +235,9 @@ def test_any_head_width_forward_and_backward_on_card(card, d, dtype, tol, length
 @pytest.mark.parametrize("d", [192, 256])
 def test_head_width_above_128_runs_on_card(card, d, dtype, tol, length, causal):
     """Fault 7's rest: heads wider than 128 run K1 of
-    ``csrc/flash_fwd_wide_sm90.cu`` and the chunked K2a and K2b of
-    ``csrc/flash_wide.cu`` (heads x D = 512 as in the UNet's levels)."""
+    ``csrc/flash_fwd_wide_sm90.cu`` and K2a and K2b of
+    ``csrc/flash_bwd_wide_sm90.cu`` (heads x D = 512 as in the UNet's
+    levels)."""
     _head_width_case(d, 512 // d, dtype, tol, length, causal)
 
 
@@ -289,15 +290,56 @@ def test_wide_forward_kernel_at_the_2x256_unets_largest_call_on_card(card, dtype
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
-def test_wide_forward_kernel_refuses_heads_above_512_on_card(card):
-    """No fallback: a head wider than 512 raises, and nothing launches."""
-    q = torch.randn((1, 64, 1, 576), device="cuda", dtype=torch.bfloat16)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("length,causal", [(1000, False), (1000, True)])
+@pytest.mark.parametrize("d", [576, 1024])
+def test_heads_wider_than_512_run_the_chunked_kernels_on_card(card, d, dtype, tol,
+                                                             length, causal):
+    """Fault 8: no head width raises on the card.  Above 512 K1, K2a and K2b
+    are the chunked kernels of ``csrc/flash_wide.cu``: one launch each, no
+    plain call, against the plain versions."""
+    _head_width_case(d, 1, dtype, tol, length, causal)
+    assert dict(ta.flash_attention.entry_launches) == {
+        "flash_fwd_chunked": 1, "flash_bwd_dq_chunked": 1, "flash_bwd_dkv_chunked": 1}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("length,causal", [(40, False), (1001, False), (1001, True)])
+@pytest.mark.parametrize("d", [192, 320, 448, 512])
+def test_wide_backward_kernels_match_plain_on_card(card, d, dtype, tol, length, causal):
+    """K2a and K2b of ``csrc/flash_bwd_wide_sm90.cu`` (TMA into an mbarrier
+    ring; bf16 on wgmma, f32 as 3xTF32 on mma.sync) through
+    ``flash_attention`` on views of one packed qkv, at widths with f32 ring
+    tiles of 32 and 16 rows and bf16 warpgroups over an odd number of
+    pieces, a sequence below one tile and a ragged one, causal too."""
+    _head_width_case(d, max(1, round(512 / d)), dtype, tol, length, causal)
+    assert dict(ta.flash_attention.entry_launches) == {
+        "flash_fwd_wide": 1, "flash_bwd_dq_wide": 1, "flash_bwd_dkv_wide": 1}
+
+
+def test_wide_backward_kernels_at_the_2x256_unets_training_call_on_card(card):
+    """The 2 x 256 UNet's training backward, f32, 4 rows x 2 heads, T = 2048,
+    on views of one packed qkv: dq, dk and dv within 1e-4 of max |plain|,
+    delta within 1e-4, one launch each, and the same bits on a second call
+    (no atomics)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = torch.randn((4, 2048, 3, 2, 256), generator=gen, device="cuda").unbind(2)
+    do = torch.randn((4, 2048, 2, 256), generator=gen, device="cuda")
+    o, lse = ta.flash_fwd(q, k, v)
     ta.reset_counts()
-    with pytest.raises(ValueError, match="at most 512"):
-        ta.flash_fwd(q, q, q)
-    with pytest.raises(ValueError, match="at most 512"):
-        ta.flash_attention(q[..., :550], q[..., :550], q[..., :550])
-    assert ta.flash_attention.kernel_launches == 0 and ta.flash_attention.plain_calls == 0
+    dq, delta = ta.flash_bwd_dq(q, k, v, o, lse, do)
+    dk, dv = ta.flash_bwd_dkv(q, k, v, do, lse, delta)
+    assert dict(ta.flash_attention.entry_launches) == {"flash_bwd_dq_wide": 1,
+                                                        "flash_bwd_dkv_wide": 1}
+    want_dq, want_delta = ta.flash_bwd_dq_reference(q, k, v, o, lse, do)
+    want_dk, want_dv = ta.flash_bwd_dkv_reference(q, k, v, do, lse, want_delta)
+    assert (delta - want_delta).abs().max().item() <= 1e-4
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    dq2, delta2 = ta.flash_bwd_dq(q, k, v, o, lse, do)
+    dk2, dv2 = ta.flash_bwd_dkv(q, k, v, do, lse, delta)
+    assert all(torch.equal(a, b) for a, b in ((dq, dq2), (delta, delta2), (dk, dk2),
+                                               (dv, dv2)))
 
 
 # the tiny parity config of tests/test_diffusion_stack.py as it is: 2 heads

@@ -1,7 +1,7 @@
 """K1 for heads wider than 128 (``syncfusion_tpu_torch/csrc/flash_fwd_wide_sm90.cu``)
-run on the CPU, its CUDA source compiled by g++ against ``tests/cuda_shim``:
-one std::thread per CUDA thread, and lane-exact models of the instructions of
-``csrc/sm90.cuh`` (mbarrier phases, the TMA tile copy with zero fill and the
+run on the CPU, its CUDA source compiled by g++ against ``tests/cuda_shim``
+(``cuda_shim_build``): one std::thread per CUDA thread, and lane-exact
+models of the instructions of ``csrc/sm90.cuh`` (mbarrier phases, the TMA tile copy with zero fill and the
 128-byte swizzle, the wgmma descriptor, wgmma m64n64k16 bf16 run when its
 group is waited for) and of ``csrc/ptx.cuh`` (mma.sync m16n8k8 tf32, each
 operand read with its low 13 bits dropped).  The library's C entry runs on
@@ -17,49 +17,17 @@ map beyond the models' (the card tests in ``tests/test_torch_cuda.py``).
 
 import ctypes
 import math
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import pytest
 import torch
 
+import cuda_shim_build
 from syncfusion_tpu_torch.ops import attention as ta
-
-SHIM = Path(__file__).resolve().parent / "cuda_shim"
-CSRC = Path(ta.__file__).resolve().parent.parent / "csrc"
-SOURCE = "flash_fwd_wide_sm90.cu"
-
-
-def build(out: Path) -> Path:
-    """The source with the shim's models in place of ptx.cuh and sm90.cuh,
-    its launches run on the CPU, compiled into a shared library."""
-    work = out / "csrc"
-    shutil.copytree(CSRC, work)
-    shutil.copy(SHIM / "ptx_model.cuh", work / "ptx.cuh")
-    shutil.copy(SHIM / "sm90_model.cuh", work / "sm90.cuh")
-    src = (work / SOURCE).read_text()
-    src, n = re.subn(r"(\w+)<<<(.*?)>>>\((.*?)\);", r"shim_launch(\2, [&] { \1(\3); });",
-                     src, flags=re.S)
-    assert n == 1
-    src, n = re.subn(r"extern __shared__ [^;]*?(\w+)\[\];",
-                     r"unsigned char* \1 = shim_dynamic_smem();", src)
-    assert n == 1
-    (work / SOURCE).write_text(src)
-    lib = out / "libflash_fwd_wide_shim.so"
-    subprocess.run(["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-x",
-                    "c++", "-include", str(SHIM / "shim.h"), "-I", str(SHIM), "-I",
-                    str(work), "-o", str(lib), str(work / SOURCE)],
-                   check=True, capture_output=True, text=True)
-    return lib
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++")
-    so = ctypes.CDLL(str(build(tmp_path_factory.mktemp("wide_fwd_shim"))))
+    so = cuda_shim_build.load(tmp_path_factory, "flash_fwd_wide_sm90.cu", 1)
     i, ll, p, f = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float
     so.flash_fwd_wide.argtypes = [i, p, p, p, p, p, i, i, i, i, i, *([ll] * 12), i, f, p]
     so.flash_fwd_wide.restype = i
