@@ -11,9 +11,12 @@ Phases, each printed with its seconds; any failure exits non-zero:
      of ``flash_fwd_wide_sm90.cu`` and K2a and K2b of
      ``flash_bwd_wide_sm90.cu`` at each width 192-512, gated to no spills,
      with their launch plans checked against ``wide_fwd_plan`` and
-     ``wide_bwd_plan``; the chunked K1, K2a and K2b of ``flash_wide.cu``
-     for heads wider than 512), and the dynamic shared memory each launch
-     asks for (read from the built library), go into the kernels line;
+     ``wide_bwd_plan``; K1 on thread-block clusters of
+     ``flash_fwd_cluster_sm90.cu`` at each slice 128-512, gated likewise,
+     its plan checked against ``cluster_fwd_plan`` at every width 576-4096;
+     the chunked K1, K2a and K2b of ``flash_wide.cu`` for heads wider than
+     512), and the dynamic shared memory each launch asks for (read from
+     the built library), go into the kernels line;
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes of the generation path (plus a ragged and a causal case), in
      bf16 and f32, and K1 in bf16 also at the 16 rows of the serving and fast
@@ -218,10 +221,14 @@ Phases, each printed with its seconds; any failure exits non-zero:
      their JSON lines, exit codes and counts (gated), no plain version on
      the card; (c) heads wider than 128, K1 of ``flash_fwd_wide_sm90.cu``
      and K2a and K2b of ``flash_bwd_wide_sm90.cu`` (TMA, wgmma) up to 512,
-     the chunked ones of ``flash_wide.cu`` above: as (a) at D = 160, 192,
+     above K1 on thread-block clusters (``flash_fwd_cluster_sm90.cu``) and
+     the chunked K2a and K2b of ``flash_wide.cu``: as (a) at D = 160, 192,
      256, 320, 512, 576 and 1024 with heads x D = 512 (3, 3, 2, 2, 1, 1
      and 1 heads), with the backend SDPA picks and the C entries that ran
-     (gated by width), and K1 alone at the 2 x 256 UNet's largest calls
+     (gated by width), K1 alone above CLUSTER_FWD_MAX, where it stays the
+     chunked kernel (both types, 2 x 1 head of 4160, T = 256: gated as
+     phase 3, one ``flash_fwd_chunked`` launch each), and K1 alone at the
+     2 x 256 UNet's largest calls
      (bf16 16 rows x 2 heads, f32 4 x 2, T = 2048: gated as phase 3, 1
      launch a call, timed beside its bound, the plain version and SDPA),
      K2a and K2b at its training call (f32 4 x 2, T = 2048: gated as phase
@@ -723,6 +730,17 @@ BWD_PLAN_KEYS = ("rows", "ring_rows", "stages", "parts", "roles", "threads",
                  "smem_bytes", "box_cols", "dq_ops_per_pair", "dkv_ops_per_pair")
 
 
+# K1 on thread-block clusters, flash_fwd_cluster_sm90.cu (heads wider than
+# 512), one instantiation per input type and slice (a block's columns), by
+# "<type>_s<slice>"
+CLUSTER_SLICES = tuple(range(128, 513, 64))
+CLUSTER_FWD_KERNELS = {f"{dtype}_s{s}": f"flash_fwd_cluster_sm90_kernelI{arg}Li{s}EE"
+                       for s in CLUSTER_SLICES
+                       for dtype, arg in (("float32", "f"), ("bfloat16", "13__nv_bfloat16"))}
+CLUSTER_PLAN_KEYS = ("cluster", "slice", "key_tile", "stages", "threads", "smem_bytes",
+                     "box_cols", "ops_per_pair")
+
+
 # the fused kernel's two bodies in fused_resblock.cu (bf16: mma.sync
 # m16n8k16; f32: mma.sync m16n8k8 tf32 as 3xTF32), one instantiation per
 # (TCO, RESIDUAL, STATS)
@@ -757,6 +775,47 @@ def wide_fwd_ptxas(build, libs) -> dict:
               and report.get("spill_loads", 0) == 0
               and plan["smem_bytes"] + report["smem_bytes"] <= attn.SMEM_MAX,
               f"wide K1 {key}: registers, spills or shared memory {report}")
+    return reports
+
+
+def cluster_fwd_ptxas(build, libs) -> dict:
+    """The cluster K1's ptxas report at each slice and type, gated: at most
+    255 registers, no spills, shared memory within SMEM_MAX at the slice's
+    plan, and no wgmma serialized (ptxas C7520: a wgmma that may diverge
+    waits for the one before, which cost bf16 6-9%); and the launch plan its
+    library returns at every width it takes (576-CLUSTER_FWD_MAX), which
+    must equal ``cluster_fwd_plan``'s.  Returns ``{key: report}`` with each
+    slice's plan and the widths that take it."""
+    import ctypes
+
+    from syncfusion_tpu_torch.ops import attention as attn
+
+    log = libs["flash_fwd_cluster_sm90"].with_suffix(".so.log").read_text()
+    serialized = [ln.strip() for ln in log.splitlines()
+                  if "C7520" in ln or "serialized" in ln]
+    check(not serialized, f"cluster K1: ptxas serializes its wgmma: {serialized[:2]}")
+    reports = pick_ptxas(log, CLUSTER_FWD_KERNELS)
+    plan_of = build.library("flash_fwd_cluster_sm90").flash_fwd_cluster_plan
+    plan_of.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for width in range(attn.WIDE_FWD_MAX + 64, attn.CLUSTER_FWD_MAX + 1, 64):
+        for dtype in ("float32", "bfloat16"):
+            out = (ctypes.c_int * len(CLUSTER_PLAN_KEYS))()
+            check(plan_of(int(dtype == "bfloat16"), width, out) == 0,
+                  f"no plan for the cluster K1 {dtype} at {width}")
+            plan = dict(zip(CLUSTER_PLAN_KEYS, out))
+            want = attn.cluster_fwd_plan(width, getattr(torch, dtype))
+            check(plan == want, f"cluster K1 {dtype} at {width}: the library's plan "
+                                f"{plan} is not cluster_fwd_plan's {want}")
+            report = reports[f"{dtype}_s{plan['slice']}"]
+            report.setdefault("widths", []).append(width)
+            report["plan"] = {k_: v_ for k_, v_ in plan.items() if k_ != "cluster"}
+    for key, report in reports.items():
+        smem = report.get("plan", {}).get("smem_bytes", 0)
+        report["dynamic_smem_bytes"] = smem
+        check(report["registers"] <= 255 and report.get("spill_stores", 0) == 0
+              and report.get("spill_loads", 0) == 0
+              and smem + report["smem_bytes"] <= attn.SMEM_MAX,
+              f"cluster K1 {key}: registers, spills or shared memory {report}")
     return reports
 
 
@@ -1043,7 +1102,10 @@ def wide_times_of(root: str) -> dict:
     profiler: at the 2 x 256 UNet's largest calls (WIDE_LARGEST, T =
     WIDE_T; the f32 one is its training call) and at phase 21c(a)'s shapes
     (B = HW_ROWS, T = HW_T, heads x D = 512, D = 192-512), on qkv views.
-    Call it in a fresh process, as ``attention_times_of``."""
+    Then K1 alone above 512 (``k1_*``): at 21c(a)'s D = 576 and 1024 (one
+    head) in both types and at one larger call (bf16, WIDE_FWD_ROWS x 1 head
+    of 1024, T = WIDE_T), each with SDPA's time (``_sdpa``) and the bound
+    (``_bound``).  Call it in a fresh process, as ``attention_times_of``."""
     sys.path.insert(0, os.path.abspath(root))
     from syncfusion_tpu_torch.ops import attention as attn
 
@@ -1069,6 +1131,23 @@ def wide_times_of(root: str) -> dict:
             out[name] = time_ms(fn, 30)
             out[f"{name}_device"] = device_ms(fn, tag)[0]
         del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    import torch.nn.functional as F
+
+    k1_shapes = [(f"k1_d{d}_{str(dtype)[6:]}", dtype, HW_ROWS, HW_T, d)
+                 for d in (576, 1024) for dtype in (torch.bfloat16, torch.float32)]
+    k1_shapes.append((f"k1_d1024_{WIDE_FWD_ROWS}rows_bfloat16", torch.bfloat16,
+                      WIDE_FWD_ROWS, WIDE_T, 1024))
+    for key, dtype, rows, t, d in k1_shapes:
+        q, k, v = torch.randn((rows, t, 3, 1, d), generator=gen,
+                              device="cuda").to(dtype).unbind(2)
+        out[key] = time_ms(lambda: attn.flash_fwd(q, k, v), 30)
+        out[f"{key}_device"] = device_ms(lambda: attn.flash_fwd(q, k, v), "flash_fwd")[0]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        out[f"{key}_sdpa"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 30)
+        out[f"{key}_bound"] = bound_ms(*attention_work(rows, 1, t, d, dtype, False),
+                                       dtype)[0]
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return out
 
@@ -3956,11 +4035,19 @@ TINY_K1 = 5  # attention calls a forward: levels 2-3 down and up, the bottleneck
 OQ_ARGS = {"--steps": 40, "--clips": 4, "--batch": 4, "--sampling_steps": 8}
 OQ2_STEPS = 60
 # phase 21c: heads wider than 128 (the Hopper sources csrc/*_wide_sm90.cu up
-# to 512, csrc/flash_wide.cu above).  (a) K1, K2a and K2b at these widths,
+# to 512; above, K1 csrc/flash_fwd_cluster_sm90.cu up to CLUSTER_FWD_MAX and
+# csrc/flash_wide.cu beyond, K2a and K2b csrc/flash_wide.cu).  (a) K1, K2a
+# and K2b at these widths,
 # as 21a, with heads x D = 512 as in the UNet (the nearest whole number of
 # heads at 160 and 320; one head above 512): 3, 3, 2, 2, 1, 1, 1 heads
 WIDE_WIDTHS = (160, 192, 256, 320, 512, 576, 1024)
 WIDE_HEADS = {d: max(1, round(512 / d)) for d in WIDE_WIDTHS}
+# above CLUSTER_FWD_MAX K1 stays the chunked kernel: one head, this T, both
+# types
+CHUNKED_T = 256
+# wide_times_of's larger K1 call above 512: bf16, these rows x 1 head of
+# 1024, T = WIDE_T
+WIDE_FWD_ROWS = 16
 # (b) exp/model/diffusion.yaml's model node with 2 heads of 256 features in
 # place of 8 of 64: the inner width stays 512, so every parameter shape and
 # the 196M parameters stay; one forward at 2 rows, one f32 micro-step.
@@ -4078,6 +4165,52 @@ def head_width_case(attn, d: int, heads: int, dtype, seed: int) -> dict:
     check(entries == want_entries,
           f"head width {d} {dtype}: C entries {entries}, want {want_entries}")
     return rec
+
+
+def chunked_fwd_case(attn, dtype, seed: int) -> dict:
+    """Phase 21c(a): K1 above CLUSTER_FWD_MAX, where it stays the chunked
+    kernel of flash_wide.cu (one body a type): B = HW_ROWS x 1 head of
+    CLUSTER_FWD_MAX + 64, T = CHUNKED_T, in ``dtype``, on views of one
+    packed projection, against the plain version (phase 3's gates), one
+    launch of ``flash_fwd_chunked`` and no plain call (gated), timed beside
+    the plain version, SDPA and the bound.  Returns the record, as
+    ``head_width_case``'s for K1."""
+    import torch.nn.functional as F
+
+    d = attn.CLUSTER_FWD_MAX + 64
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = torch.randn((HW_ROWS, CHUNKED_T, 3, 1, d), generator=gen,
+                          device="cuda").to(dtype).unbind(2)
+    attn.reset_counts()
+    o, lse = attn.flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    got = {c: getattr(attn.flash_attention, c) for c in attn.COUNTS}
+    entries = dict(attn.flash_attention.entry_launches)
+    o_ref, lse_ref = attn.attention_reference(q, k, v, return_lse=True)
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_l = (lse - lse_ref).abs().max().item()
+    ok = err_o <= TOL[dtype]["o"] and err_l <= TOL[dtype]["lse"]
+    ms = time_ms(lambda: attn.flash_fwd(q, k, v), HW_ITERS)
+    plain = time_ms(lambda: attn.attention_reference(q, k, v), 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    backend = sdpa_backend(qt, kt, vt)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), HW_ITERS)
+    bms, by = bound_ms(*attention_work(HW_ROWS, 1, CHUNKED_T, d, dtype, False), dtype)
+    print(f"  K1 above CLUSTER_FWD_MAX, D={d} {str(dtype)[6:]} BH={HW_ROWS} T={CHUNKED_T}: "
+          f"err O "
+          f"{err_o:.3e} (tol {TOL[dtype]['o']:.0e}) LSE {err_l:.3e} | kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, sdpa {lib:.4f} ms ({backend}), bound {bms:.4f} ms "
+          f"({by}); launches {got} by entry {entries} {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    check(ok, f"K1 at D={d} {dtype} disagrees with its plain version")
+    check(got == {"kernel_launches": 1, "dq_launches": 0, "dkv_launches": 0,
+                  "plain_calls": 0, "plain_bwd_calls": 0},
+          f"K1 at D={d} {dtype}: launches {got}")
+    check(entries == {"flash_fwd_chunked": 1}, f"K1 at D={d} {dtype}: C entries {entries}")
+    return {"max_abs_err": err_o, "lse_err": err_l, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "library_backend": backend, "kernel_width": d, "heads": 1,
+            "entries": entries}
 
 
 def wide_largest_calls(attn) -> dict:
@@ -4517,6 +4650,9 @@ def main() -> int:
           f"{wide_regs['fwd']}")
     print(f"  wide K2a and K2b (flash_bwd_wide_sm90.cu) registers, spills and plans: "
           f"dq {wide_regs['dq']}, dkv {wide_regs['dkv']}")
+    cluster_regs = cluster_fwd_ptxas(_build, libs)
+    print(f"  cluster K1 (flash_fwd_cluster_sm90.cu) registers, spills and plans: "
+          f"{cluster_regs}")
     fused_log = libs["fused_resblock"].with_suffix(".so.log").read_text()
     fused_smem = _build.library("fused_resblock").fused_resblock_smem
     fused_regs = {dtype: fused_ptxas(fused_log, tag)
@@ -4802,6 +4938,8 @@ def main() -> int:
     t0 = time.perf_counter()
     wide = {(d, str(dtype)[6:]): head_width_case(attn, d, WIDE_HEADS[d], dtype, 210 + d)
             for d in WIDE_WIDTHS for dtype in (torch.bfloat16, torch.float32)}
+    above = {(attn.CLUSTER_FWD_MAX + 64, str(dtype)[6:]): chunked_fwd_case(attn, dtype, seed)
+             for dtype, seed in ((torch.bfloat16, 4160), (torch.float32, 4161))}
     largest = wide_largest_calls(attn)
     train_bwd = wide_training_backward(attn)
     phase("21c(a) K1, K2a and K2b at heads wider than 128", t0)
@@ -5001,13 +5139,50 @@ def main() -> int:
         })
         if fwd:
             rows[-1]["float32"] = largest["float32"]
+    by_path = {f"head_width_{d}_{dtype}": rec["entries"].get("flash_fwd_cluster", 0)
+               for (d, dtype), rec in chunked.items()}
+    main_rec = chunked[1024, "bfloat16"]
+    rows.append({
+        "name": "flash_fwd_cluster",
+        "route": "cuda",
+        "source": "syncfusion_tpu_torch/csrc/flash_fwd_cluster_sm90.cu",
+        "replaces": "syncfusion_tpu/ops/attention.py:34",
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max(rec["max_abs_err"] for rec in chunked.values()),
+        "ms": main_rec["ms"],
+        "plain_ms": main_rec["plain_ms"],
+        "bound_ms": main_rec["bound_ms"],
+        "bound_by": main_rec["bound_by"],
+        "library_ms": main_rec["library_ms"],
+        "library_backend": main_rec["library_backend"],
+        "work": f"one call at B={HW_ROWS} x 1 head of 1024, T={HW_T}, bf16; "
+                "max_abs_err over D = 576 and 1024 in both types (O absolute); no "
+                "configuration has heads wider than 512",
+        "design": "thread-block clusters of up to 8 blocks along grid x, one "
+                  "cluster a 64-row q tile, each block a slice of the head's "
+                  "columns (two warpgroups, O's pieces in registers), TMA into a "
+                  "2-slot mbarrier ring; each group's partial S (bf16 wgmma, f32 "
+                  "3xTF32 mma.sync) summed in the block, then across the "
+                  "cluster's shared memory (mapa + ld.shared::cluster, rank "
+                  "order, one cluster barrier a key tile, double-buffered), S "
+                  "once a key tile; P·V as flash_fwd_wide_sm90.cu",
+        "ptxas": cluster_regs,
+        "head_widths": {f"d{d}_{dtype}": {k_: r_ for k_, r_ in rec.items()
+                                           if k_ not in ("dq", "dkv")}
+                        for (d, dtype), rec in chunked.items()},
+        "head_widths_work": f"one call at B={HW_ROWS} x 1 head, T={HW_T}",
+    })
     for name, replaces, key in (
             ("flash_fwd_chunked", "syncfusion_tpu/ops/attention.py:34", "fwd"),
             ("flash_bwd_dq_chunked", "syncfusion_tpu/ops/attention.py:137", "dq"),
             ("flash_bwd_dkv_chunked", "syncfusion_tpu/ops/attention.py:181", "dkv")):
+        fwd = key == "fwd"
+        recs = above if fwd else chunked
         by_path = {f"head_width_{d}_{dtype}": rec["entries"].get(name, 0)
-                   for (d, dtype), rec in chunked.items()}
-        main_rec = kernel_record(chunked[576, "float32"], key)
+                   for (d, dtype), rec in recs.items()}
+        main_rec = (above[attn.CLUSTER_FWD_MAX + 64, "bfloat16"] if fwd
+                    else kernel_record(chunked[576, "float32"], key))
         rows.append({
             "name": name,
             "route": "cuda",
@@ -5016,17 +5191,21 @@ def main() -> int:
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(kernel_record(rec, key)["max_abs_err"]
-                               for rec in chunked.values()),
+                               for rec in recs.values()),
             "ms": main_rec["ms"],
             "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
             "library_backend": main_rec["library_backend"],
-            "work": f"one call at B={HW_ROWS} x 1 head of 576, T={HW_T}, f32; "
-                    "max_abs_err over D = 576 and 1024 in both types (O absolute, "
-                    "gradients relative to max |plain|); no configuration has "
-                    "heads wider than 512",
+            "work": (f"one call at B={HW_ROWS} x 1 head of {attn.CLUSTER_FWD_MAX + 64} "
+                     f"(above CLUSTER_FWD_MAX), T={CHUNKED_T}, bf16; max_abs_err over "
+                     "both types (O absolute)"
+                     if fwd else
+                     f"one call at B={HW_ROWS} x 1 head of 576, T={HW_T}, f32; "
+                     "max_abs_err over D = 576 and 1024 in both types (gradients "
+                     "relative to max |plain|); no configuration has heads wider "
+                     "than 512"),
             "design": "head dim streamed in pieces of 64 columns through a cp.async "
                       "ring of 2 stages, a grid dimension over chunks of 128 output "
                       "columns (S and dP recomputed a chunk; K2b a dK and a dV "
@@ -5036,8 +5215,9 @@ def main() -> int:
             "head_widths": {f"d{d}_{dtype}": {k_: r_ for k_, r_
                                                in kernel_record(rec, key).items()
                                                if k_ not in ("dq", "dkv")}
-                            for (d, dtype), rec in chunked.items()},
-            "head_widths_work": f"one call at B={HW_ROWS} x 1 head, T={HW_T}",
+                            for (d, dtype), rec in recs.items()},
+            "head_widths_work": f"one call at B={HW_ROWS} x 1 head, T="
+                                f"{CHUNKED_T if fwd else HW_T}",
         })
     for name, replaces, key, work in (
             ("fused_resblock_k3",

@@ -121,7 +121,6 @@
 
 namespace {
 
-constexpr int kPiece = 64;     // an output piece: one wgmma n64
 constexpr int kStages = 2;     // slots of the ring
 constexpr int kThreadsBwd = 256;  // two warpgroups
 constexpr int kMaxWidth = 512;

@@ -94,8 +94,6 @@
 
 namespace {
 
-constexpr int kPiece = 64;    // O's columns a piece: one wgmma n64
-constexpr int kQRows = 64;    // q rows a tile: one wgmma m64
 constexpr int kStages = 2;    // slots of the K/V ring
 constexpr int kGroups = 2;    // warpgroups a block
 constexpr int kThreadsWide = 128 * kGroups;
@@ -148,12 +146,14 @@ struct Plan {
 // s[j][e] for n-tile j (keys 8j ..) as sm90.cuh describes.
 // ---------------------------------------------------------------------------
 
-// bf16, one warpgroup: W / 16 wgmma, q and K K-major from their tiles.
+// bf16, one warpgroup: W / 16 wgmma, q and K K-major from their tiles;
+// always all the pieces (the f32 overload of sm90_tiles.cuh takes a range).
 template <class P>
 __device__ __forceinline__ void scores(float (&s)[P::kKeyTile / 8][4],
                                        uint32_t qs, uint32_t ks,
                                        const unsigned char*,
-                                       const unsigned char*, std::false_type) {
+                                       const unsigned char*, int, int,
+                                       std::false_type) {
   float(&d)[32] = reinterpret_cast<float(&)[32]>(s);
 #pragma unroll
   for (int i = 0; i < 32; ++i) d[i] = 0.f;
@@ -169,163 +169,6 @@ __device__ __forceinline__ void scores(float (&s)[P::kKeyTile / 8][4],
   wgmma_wait<0>();
 #pragma unroll
   for (int i = 0; i < 32; ++i) fence_operand(d[i]);
-}
-
-// f32, one warp's 16 rows r0 ..: 3xTF32 on mma.sync, each 64-column piece
-// of the contraction a partial sum added in f32.
-template <class P>
-__device__ __forceinline__ void scores(float (&s)[P::kKeyTile / 8][4],
-                                       uint32_t, uint32_t,
-                                       const unsigned char* qp,
-                                       const unsigned char* kp,
-                                       std::true_type) {
-  constexpr int kJ = P::kKeyTile / 8;
-  const int tid = thread_index();  // offsets recomputed at each call
-  const int lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * ((tid >> 5) & 3);
-#pragma unroll
-  for (int j = 0; j < kJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll 1
-  for (int p = 0; p < P::kPieces; ++p) {
-    float part[kJ][4];
-#pragma unroll
-    for (int j = 0; j < kJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
-#pragma unroll 1
-    for (int kk = 0; kk < 8; ++kk) {
-      const int c = kPiece * p + 8 * kk + 2 * t;
-      uint32_t ab[4], am[4];
-      load2(reinterpret_cast<const float*>(qp + sw128<float, kQRows>(r0 + g, c)),
-            ab[0], ab[2], am[0], am[2]);
-      load2(reinterpret_cast<const float*>(qp + sw128<float, kQRows>(r0 + g + 8, c)),
-            ab[1], ab[3], am[1], am[3]);
-      uint32_t bb[kJ][2], bm[kJ][2];
-#pragma unroll
-      for (int j = 0; j < kJ; ++j)
-        load2(reinterpret_cast<const float*>(
-                  kp + sw128<float, P::kKeyTile>(8 * j + g, c)),
-              bb[j][0], bb[j][1], bm[j][0], bm[j][1]);
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) mma_1688_tf32(part[j], am, bb[j][0], bb[j][1]);
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) mma_1688_tf32(part[j], ab, bm[j][0], bm[j][1]);
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) mma_1688_tf32(part[j], ab, bb[j][0], bb[j][1]);
-    }
-#pragma unroll
-    for (int j = 0; j < kJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// O's pieces first .. first + mine - 1 (acc[0 ..]) += P V, P in S's
-// accumulator layout, V the slot's tile.
-// ---------------------------------------------------------------------------
-
-// bf16: P as hi + lo bf16 A fragments from registers, V MN-major.
-template <class P>
-__device__ __forceinline__ void add_pv(float (&acc)[P::kGroupPieces][32],
-                                       const float (&s)[P::kKeyTile / 8][4],
-                                       uint32_t vs, const unsigned char*,
-                                       int first, int mine, std::false_type) {
-  constexpr int kK = P::kKeyTile / 16;
-  uint32_t ph[kK][4], pl[kK][4];
-#pragma unroll
-  for (int kk = 0; kk < kK; ++kk) {
-    const float(&s0)[4] = s[2 * kk];
-    const float(&s1)[4] = s[2 * kk + 1];
-    split_bf16(s0[0], s0[1], ph[kk][0], pl[kk][0]);
-    split_bf16(s0[2], s0[3], ph[kk][1], pl[kk][1]);
-    split_bf16(s1[0], s1[1], ph[kk][2], pl[kk][2]);
-    split_bf16(s1[2], s1[3], ph[kk][3], pl[kk][3]);
-  }
-  wgmma_fence();
-#pragma unroll
-  for (int pc = 0; pc < P::kGroupPieces; ++pc) {
-    if (pc < mine) {
-      const uint32_t vp = vs + (first + pc) * P::kKvBox;
-#pragma unroll
-      for (int kk = 0; kk < kK; ++kk) {
-        // keys 16kk .. 16kk + 15: two groups of 8 rows, 1024 bytes apart
-        const uint64_t db = sw128_desc(vp + kk * 16 * 128, P::kKvBox, 1024);
-        wgmma_64x64x16_rs_mn(acc[pc], ph[kk], db);
-        wgmma_64x64x16_rs_mn(acc[pc], pl[kk], db);
-      }
-    }
-  }
-  wgmma_commit();
-  wgmma_wait<0>();
-#pragma unroll
-  for (int pc = 0; pc < P::kGroupPieces; ++pc)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) fence_operand(acc[pc][i]);
-#pragma unroll
-  for (int kk = 0; kk < kK; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      fence_operand(ph[kk][i]);
-      fence_operand(pl[kk][i]);
-    }
-}
-
-// f32: 3xTF32 on mma.sync, P's n-tile j fed as the A fragment of k-step j
-// in tf32_mma.cuh's permuted k order (a_from_c), V read in the matching
-// rows; each 32-column pass a partial sum added in f32.
-template <class P>
-__device__ __forceinline__ void add_pv(float (&acc)[P::kGroupPieces][32],
-                                       const float (&s)[P::kKeyTile / 8][4],
-                                       uint32_t, const unsigned char* vp,
-                                       int first, int mine, std::true_type) {
-  constexpr int kJ = P::kKeyTile / 8;
-  const int lane = thread_index() & 31;  // offsets recomputed at each call
-  const int g = lane >> 2, t = lane & 3;
-  const int h = t >> 1;
-#pragma unroll
-  for (int pc = 0; pc < P::kGroupPieces; ++pc) {
-    if (pc >= mine) break;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      // no load of this pass hoisted into the one before: the fragments of
-      // one pass at a time beside O's registers
-      asm volatile("" ::: "memory");
-      float part[4][4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[u][e] = 0.f;
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) {
-        asm volatile("" ::: "memory");  // nor a k-step's into the one before
-        uint32_t ab[4], am[4];
-        a_from_c(s[j], t, ab, am);
-        uint32_t bb[4][2], bm[4][2];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int col = kPiece * (first + pc) + 8 * (4 * half + u) + g;
-          load1(reinterpret_cast<const float*>(
-                    vp + sw128<float, P::kKeyTile>(8 * j + 2 * t + h, col)),
-                bb[u][0], bm[u][0]);
-          load1(reinterpret_cast<const float*>(
-                    vp + sw128<float, P::kKeyTile>(8 * j + 2 * t + 1 - h, col)),
-                bb[u][1], bm[u][1]);
-        }
-        mma3_x4<true, true>(
-            [&](int u) -> float(&)[4] { return part[u]; },
-            [&](int) -> const uint32_t(&)[4] { return ab; },
-            [&](int) -> const uint32_t(&)[4] { return am; }, bb, bm);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[pc][4 * (4 * half + u) + e] += part[u][e];
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -421,7 +264,7 @@ __device__ __forceinline__ void attend(const CUtensorMap& tq,
     mbar_wait(sm.full + 8 * sk, (ik / kStages) & 1);
     __syncwarp();
     scores<P>(s, qs_g, sm.ring + sk * P::kSlotBytes, q_p,
-              ring_p + sk * P::kSlotBytes, IsF32{});
+              ring_p + sk * P::kSlotBytes, 0, P::kPieces, IsF32{});
     mbar_arrive(sm.empty + 8 * sk);
     if (loader) issue(ik + kStages);
 

@@ -1,10 +1,13 @@
 // Flash attention for heads wider than 512 on Hopper (sm_90a): forward,
 // dQ, and dK with dV, at any head width that is a multiple of 64 above 512.
 // (The entries take any multiple of 64 above 128; ops/attention.py's
-// `kernel_source` sends them only the widths above 512, where the Hopper
+// `kernel_source` sends K2a and K2b the widths above 512, where the Hopper
 // kernels of flash_fwd_wide_sm90.cu and flash_bwd_wide_sm90.cu stop: those
 // hold a 64-row output tile at the full width in the registers of two
-// warpgroups, at most 128 a thread, and past 512 it no longer fits.)
+// warpgroups, at most 128 a thread, and past 512 it no longer fits.  K1
+// goes here only above 4096: from 576 to 4096 it is flash_fwd_cluster_
+// sm90.cu's, on thread-block clusters that split O's columns and compute S
+// once.)
 //
 // Replaces, at those widths, the same three TPU kernels of
 // syncfusion_tpu/ops/attention.py as flash_fwd.cu and flash_bwd.cu:

@@ -1,8 +1,10 @@
 // The Hopper (sm_90a) instructions of the port's TMA-fed wgmma kernels, each
 // in its own small function, as ptx.cuh holds those of the mma.sync
 // kernels: mbarrier phases, TMA tile copies, the async-proxy fences, the
-// wgmma shared-memory descriptor and the wgmma products at the shapes
-// used.  Nothing else lives here, so that a CPU model of a kernel can stand
+// thread-block cluster's rank, barrier and shared-memory reads (with the
+// host helper that launches a grid of clusters), the wgmma shared-memory
+// descriptor and the wgmma products at the shapes used.  Nothing else
+// lives here, so that a CPU model of a kernel can stand
 // in lane-exact versions of exactly these functions.
 //
 // Conventions.  A shared-memory address is the 32-bit address of the
@@ -89,6 +91,45 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (tries == (1u << 28)) __trap();
 }
 
+// As mbar_wait, with the loop inside the asm: to the compiler the wait is
+// one instruction, not a branch that may diverge, so wgmma accumulators
+// live across it do not force wgmma serialization (ptxas C7520).  Traps
+// after 2^28 tries.
+__device__ __forceinline__ void mbar_wait_converged(uint32_t bar,
+                                                    uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 n;\n"
+      "mov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.eq.u32 p, n, 268435456;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// mbar_arrive_expect_tx by the threads where `pred` holds, predicated in
+// the instruction, not branched around.
+__device__ __forceinline__ void mbar_arrive_expect_tx_if(uint32_t bar,
+                                                         uint32_t bytes,
+                                                         bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+      "}\n" ::"r"(bar),
+      "r"(bytes), "r"(int(pred))
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
@@ -106,6 +147,107 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// tma_load_4d by the threads where `pred` holds, predicated in the
+// instruction.
+__device__ __forceinline__ void tma_load_4d_if(uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint32_t bar, int c0, int c1,
+                                               int c2, int c3, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %7, 0;\n"
+      "@p cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      "}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(int(pred))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters: a few blocks on neighbouring SMs that can read
+// each other's shared memory (distributed shared memory) and meet at a
+// cluster-wide barrier.
+// ---------------------------------------------------------------------------
+
+// This block's rank in its cluster (0 .. cluster size - 1).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Arrive on the cluster barrier (release: this thread's earlier shared-
+// memory writes are visible to every thread of the cluster that passes the
+// matching wait).  Every thread of every block of the cluster arrives once
+// a phase; warps must be converged.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// Wait until every thread of the cluster has arrived on the phase this
+// thread arrived on last (acquire).
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of the byte at shared address `addr` of
+// this block in the block of rank `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// Four floats at a shared::cluster address (16-byte aligned), read from
+// whichever block of the cluster holds them.
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Launch `kernel` on a grid whose x dimension is cut into clusters of
+// `cluster` blocks (a multiple of it), with `smem` bytes of dynamic shared
+// memory a block.  Returns cudaErrorInvalidConfiguration where the card
+// cannot hold one such cluster at once (cudaOccupancyMaxActiveClusters
+// reads 0), else the launch's error; it never falls back to another shape.
+// `fits`, where given, is the caller's flag for this kernel, device and
+// cluster size: the query runs while it is false and sets it.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads,
+                           size_t smem, int cluster, bool* fits,
+                           cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  cudaError_t err;
+  if (fits == nullptr || !*fits) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) return err;
+    if (clusters == 0) return cudaErrorInvalidConfiguration;
+    if (fits != nullptr) *fits = true;
+  }
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -18,10 +18,15 @@ the Hopper kernels of ``csrc/flash_fwd_wide_sm90.cu`` (K1) and
 f32 as 3xTF32 on mma.sync; K1 holds O and K2 dQ, dK and dV at the full width
 in registers, with S computed once a key tile, never once per chunk of
 output columns; their tiles are ``wide_fwd_plan``'s and ``wide_bwd_plan``'s),
-and above that to the three chunked kernels of ``csrc/flash_wide.cu`` (any
-multiple of 64: the head dim in pieces of 64 columns, a grid dimension over
-chunks of 128 output columns, S and dP recomputed once a chunk).  Each
-width has one hand-written kernel of each of the three.  On the card
+and above that: K1 to the kernel of ``csrc/flash_fwd_cluster_sm90.cu`` up to
+``CLUSTER_FWD_MAX`` (thread-block clusters of up to 8 blocks, each holding a
+slice of O's columns; the blocks' partial sums of S added across the
+cluster's shared memory, so S is computed once a key tile; its tiles are
+``cluster_fwd_plan``'s), and K2a and K2b, and K1 wider still, to the three
+chunked kernels of ``csrc/flash_wide.cu`` (any multiple of 64: the head dim
+in pieces of 64 columns, a grid dimension over chunks of 128 output
+columns, S and dP recomputed once a chunk).  Each width has one
+hand-written kernel of each of the three.  On the card
 the Function zero-pads a head to ``kernel_width(D)`` (64, 128, or the
 least multiple of 64 not below D) and passes the kernels the true width's
 scale: the zero columns change no logit, LSE or delta, and the padded
@@ -53,6 +58,13 @@ from syncfusion_tpu_torch.ops import _build
 KERNEL_WIDTHS = (64, 128)  # the widths of flash_fwd.cu's and flash_bwd.cu's kernels
 WIDE_STEP = 64  # the wide kernels take multiples of this above KERNEL_WIDTHS
 WIDE_FWD_MAX = 512  # the widest head of the Hopper sources (*_wide_sm90.cu)
+# K1 above WIDE_FWD_MAX: csrc/flash_fwd_cluster_sm90.cu, clusters of at most
+# CLUSTER_MAX blocks of at most CLUSTER_SLICE_MAX columns, each cluster
+# aiming at blocks of CLUSTER_TARGET columns (by type)
+CLUSTER_MAX = 8
+CLUSTER_SLICE_MAX = 512
+CLUSTER_FWD_MAX = CLUSTER_MAX * CLUSTER_SLICE_MAX
+CLUSTER_TARGET = {"bfloat16": 512, "float32": 256}
 SMEM_MAX = 232448  # shared memory a block may have on an H100
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -177,6 +189,44 @@ def wide_fwd_plan(width: int, dtype) -> dict:
             "ops_per_pair": 3 * (2 * col_groups + 2) if f32 else 2 * col_groups + 4}
 
 
+def cluster_fwd_plan(width: int, dtype) -> dict:
+    """The launch plan of K1 on thread-block clusters at a head ``width`` (a
+    multiple of ``WIDE_STEP`` above ``WIDE_FWD_MAX``, at most
+    ``CLUSTER_FWD_MAX``) and ``dtype``, as ``cluster_shape`` and
+    ``ClusterPlan`` of ``csrc/flash_fwd_cluster_sm90.cu`` set it (its C entry
+    ``flash_fwd_cluster_plan`` returns the same): blocks a cluster (N =
+    ceil(width / CLUSTER_TARGET), at most CLUSTER_MAX, then as few as cover
+    the width with the slice), columns a block (the slice: the least
+    multiple of 64 that N of cover the width), keys a tile (bf16 64, f32 32,
+    halved where that does not fit), ring slots, threads (two warpgroups;
+    thread 0 also issues the TMA loads), dynamic shared memory (the q slice,
+    the ring's slots, five 64 x key tile f32 tiles of S: two group
+    partials, two exchange buffers, the sum; the barriers and 1024 bytes for
+    the alignment), the columns of a TMA box and the operations per (query,
+    key) pair in units of the width, against the function's 4 (bf16: S once
+    on wgmma, P·V as hi + lo bf16; f32: tf32 products of 3xTF32)."""
+    if width % WIDE_STEP or not WIDE_FWD_MAX < width <= CLUSTER_FWD_MAX:
+        raise ValueError(f"the cluster K1 takes multiples of {WIDE_STEP} from "
+                         f"{WIDE_FWD_MAX + WIDE_STEP} to {CLUSTER_FWD_MAX}; got {width}")
+    f32 = dtype == torch.float32
+    esize = 4 if f32 else 2
+    target = CLUSTER_TARGET["float32" if f32 else "bfloat16"]
+    n = min(CLUSTER_MAX, -(-width // target))
+    per_block = -(-width // n)
+    slice_ = -(-per_block // WIDE_STEP) * WIDE_STEP
+    n = -(-width // slice_)
+
+    def smem(key_tile):
+        return (1024 + 64 * slice_ * esize + 2 * key_tile * slice_ * esize
+                + 5 * 64 * key_tile * 4 + 64)
+
+    full = 32 if f32 else 64
+    key_tile = full if smem(full) <= SMEM_MAX else full // 2
+    return {"cluster": n, "slice": slice_, "key_tile": key_tile, "stages": 2,
+            "threads": 256, "smem_bytes": smem(key_tile), "box_cols": 128 // esize,
+            "ops_per_pair": 12 if f32 else 6}
+
+
 def wide_bwd_plan(width: int, dtype) -> dict:
     """The launch plan of the wide K2a and K2b at a head ``width`` (a
     multiple of ``WIDE_STEP`` above 128, at most ``WIDE_FWD_MAX``) and
@@ -224,12 +274,16 @@ def kernel_source(index: int, d: int) -> str:
     """The source (``csrc/<name>.cu``) of K1 (``index`` 0), K2a (1) or K2b
     (2) at kernel width ``d``: ``flash_fwd`` and ``flash_bwd`` at 64 and
     128, the Hopper sources ``flash_fwd_wide_sm90`` and
-    ``flash_bwd_wide_sm90`` at 192 to ``WIDE_FWD_MAX``, ``flash_wide`` (the
-    chunked kernels) above."""
+    ``flash_bwd_wide_sm90`` at 192 to ``WIDE_FWD_MAX``; above, K1 on
+    thread-block clusters, ``flash_fwd_cluster_sm90``, up to
+    ``CLUSTER_FWD_MAX``, and ``flash_wide`` (the chunked kernels) for K1
+    wider still and for K2a and K2b."""
     if d <= KERNEL_WIDTHS[-1]:
         return "flash_fwd" if index == 0 else "flash_bwd"
     if d <= WIDE_FWD_MAX:
         return "flash_fwd_wide_sm90" if index == 0 else "flash_bwd_wide_sm90"
+    if index == 0 and d <= CLUSTER_FWD_MAX:
+        return "flash_fwd_cluster_sm90"
     return "flash_wide"
 
 
@@ -238,6 +292,7 @@ _ENTRIES = {"flash_fwd": {0: "flash_fwd"},
             "flash_bwd": {1: "flash_bwd_dq", 2: "flash_bwd_dkv"},
             "flash_fwd_wide_sm90": {0: "flash_fwd_wide"},
             "flash_bwd_wide_sm90": {1: "flash_bwd_dq_wide", 2: "flash_bwd_dkv_wide"},
+            "flash_fwd_cluster_sm90": {0: "flash_fwd_cluster"},
             "flash_wide": {0: "flash_fwd_chunked", 1: "flash_bwd_dq_chunked",
                            2: "flash_bwd_dkv_chunked"}}
 

@@ -1,9 +1,12 @@
 // CPU stand-in for the CUDA language features the port's kernels use: one
-// std::thread per CUDA thread, blocks one after another, __syncthreads as a
-// std::barrier, warp and warpgroup collectives through exchange buffers.
+// std::thread per CUDA thread, blocks one after another (the blocks of a
+// thread-block cluster together), __syncthreads as a std::barrier, warp and
+// warpgroup collectives through exchange buffers.
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -41,6 +44,7 @@ struct uint4 {
   unsigned x, y, z, w;
 };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
 inline uint32_t __float_as_uint(float f) {
   uint32_t u;
@@ -110,9 +114,22 @@ struct ShimBlock {
     int phase = 0;
   };
   std::mutex mu;
+  std::condition_variable phase_done;  // a barrier's phase completed
   std::unordered_map<uint32_t, Mbar> mbars;
+  std::atomic<int> exited{0};  // threads of the block that have returned
 };
-inline ShimBlock* g_block = nullptr;
+// the block of the calling thread
+inline thread_local ShimBlock* g_block = nullptr;
+
+// The blocks of one thread-block cluster, run together: their shared
+// windows, and the cluster barrier over all of their threads.
+struct ShimCluster {
+  std::vector<ShimBlock*> blocks;
+  int threads = 0;  // a block's
+  std::unique_ptr<std::barrier<>> bar;
+};
+inline thread_local ShimCluster* g_cluster = nullptr;
+inline thread_local int g_cluster_rank = 0;
 
 inline unsigned char* shim_dynamic_smem() {
   return g_block->window + kShimDynOff;
@@ -183,6 +200,7 @@ inline float2 __bfloat1622float2(__nv_bfloat162 h) {
 enum cudaError_t {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9,
   cudaErrorNotSupported = 801
 };
 using cudaStream_t = void*;
@@ -206,12 +224,42 @@ inline cudaError_t cudaGetLastError() {
   return e;
 }
 
+// A fresh block in `blk` for `threads` threads: the shared window filled
+// with 0xff (reads of unwritten shared memory show as NaN), its barriers,
+// warps and warpgroups.
+inline void shim_reset_block(ShimBlock* blk, int threads) {
+  std::memset(blk->window, 0xff, kShimWindow);
+  blk->bar = std::make_unique<std::barrier<>>(threads);
+  blk->warps.clear();
+  for (int w = 0; w < threads / 32; ++w)
+    blk->warps.push_back(std::make_unique<ShimWarp>());
+  blk->groups.clear();
+  for (int w = 0; w < (threads + 127) / 128; ++w)
+    blk->groups.push_back(std::make_unique<ShimGroup>());
+  blk->mbars.clear();
+  blk->exited = 0;
+}
+
+// What a block must not leave behind: bytes a barrier still expects, a
+// wgmma in flight.
+inline void shim_check_block(ShimBlock* blk) {
+  for (auto& kv : blk->mbars)
+    SHIM_CHECK(kv.second.tx == 0, "a barrier ends with bytes outstanding");
+  for (auto& grp : blk->groups)
+    SHIM_CHECK(grp->open.empty() && grp->groups.empty(),
+               "a wgmma left in flight at the end of the block");
+}
+
+inline bool shim_refuses(size_t smem, int threads) {
+  return smem + kShimDynOff > kShimWindow || smem > 232448 || threads > 1024 ||
+         threads % 32;
+}
+
 // Runs the grid (x fastest, then y, then z): blocks one after another, one
 // std::thread per CUDA thread.
 template <typename F>
 void shim_launch(dim3 grid, int threads, size_t smem, cudaStream_t, F body) {
-  if (smem + kShimDynOff > kShimWindow || smem > 232448 || threads > 1024 ||
-      threads % 32) {
+  if (shim_refuses(smem, threads)) {
     g_last_error = cudaErrorInvalidValue;
     return;
   }
@@ -221,31 +269,59 @@ void shim_launch(dim3 grid, int threads, size_t smem, cudaStream_t, F body) {
   for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::memset(blk->window, 0xff, kShimWindow);  // unwritten reads: NaN
-      blk->bar = std::make_unique<std::barrier<>>(threads);
-      blk->warps.clear();
-      for (int w = 0; w < threads / 32; ++w)
-        blk->warps.push_back(std::make_unique<ShimWarp>());
-      blk->groups.clear();
-      for (int w = 0; w < (threads + 127) / 128; ++w)
-        blk->groups.push_back(std::make_unique<ShimGroup>());
-      blk->mbars.clear();
-      g_block = blk.get();
+      shim_reset_block(blk.get(), threads);
       std::vector<std::thread> ts;
       for (int i = 0; i < threads; ++i)
         ts.emplace_back([&, i] {
+          g_block = blk.get();
           threadIdx = {unsigned(i), 0, 0};
           blockIdx = {bx, by, bz};
           body();
         });
       for (auto& t : ts) t.join();
-      for (auto& kv : blk->mbars)
-        SHIM_CHECK(kv.second.tx == 0, "a barrier ends with bytes outstanding");
-      for (auto& grp : blk->groups)
-        SHIM_CHECK(grp->open.empty() && grp->groups.empty(),
-                   "a wgmma left in flight at the end of the block");
+      shim_check_block(blk.get());
     }
-  g_block = nullptr;
+}
+
+// Runs the grid as clusters of `cluster` blocks along x (grid.x a multiple
+// of it), one cluster after another: the blocks of a cluster together, each
+// with its own shared window, barriers and warps, all of their threads on
+// one cluster barrier.  A block's rank is blockIdx.x mod `cluster`.
+template <typename F>
+void shim_launch_cluster(dim3 grid, int threads, size_t smem, int cluster,
+                         F body) {
+  if (shim_refuses(smem, threads) || cluster < 1 || cluster > 8 ||
+      grid.x % unsigned(cluster)) {
+    g_last_error = cudaErrorInvalidConfiguration;
+    return;
+  }
+  std::vector<std::unique_ptr<ShimBlock>> blks;
+  for (int r = 0; r < cluster; ++r) blks.push_back(std::make_unique<ShimBlock>());
+  ShimCluster cl;
+  for (auto& b : blks) cl.blocks.push_back(b.get());
+  cl.threads = threads;
+  gridDim = grid;
+  blockDim = dim3(threads);
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+  for (unsigned by = 0; by < grid.y; ++by)
+    for (unsigned cx = 0; cx < grid.x; cx += cluster) {
+      for (auto& b : blks) shim_reset_block(b.get(), threads);
+      cl.bar = std::make_unique<std::barrier<>>(cluster * threads);
+      std::vector<std::thread> ts;
+      for (int r = 0; r < cluster; ++r)
+        for (int i = 0; i < threads; ++i)
+          ts.emplace_back([&, r, i] {
+            g_block = blks[r].get();
+            g_cluster = &cl;
+            g_cluster_rank = r;
+            threadIdx = {unsigned(i), 0, 0};
+            blockIdx = {cx + unsigned(r), by, bz};
+            body();
+            ++g_block->exited;
+          });
+      for (auto& t : ts) t.join();
+      for (auto& b : blks) shim_check_block(b.get());
+    }
 }
 
 template <typename T>

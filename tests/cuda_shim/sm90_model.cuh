@@ -1,7 +1,10 @@
 // CPU models of sm90.cuh's instructions: mbarrier phases, the TMA tile copy
-// with zero fill and the 128-byte swizzle, the wgmma descriptor and the
-// m64n64k16 and m64n32k16 bf16 products (run when their group is waited for, so a result
-// read early or an operand released early shows).
+// with zero fill and the 128-byte swizzle, the thread-block cluster (rank,
+// barrier, mapa and ld.shared::cluster into a peer's window, and the launch
+// helper, which runs the blocks of a cluster together), the wgmma
+// descriptor and the m64n64k16 and m64n32k16 bf16 products (run when their
+// group is waited for, so a result read early or an operand released early
+// shows).
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -19,6 +22,7 @@ inline void shim_mbar_maybe_complete(ShimBlock::Mbar& m) {
   if (m.pending == 0 && m.tx == 0) {
     m.phase ^= 1;
     m.pending = m.expected;
+    g_block->phase_done.notify_all();
   }
 }
 inline void mbar_init(uint32_t bar, uint32_t count) {
@@ -62,10 +66,16 @@ inline bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   return done;
 }
 inline void mbar_wait(uint32_t bar, uint32_t parity) {
-  const auto t0 = std::chrono::steady_clock::now();
-  while (!mbar_try_wait(bar, parity))
-    if (std::chrono::steady_clock::now() - t0 > std::chrono::seconds(60))
-      shim_fail("an mbarrier wait did not end in 60 s (deadlock)");
+  std::unique_lock<std::mutex> lk(g_block->mu);
+  if (!g_block->phase_done.wait_for(lk, std::chrono::seconds(60), [&] {
+        return uint32_t(shim_mbar(bar).phase) != (parity & 1);
+      }))
+    shim_fail("an mbarrier wait did not end in 60 s (deadlock)");
+}
+
+inline void mbar_wait_converged(uint32_t bar, uint32_t parity) { mbar_wait(bar, parity); }
+inline void mbar_arrive_expect_tx_if(uint32_t bar, uint32_t bytes, bool pred) {
+  if (pred) mbar_arrive_expect_tx(bar, bytes);
 }
 
 inline uint32_t shim_swizzle(uint32_t a) { return a ^ (((a >> 7) & 7) << 4); }
@@ -102,6 +112,65 @@ inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
           else std::memset(p, 0, m.esize);
         }
   shim_complete_tx(bar, off);
+}
+
+inline void tma_load_4d_if(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                           int c1, int c2, int c3, bool pred) {
+  if (pred) tma_load_4d(dst, map, bar, c0, c1, c2, c3);
+}
+
+// -- thread-block clusters
+inline uint32_t cluster_rank() {
+  SHIM_CHECK(g_cluster != nullptr, "a cluster instruction outside a cluster launch");
+  return uint32_t(g_cluster_rank);
+}
+// the token of this thread's last arrival on the cluster barrier
+inline thread_local std::unique_ptr<std::barrier<>::arrival_token> g_cluster_token;
+inline void cluster_arrive() {
+  SHIM_CHECK(g_cluster != nullptr, "a cluster barrier outside a cluster launch");
+  SHIM_CHECK(!g_cluster_token, "two cluster arrivals without a wait between");
+  g_cluster_token = std::make_unique<std::barrier<>::arrival_token>(g_cluster->bar->arrive());
+}
+inline void cluster_wait() {
+  SHIM_CHECK(g_cluster_token != nullptr, "a cluster wait without an arrival");
+  g_cluster->bar->wait(std::move(*g_cluster_token));
+  g_cluster_token.reset();
+}
+// A shared::cluster address: the block's window offset, with rank + 1 in
+// the bits above the window (a plain shared address names the own block).
+constexpr uint32_t kShimRankShift = 20;
+static_assert(kShimWindow <= (1u << kShimRankShift), "window");
+inline uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  SHIM_CHECK(g_cluster != nullptr, "mapa outside a cluster launch");
+  SHIM_CHECK(addr < kShimWindow, "mapa of an address outside the window");
+  SHIM_CHECK(rank < g_cluster->blocks.size(), "mapa to a rank outside the cluster");
+  return addr | ((rank + 1) << kShimRankShift);
+}
+inline float4 ld_cluster_f4(uint32_t addr) {
+  SHIM_CHECK(g_cluster != nullptr, "ld.shared::cluster outside a cluster launch");
+  SHIM_CHECK(addr % 16 == 0, "ld.shared::cluster.v4 off a 16-byte boundary");
+  ShimBlock* blk = g_block;
+  if (addr >> kShimRankShift) {
+    const uint32_t rank = (addr >> kShimRankShift) - 1;
+    SHIM_CHECK(rank < g_cluster->blocks.size(), "a cluster address of no block");
+    blk = g_cluster->blocks[rank];
+    addr &= (1u << kShimRankShift) - 1;
+  }
+  SHIM_CHECK(addr + 16 <= kShimWindow, "ld.shared::cluster outside the window");
+  SHIM_CHECK(blk->exited.load() < g_cluster->threads,
+             "a read of a peer's shared memory after the peer exited");
+  float4 v;
+  std::memcpy(&v, blk->window + addr, 16);
+  return v;
+}
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads,
+                           size_t smem, int cluster, bool* fits, cudaStream_t,
+                           Args... args) {
+  shim_launch_cluster(grid, threads, smem, cluster, [&] { kernel(args...); });
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && fits != nullptr) *fits = true;
+  return err;
 }
 
 inline uint32_t thread_index() { return threadIdx.x; }

@@ -2,8 +2,10 @@
 plain versions and the JAX package.
 
 The kernels are built for heads of 64 and 128 features, and above 128 for
-any multiple of 64 (the Hopper sources ``csrc/*_wide_sm90.cu`` up to 512,
-the chunked ``csrc/flash_wide.cu`` above, ``kernel_source``); on the card
+any multiple of 64 (the Hopper sources ``csrc/*_wide_sm90.cu`` up to 512;
+above, K1 on thread-block clusters, ``csrc/flash_fwd_cluster_sm90.cu``, up
+to ``CLUSTER_FWD_MAX`` and the chunked ``csrc/flash_wide.cu`` for K1 wider
+still and for K2a and K2b; ``kernel_source``); on the card
 ``flash_attention``'s autograd Function zero-pads a head to its kernel
 width (``kernel_width``), passes the true width's scale and slices O, dq,
 dk and dv back.  Here that padded path runs through the plain versions on
@@ -148,10 +150,15 @@ def test_kernel_width(d, width):
     (128, ("flash_fwd", "flash_bwd", "flash_bwd")),
     (192, ("flash_fwd_wide_sm90", "flash_bwd_wide_sm90", "flash_bwd_wide_sm90")),
     (512, ("flash_fwd_wide_sm90", "flash_bwd_wide_sm90", "flash_bwd_wide_sm90")),
-    (576, ("flash_wide",) * 3), (1024, ("flash_wide",) * 3)])
+    (576, ("flash_fwd_cluster_sm90", "flash_wide", "flash_wide")),
+    (1024, ("flash_fwd_cluster_sm90", "flash_wide", "flash_wide")),
+    (4096, ("flash_fwd_cluster_sm90", "flash_wide", "flash_wide")),
+    (4160, ("flash_wide",) * 3)])
 def test_kernel_source_by_width(width, sources):
     """One hand-written source for each of K1, K2a and K2b at each kernel
-    width, each exporting that kernel's C entry."""
+    width, each exporting that kernel's C entry: above 512 K1 on clusters up
+    to ``CLUSTER_FWD_MAX`` and the chunked K1 beyond it, K2a and K2b
+    chunked."""
     got = tuple(ta.kernel_source(index, width) for index in range(3))
     assert got == sources
     for index, source in enumerate(got):

@@ -293,14 +293,62 @@ def test_wide_forward_kernel_at_the_2x256_unets_largest_call_on_card(card, dtype
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
 @pytest.mark.parametrize("length,causal", [(1000, False), (1000, True)])
 @pytest.mark.parametrize("d", [576, 1024])
-def test_heads_wider_than_512_run_the_chunked_kernels_on_card(card, d, dtype, tol,
-                                                             length, causal):
-    """Fault 8: no head width raises on the card.  Above 512 K1, K2a and K2b
-    are the chunked kernels of ``csrc/flash_wide.cu``: one launch each, no
-    plain call, against the plain versions."""
+def test_heads_wider_than_512_run_the_cluster_and_chunked_kernels_on_card(
+        card, d, dtype, tol, length, causal):
+    """Fault 8: no head width raises on the card.  Above 512 K1 is the
+    cluster kernel of ``csrc/flash_fwd_cluster_sm90.cu``, K2a and K2b the
+    chunked kernels of ``csrc/flash_wide.cu``: one launch each, no plain
+    call, against the plain versions (the gradients within 1e-4 of max
+    |plain| in f32)."""
     _head_width_case(d, 1, dtype, tol, length, causal)
     assert dict(ta.flash_attention.entry_launches) == {
-        "flash_fwd_chunked": 1, "flash_bwd_dq_chunked": 1, "flash_bwd_dkv_chunked": 1}
+        "flash_fwd_cluster": 1, "flash_bwd_dq_chunked": 1, "flash_bwd_dkv_chunked": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("length,causal", [(40, False), (1001, False), (1001, True)])
+@pytest.mark.parametrize("d", [576, 640, 1000, 1024, 2048, 4096])
+def test_cluster_forward_kernel_matches_plain_on_card(card, d, dtype, length, causal):
+    """K1 of ``csrc/flash_fwd_cluster_sm90.cu`` (clusters of blocks that
+    split the head's columns and sum S across the cluster's shared memory)
+    on views of one packed qkv, zero-padded where d is not a multiple of 64
+    (1000): a sequence below one tile and a ragged one, causal too, at
+    widths with clusters of 3 to 8 blocks and ragged last slices.  O within
+    1e-4 of max |plain| (f32) or at most 5e-3 of its elements rounded
+    otherwise than the plain version (bf16), the LSE within 1e-5, one launch
+    of ``flash_fwd_cluster``, and the same bits from a second call."""
+    gen = torch.Generator(device="cuda").manual_seed(d + length)
+    qkv = torch.randn((2, length, 3, 1, d), generator=gen, device="cuda").to(dtype)
+    q, k, v = qkv.unbind(2)
+    width = ta.kernel_width(d)
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, width - d)) if width != d else x
+                  for x in (q, k, v))
+    ta.reset_counts()
+    o, lse = ta.flash_fwd(qp, kp, vp, causal, 1.0 / math.sqrt(d))
+    torch.cuda.synchronize()
+    assert dict(ta.flash_attention.entry_launches) == {"flash_fwd_cluster": 1}
+    assert ta.flash_attention.plain_calls == 0
+    want, want_lse = ta.attention_reference(q, k, v, causal, return_lse=True)
+    got = o[..., :d]
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    else:
+        assert (got != want).float().mean().item() <= 5e-3
+    assert not o[..., d:].any()
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    o2, lse2 = ta.flash_fwd(qp, kp, vp, causal, 1.0 / math.sqrt(d))
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])
+def test_heads_wider_than_the_cluster_kernel_run_the_chunked_forward_on_card(
+        card, dtype, tol):
+    """Above ``CLUSTER_FWD_MAX`` (8 blocks of 512 columns) K1 stays the
+    chunked kernel of ``csrc/flash_wide.cu``, one body a type: one head of
+    4160, a short sequence, one launch of ``flash_fwd_chunked``."""
+    d = ta.CLUSTER_FWD_MAX + 64
+    _wide_forward_case(d, 1, 2, 200, dtype, tol, False, 41)
+    assert dict(ta.flash_attention.entry_launches) == {"flash_fwd_chunked": 1}
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 8e-3)])

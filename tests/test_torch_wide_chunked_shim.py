@@ -1,14 +1,16 @@
 """The chunked kernels of ``syncfusion_tpu_torch/csrc/flash_wide.cu``, the
-port's K1, K2a and K2b for heads wider than 512, run on the CPU: the source
+port's K2a and K2b for heads wider than 512 and its K1 above
+``CLUSTER_FWD_MAX`` (its C entry still takes any multiple of 64 above 128),
+run on the CPU: the source
 compiled by g++ against ``tests/cuda_shim`` (``cuda_shim_build``; cp.async
 copies at once, mma.sync m16n8k8 tf32 lane-exact), each C entry on CPU
-tensors against its plain version: K1, brought back for those widths, at
-W = 576 (nine 64-column pieces, five 128-column chunks, the last of one
-piece), both types, a ragged sequence below one tile, causal too.  K2a and
-K2b there are the bodies that served 192-512 before, held on the card; the
-shim's mma.sync model runs a block's 128 threads in lock step, and their
-grids (five chunks, two blocks a chunk for K2b) would take minutes.  The
-card tests and chip_smoke.py hold all three at 576 and 1024."""
+tensors against its plain version: K1 at W = 576 (nine 64-column pieces,
+five 128-column chunks, the last of one piece), both types, a ragged
+sequence below one tile, causal too.  K2a and K2b there are the bodies that
+served 192-512 before, held on the card; the shim's mma.sync model runs a
+block's 128 threads in lock step, and their grids (five chunks, two blocks
+a chunk for K2b) would take minutes.  The card tests and chip_smoke.py hold
+K2a and K2b at 576 and 1024 and K1 at 4160."""
 
 import ctypes
 import math
