@@ -7,7 +7,9 @@ Phases, each printed with its seconds; any failure exits non-zero:
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: ``nvcc`` compiles every kernel of ``syncfusion_tpu_torch/csrc``;
      the registers, spills and static shared memory ptxas reports for K1,
-     K2a and K2b at head widths 64 and 128 and for their wide kernels (K1
+     K2a and K2b at head widths 64 and 128 (K1's bf16 kernels gated to no
+     spills and no C7520, their plan checked against ``fwd_plan``:
+     ``k1_ptxas``) and for their wide kernels (K1
      of ``flash_fwd_wide_sm90.cu`` and K2a and K2b of
      ``flash_bwd_wide_sm90.cu`` at each width 192-512, gated to no spills,
      with their launch plans checked against ``wide_fwd_plan`` and
@@ -56,7 +58,7 @@ Phases, each printed with its seconds; any failure exits non-zero:
   8. fused generation at full width: the same model and inputs as phase 4's
      B = 4 runs with the UNet's fused configuration on (``fused_resnet``,
      ``fused_stats`` at ``fold_cap`` 256, from the config as the JAX
-     package reads it), timed as phase 4; K3, K4 and K1 launch 12, 12 and 9
+     package reads it), a warm-up and SIDE_RUNS timed runs; K3, K4 and K1 launch 12, 12 and 9
      times per forward, no plain version runs;
   9. fused cross-check, f32, same weights: 2 sampler steps of the fused
      model against the plain one, and DeepCache DDIM (K = 2, 4 steps, band;
@@ -119,7 +121,7 @@ Phases, each printed with its seconds; any failure exits non-zero:
      ``cuda:LOCAL_RANK``; ``chip_smoke.py --multi-device OUT DIR`` is the
      child, which runs them one after the other): (a)
      ``DataParallelSampler`` at the serving configuration (B = 8, one
-     warm-up and 3 timed runs, 351 K1 a run, the plain attention never;
+     warm-up and SIDE_RUNS timed runs, 351 K1 a run, the plain attention never;
      ``local_indices`` 0..7; 2 f32 steps against
      ``SyncFusionDiffusion.sample`` on the same noise, gated); (b)
      ``train_diffusion.main`` at phase 6's command line with the model in
@@ -282,8 +284,10 @@ BAND = (0.2, 0.8)
 SCALE = 2.0
 HEADS, HEAD_DIM = 8, 64
 # phases 4 and 8: each generation configuration runs once to warm up, then
-# TIMED_RUNS times, each run timed and gated
+# TIMED_RUNS times (phase 8 and 16a, off the main path: SIDE_RUNS), each run
+# timed and gated
 TIMED_RUNS = 3
+SIDE_RUNS = 1
 # the serving configuration (bench.py): B = 8, 150-step DDIM, CFG 2.0 in the
 # band, DeepCache K = 4 at split 4 (levels 4-7 and the bottleneck, which hold
 # every attention call, rerun on refresh steps only).  band_segments gives
@@ -690,13 +694,13 @@ def pick_ptxas(log: str, picks: dict) -> dict:
     return out
 
 
-# K1's two kernels in flash_fwd.cu (bf16: mma.sync m16n8k16; f32: 3xTF32 on
+# K1's two kernels in flash_fwd.cu (bf16: TMA and wgmma; f32: 3xTF32 on
 # mma.sync m16n8k8) and K2a's and K2b's in flash_bwd.cu, by input type and
 # head width (the 64-wide instantiations under the type's name, the 128-wide
 # ones with "_d128"), as tags of their mangled names
 K1_KERNELS = {f"{dtype}{sfx}": f"{name}ILi{d}E"
               for d, sfx in ((64, ""), (128, "_d128"))
-              for dtype, name in (("bfloat16", "flash_fwd_tc_kernel"),
+              for dtype, name in (("bfloat16", "flash_fwd_sm90_kernel"),
                                   ("float32", "flash_fwd_3xtf32_kernel"))}
 K2_KERNELS = {key: {f"{dtype}{sfx}": f"{name}I{arg}Li{d}E"
                     for d, sfx in ((64, ""), (128, "_d128"))
@@ -746,6 +750,57 @@ CLUSTER_PLAN_KEYS = ("cluster", "slice", "key_tile", "stages", "threads", "smem_
 # (TCO, RESIDUAL, STATS)
 FUSED_KERNELS = {"bfloat16": "fused_resblock_tc_kernel",
                  "float32": "fused_resblock_3xtf32_kernel"}
+
+
+FWD_PLAN_KEYS = ("q_rows", "groups", "key_tile", "stages", "threads", "smem_bytes",
+                 "box_cols", "ops_per_pair", "blocks")
+
+
+def k1_ptxas(build, libs) -> dict:
+    """K1's ptxas report (flash_fwd.cu) by type and width, with the dynamic
+    shared memory each launch asks for; gated: no wgmma serialized in the
+    library (ptxas C7520: a wgmma that may diverge waits for the one
+    before), and the bf16 kernels (TMA and wgmma) at most 255 registers, no
+    spills, shared memory within SMEM_MAX, their launch plan ``fwd_plan``'s
+    at the main path's shapes on this card (BH = 8-128 and evaluation's
+    160, every T of ATTN_CALLS).  Returns ``{key: report}``, the bf16 ones
+    with ``plans`` by "BH=<n> T=<t>"."""
+    import ctypes
+
+    from syncfusion_tpu_torch.ops import attention as attn
+
+    log = libs["flash_fwd"].with_suffix(".so.log").read_text()
+    serialized = [ln.strip() for ln in log.splitlines()
+                  if "C7520" in ln or "serialized" in ln]
+    check(not serialized, f"K1: ptxas serializes its wgmma: {serialized[:2]}")
+    reports = pick_ptxas(log, K1_KERNELS)
+    lib = build.library("flash_fwd")
+    plan_of = lib.flash_fwd_plan
+    plan_of.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for key, report in reports.items():
+        bf16, width = key.startswith("bfloat16"), 128 if key.endswith("_d128") else 64
+        report["dynamic_smem_bytes"] = lib.flash_fwd_smem(int(bf16), width)
+        check(report["dynamic_smem_bytes"] > 0, f"no shared memory for K1 {key}")
+        if not bf16:
+            continue
+        check(report["registers"] <= 255 and report.get("spill_stores", 0) == 0
+              and report.get("spill_loads", 0) == 0
+              and report["dynamic_smem_bytes"] + report["smem_bytes"] <= attn.SMEM_MAX,
+              f"K1 {key}: registers, spills or shared memory {report}")
+        report["plans"] = {}
+        for rows in (V2F_ROWS[1], V2F_ROWS[0], ROWS, SERVE_ROWS, EVAL_ROWS):
+            for t in ATTN_CALLS:
+                out = (ctypes.c_int * len(FWD_PLAN_KEYS))()
+                check(plan_of(width, rows * HEADS, t, sms, out) == 0,
+                      f"no plan for K1 {key}")
+                plan = dict(zip(FWD_PLAN_KEYS, out))
+                want = attn.fwd_plan(width, rows * HEADS, t, sms)
+                check(plan == want, f"K1 {key} at BH={rows * HEADS} T={t}: the "
+                                    f"library's plan {plan} is not fwd_plan's {want}")
+                report["plans"][f"BH={rows * HEADS} T={t}"] = (
+                    f"{plan['groups']} groups, {plan['blocks']} blocks")
+    return reports
 
 
 def wide_fwd_ptxas(build, libs) -> dict:
@@ -1060,9 +1115,12 @@ def compare_fused_times(roots, dtypes=("float32",)) -> dict:
 
 
 def attention_times_of(root: str) -> dict:
-    """K1's (bf16 and f32, BH = 64) and K2a's and K2b's (f32, BH = 32)
+    """K1's (bf16 and f32, BH = 64; bf16 also at BH = 128, 16 and 8 as
+    ``fwd_bf16_bh<n>``) and K2a's and K2b's (f32, BH = 32)
     ms per forward or backward (the 9 calls of phase 3's main-path shapes,
-    through the wrappers on qkv views) for the ``syncfusion_tpu_torch`` of
+    through the wrappers on qkv views), then K1 and SDPA at phase 21a's
+    128-wide bf16 call (``fwd_bf16_d128``, ``sdpa_bf16_d128``: HW_ROWS x
+    8 heads, T = HW_T), for the ``syncfusion_tpu_torch`` of
     the checkout at ``root``, e.g. a parent: eager (CUDA events around back
     to back calls, which the host's launch cost may bound at the short
     lengths) and, under ``<key>_device``, the kernel's own device time from
@@ -1072,7 +1130,9 @@ def attention_times_of(root: str) -> dict:
     from syncfusion_tpu_torch.ops import attention as attn
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {f"{key}{sfx}": 0.0 for key in ("fwd_bf16", "fwd_f32", "dq_f32", "dkv_f32")
+    more = {f"fwd_bf16_bh{rows * HEADS}": rows for rows in (SERVE_ROWS, *V2F_ROWS)}
+    out = {f"{key}{sfx}": 0.0 for key in ("fwd_bf16", "fwd_f32", "dq_f32", "dkv_f32",
+                                          *more)
            for sfx in ("", "_device")}
 
     def add(key, n, fn, tag):
@@ -1084,6 +1144,10 @@ def attention_times_of(root: str) -> dict:
             q, k, v = torch.randn((ROWS, t, 3, HEADS, HEAD_DIM), generator=gen,
                                   device="cuda").to(dtype).unbind(2)
             add(key, n, lambda: attn.flash_fwd(q, k, v), "flash_fwd")
+        for key, rows in more.items():
+            q, k, v = torch.randn((rows, t, 3, HEADS, HEAD_DIM), generator=gen,
+                                  device="cuda").to(torch.bfloat16).unbind(2)
+            add(key, n, lambda: attn.flash_fwd(q, k, v), "flash_fwd")
         q, k, v = torch.randn((TRAIN_ROWS, t, 3, HEADS, HEAD_DIM), generator=gen,
                               device="cuda").unbind(2)
         do = torch.randn((TRAIN_ROWS, t, HEADS, HEAD_DIM), generator=gen, device="cuda")
@@ -1092,6 +1156,16 @@ def attention_times_of(root: str) -> dict:
         add("dq_f32", n, lambda: attn.flash_bwd_dq(q, k, v, o, lse, do), "flash_bwd_dq")
         add("dkv_f32", n, lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta),
             "flash_bwd_dkv")
+    import torch.nn.functional as F
+
+    q, k, v = torch.randn((HW_ROWS, HW_T, 3, HEADS, 128), generator=gen,
+                          device="cuda").to(torch.bfloat16).unbind(2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    for key, fn, tag in (
+            ("fwd_bf16_d128", lambda: attn.flash_fwd(q, k, v), "flash_fwd"),
+            ("sdpa_bf16_d128", lambda: F.scaled_dot_product_attention(qt, kt, vt), "")):
+        out[key], out[f"{key}_device"] = 0.0, 0.0
+        add(key, 1, fn, tag)
     return out
 
 
@@ -1280,8 +1354,8 @@ def full_forwards(num_steps: int, interval: int) -> int:
 
 
 def time_generation(model, attn, fr, label: str, inputs: tuple, want: dict,
-                    **sample_kw) -> tuple:
-    """One warm-up and ``TIMED_RUNS`` runs of ``model.sample`` on
+                    runs: int = TIMED_RUNS, **sample_kw) -> tuple:
+    """One warm-up and ``runs`` runs of ``model.sample`` on
     ``inputs``, each on the host clock up to ``torch.cuda.synchronize()``
     with the counts zeroed just before it; every run's launch counts must be
     ``want`` (names absent from it: 0).  Prints each run, the median and the
@@ -1290,7 +1364,7 @@ def time_generation(model, attn, fr, label: str, inputs: tuple, want: dict,
     noise, onsets, embedding = inputs
     batch = noise.shape[0]
     seconds = []
-    for run in range(TIMED_RUNS + 1):
+    for run in range(runs + 1):
         torch.cuda.reset_peak_memory_stats()
         reset_counts(attn, fr)
         start = time.perf_counter()
@@ -1309,7 +1383,7 @@ def time_generation(model, attn, fr, label: str, inputs: tuple, want: dict,
             seconds.append(took)
     rate = [batch * LENGTH / SR / 8.0 / t_ * 60 for t_ in seconds]
     print(f"  {label}: {batch} clips of {LENGTH} samples, median {statistics.median(seconds):.3f} "
-          f"s (range {min(seconds):.3f}-{max(seconds):.3f}) over {TIMED_RUNS} warm runs, "
+          f"s (range {min(seconds):.3f}-{max(seconds):.3f}) over {runs} warm runs, "
           f"8-s clips/min median {statistics.median(rate):.3f} (range "
           f"{min(rate):.3f}-{max(rate):.3f}); launches per run {launched}")
     return out, seconds, launched
@@ -2168,7 +2242,7 @@ def torchrun(out_dir: str) -> dict:
 
 def md_sampler(device, attn, fr) -> dict:
     """16a: ``DataParallelSampler`` at the serving configuration, B = 8 on
-    the one rank; one warm-up and TIMED_RUNS timed runs, each gated on its
+    the one rank; one warm-up and SIDE_RUNS timed runs, each gated on its
     launches; then 2 f32 steps against ``SyncFusionDiffusion.sample``."""
     from syncfusion_tpu_torch.core.mesh import create_mesh
     from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
@@ -2186,7 +2260,7 @@ def md_sampler(device, attn, fr) -> dict:
           f"local_indices {sampler.local_indices()}")
     seconds = []
     want = {name: 0 for name in counts(attn, fr)} | {"kernel_launches": SERVE_K1}
-    for run in range(TIMED_RUNS + 1):
+    for run in range(SIDE_RUNS + 1):
         reset_counts(attn, fr)
         gen = torch.Generator(device=device).manual_seed(1)
         start = time.perf_counter()
@@ -4615,16 +4689,10 @@ def main() -> int:
         log = path.with_suffix(".so.log")
         if log.exists():
             print("   ", log.read_text().strip().replace("\n", "\n    "))
-    k1_regs = pick_ptxas(libs["flash_fwd"].with_suffix(".so.log").read_text(),
-                         K1_KERNELS)
     # ptxas reports static shared memory only: each library gives the
     # dynamic shared memory its launches ask for
-    k1_smem = _build.library("flash_fwd").flash_fwd_smem
-    for key, report in k1_regs.items():
-        report["dynamic_smem_bytes"] = k1_smem(int(key.startswith("bfloat16")),
-                                               128 if key.endswith("_d128") else 64)
-        check(report["dynamic_smem_bytes"] > 0, f"no shared memory for K1 {key}")
-    print(f"  K1 registers and spills: {k1_regs}")
+    k1_regs = k1_ptxas(_build, libs)
+    print(f"  K1 registers, spills and bf16 plans: {k1_regs}")
     bwd_log = libs["flash_bwd"].with_suffix(".so.log").read_text()
     k2_regs = {key: pick_ptxas(bwd_log, picks) for key, picks in K2_KERNELS.items()}
     smem = _build.library("flash_bwd").flash_bwd_smem
@@ -4791,10 +4859,12 @@ def main() -> int:
             {"kernel_launches": 9 * NUM_STEPS,
              "k3_kernel_launches": K3_PER_FORWARD * NUM_STEPS,
              "k4_kernel_launches": K4_PER_FORWARD * NUM_STEPS},
-            num_steps=NUM_STEPS, embedding_scale=SCALE, guidance_interval=BAND)
+            runs=SIDE_RUNS, num_steps=NUM_STEPS, embedding_scale=SCALE,
+            guidance_interval=BAND)
         rel_gen = ((wav_f - wav_plain).abs().max() / wav_plain.abs().max()).item()
         med, med_f = statistics.median(seconds), statistics.median(seconds_f)
-        print(f"  fused vs plain UNet, 150 steps, bf16, median of {TIMED_RUNS}: "
+        print(f"  fused vs plain UNet, 150 steps, bf16, medians of {SIDE_RUNS} and "
+              f"{TIMED_RUNS}: "
               f"{med_f:.3f} s against {med:.3f} s ({med / med_f:.3f}x); max |diff| "
               f"/ max |plain| {rel_gen:.3e} (not gated: bf16 roundings at other "
               f"places)")
@@ -5008,9 +5078,13 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "evaluate_work": f"the same 9 calls in f32 at BH={EVAL_ROWS * HEADS}: the "
                          f"evaluation's forward (B={EVAL_BATCH}, CFG at every step)",
-        "design": {"bfloat16": "tensor cores: mma.sync m16n8k16 (P as hi + lo "
-                               "bf16), cp.async K/V ring of 2 stages, 4 warps "
-                               "of 32 query rows a block (16 at head width 128)",
+        "design": {"bfloat16": "TMA through 4-D tensor maps into K and V rings "
+                               "on mbarriers; S on wgmma m64n64k16 at 64 (64-key "
+                               "tiles) and m64n128k16 at 128 (128-key tiles), P·V "
+                               "on m64n64k16 (P as hi + lo bf16 from registers), the next "
+                               "tile's S issued with this tile's P·V; one "
+                               "warpgroup a 64-row q tile, two a block where the "
+                               "grid fills the card (fwd_plan)",
                    "float32": "tensor cores: mma.sync m16n8k8 tf32, q, K, V "
                               "and P as 3xTF32, per-tile partial sums of P·V "
                               "added in f32, cp.async K/V ring of 2 stages, 4 "

@@ -63,16 +63,6 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
                : "r"(smem_addr(p)));
 }
 
-// As ldsm_x4, transposed: lane l receives rows 2(l%4) and 2(l%4)+1 of
-// column l/4 of each matrix.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
 // d += a·b, a 16x16 (row), b 16x8 (col), bf16 in, f32 accumulate.  Lane
 // (g, t) = (lane / 4, lane % 4) holds a at (g, 2t..2t+1), (g + 8, 2t..),
 // (g, 2t + 8..), (g + 8, 2t + 8..); b at (2t..2t+1, g), (2t + 8.., g); d at

@@ -362,6 +362,36 @@ __device__ __forceinline__ void wgmma_64x32x16_ss(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+#define SFX_WGMMA_D64                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "     \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "     \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "     \
+  "%58, %59, %60, %61, %62, %63}"
+
+// As wgmma_64x64x16_ss at n128: d (+)= a·b with b the 16 x 128 tile of
+// descriptor `db`, K-major (128 rows of the N index), d 16 n-tiles of 8.
+__device__ __forceinline__ void wgmma_64x128x16_ss(float (&d)[64], uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SFX_WGMMA_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SFX_WGMMA_D32_OUT(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef SFX_WGMMA_D64
+
 // d += a·b, m64n64k16, bf16 in, f32 accumulate: a from registers, lane (g,
 // t) of warp w holding rows 16w + g and 16w + g + 8 as mma.sync m16n8k16's
 // A: a[0] = (g, 2t..2t+1), a[1] = (g + 8, 2t..), a[2] = (g, 2t + 8..),

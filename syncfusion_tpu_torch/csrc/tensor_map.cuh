@@ -1,11 +1,15 @@
-// Host code of the TMA-fed kernels (flash_fwd_wide_sm90.cu and
+// Host code of the TMA-fed kernels (flash_fwd.cu's bf16 K1,
+// flash_fwd_wide_sm90.cu, flash_fwd_cluster_sm90.cu and
 // flash_bwd_wide_sm90.cu): the tensor maps their loads read, built per call
-// with cuTensorMapEncodeTiled from the operands' strides.
+// with cuTensorMapEncodeTiled from the operands' strides, or taken from a
+// cache of the maps built before.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 namespace {
 
@@ -62,6 +66,50 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base, bool f32,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// tensor_map's arguments, the key of a cached map.
+struct MapKey {
+  const void* base;
+  long long sb, sl, sh;
+  int f32, width, len, heads, batch, rows;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && sb == o.sb && sl == o.sl && sh == o.sh &&
+           f32 == o.f32 && width == o.width && len == o.len &&
+           heads == o.heads && batch == o.batch && rows == o.rows;
+  }
+};
+
+// tensor_map through a cache of the last kMapCache maps it built: a map is
+// a function of its arguments alone, so one built before is copied, not
+// encoded again (the encoding is host work on every call of a short
+// kernel).  Entries are replaced in turn; a mutex guards the cache, since
+// ctypes releases Python's lock during a call.
+inline cudaError_t tensor_map_cached(CUtensorMap* map, const void* base,
+                                     bool f32, int width, int len, int heads,
+                                     int batch, long long sb, long long sl,
+                                     long long sh, int rows) {
+  constexpr int kMapCache = 64;
+  static MapKey keys[kMapCache];
+  static CUtensorMap maps[kMapCache];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  const MapKey key{base, sb, sl, sh, int(f32), width, len, heads, batch, rows};
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    if (keys[i] == key) {
+      *map = maps[i];
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t err =
+      tensor_map(map, base, f32, width, len, heads, batch, sb, sl, sh, rows);
+  if (err != cudaSuccess) return err;
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % kMapCache;
+  if (used < kMapCache) ++used;
+  return cudaSuccess;
 }
 
 }  // namespace

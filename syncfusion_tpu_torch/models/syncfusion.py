@@ -12,14 +12,17 @@ The UNet's fused configuration (``fused_resnet``, ``fused_stats`` at
 weight-compatible twins of ``models/adp_compat.py`` in place of
 ``UNet1d``/``Encoder1d``, as the JAX ``from_config`` does: the reference's
 published checkpoints load into them (``models/adp_convert.py``).  The
-loss and both samplers drive either family; DeepCache and the fused
-resnet chain exist only for ``UNet1d`` and raise ``ValueError`` with the
-twins, as the JAX package refuses them.
+loss and both samplers drive either family.  DeepCache exists only for
+``UNet1d`` and raises ``ValueError`` with the twins, as the JAX package
+refuses it; the fused resnet chain exists only for ``UNet1d`` too, and a
+compat config's fused switches are ignored (with a logged warning), as the
+JAX ``from_config`` ignores them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from typing import Optional
 
@@ -34,6 +37,8 @@ from syncfusion_tpu_torch.models.adp_torch_recon import Encoder1dConfig, UNetV0C
 from syncfusion_tpu_torch.models.diffusion import dpm_sample, v_diffusion_loss, v_sample
 from syncfusion_tpu_torch.models.encoder1d import Encoder1d
 from syncfusion_tpu_torch.models.unet1d import UNet1d
+
+log = logging.getLogger("syncfusion_tpu_torch.syncfusion")
 
 
 class SyncFusionDiffusion(nn.Module):
@@ -70,17 +75,18 @@ class SyncFusionDiffusion(nn.Module):
         ``fused_stats``, when given, override the node's top-level
         ``fold_cap`` and ``model.fused_stats`` (the JAX ``from_config``'s
         keywords).  ``compat`` (default: the node's top-level ``compat``)
-        builds the a-unet twins; with them a fused switch raises
-        ``ValueError`` (``fold_cap`` alone changes nothing, as it does not
-        in JAX)."""
+        builds the a-unet twins, which ignore ``fold_cap`` and the fused
+        switches (``fused_stats``, ``model.fused_stats``,
+        ``model.fused_resnet``) as the JAX ``from_config`` does; a fused
+        switch that is set is logged as a warning."""
         device = default_device(device)
         if compat is None:
             compat = bool(model_cfg and model_cfg.get("compat", False))
         unet_cfg, encoder_cfg = model_configs(model_cfg)
         if compat:
             if fused_stats or unet_cfg.fused_stats or unet_cfg.fused_resnet:
-                raise ValueError("the fused resnet chain (fused_resnet, fused_stats) "
-                                 "runs in UNet1d only, not in the a-unet compat twins")
+                log.warning("the a-unet compat twins ignore the fused resnet chain "
+                            "(fused_resnet, fused_stats): it runs in UNet1d only")
             unet_cfg, encoder_cfg = (
                 (UNetV0Config(), Encoder1dConfig()) if model_cfg is None else
                 (UNetV0Config.from_node(model_cfg["model"]),

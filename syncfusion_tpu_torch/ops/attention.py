@@ -4,7 +4,8 @@
 ``torch.autograd.Function`` on every device, the counterpart of the JAX
 package's custom VJP.  On a CUDA tensor its forward is the hand-written
 kernel of ``csrc/flash_fwd.cu`` (the port of the TPU kernel
-``_flash_kernel``, K1, on the tensor cores, f32 as 3xTF32) and its backward
+``_flash_kernel``, K1: bf16 on TMA and wgmma, its launch plan
+``fwd_plan``'s; f32 as 3xTF32 on mma.sync) and its backward
 the two kernels of ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``, K2a,
 then ``_flash_bwd_dkv_kernel``, K2b; on the tensor cores likewise).  All
 three copy with ``cp.async`` (or TMA) and so take 16-byte aligned operands
@@ -66,6 +67,10 @@ CLUSTER_SLICE_MAX = 512
 CLUSTER_FWD_MAX = CLUSTER_MAX * CLUSTER_SLICE_MAX
 CLUSTER_TARGET = {"bfloat16": 512, "float32": 256}
 SMEM_MAX = 232448  # shared memory a block may have on an H100
+# flash_fwd.cu's bf16 K1 by head width: keys a tile, and slots of each of
+# its K and V rings (as many as fit a block)
+FWD_KEY_TILE = {64: 64, 128: 128}
+FWD_STAGES = {64: 4, 128: 3}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -155,6 +160,33 @@ def flash_bwd_reference(q, k, v, o, lse, do, causal: bool = False,
     dq, delta = flash_bwd_dq_reference(q, k, v, o, lse, do, causal, scale)
     dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale)
     return dq, dk, dv
+
+
+def fwd_plan(width: int, batch_heads: int, lq: int, sms: int) -> dict:
+    """The launch plan of the bf16 K1 of ``csrc/flash_fwd.cu`` at a head
+    ``width`` of 64 or 128, ``batch_heads`` (B x H) and q length ``lq`` on a
+    card of ``sms`` SMs, as its ``fwd_groups`` and ``Bf16Plan`` set it (its
+    C entry ``flash_fwd_plan`` returns the same): consumer warpgroups a
+    block (two, 128 q rows sharing every K and V tile, where a grid of such
+    blocks still has one for each SM; else one, 64 rows), q rows a block,
+    keys a tile, slots of the K ring and of the V ring, threads (thread 0
+    also issues the TMA loads), dynamic shared memory (two q tiles, the
+    rings, the barriers and 1024 bytes for the alignment, whatever the
+    groups), the columns of a TMA box, the operations per (query, key) pair
+    in units of the width, against the function's 4 (S on wgmma, P·V as hi
+    + lo bf16), and the blocks of the grid."""
+    if width not in KERNEL_WIDTHS:
+        raise ValueError(f"the bf16 K1 of flash_fwd.cu takes widths {KERNEL_WIDTHS}; "
+                         f"got {width}")
+    groups = 2 if -(-lq // 128) * batch_heads >= sms else 1
+    rows = 64 * groups
+    key_tile, stages = FWD_KEY_TILE[width], FWD_STAGES[width]
+    row = width * 2  # bytes of a bf16 row
+    return {"q_rows": rows, "groups": groups, "key_tile": key_tile, "stages": stages,
+            "threads": 128 * groups,
+            "smem_bytes": (1024 + 2 * 64 * row + 2 * stages * key_tile * row
+                           + 8 * (4 * stages + 1)),
+            "box_cols": 64, "ops_per_pair": 6, "blocks": -(-lq // rows) * batch_heads}
 
 
 def wide_fwd_plan(width: int, dtype) -> dict:
@@ -360,7 +392,7 @@ def _check_aligned(**tensors):
         why = cp_async_misalignment(name, x.data_ptr(), x.shape[:3],
                                     x.stride()[:3], x.element_size())
         if why is not None:
-            raise ValueError(f"the attention kernels copy with cp.async: {why}")
+            raise ValueError(f"the attention kernels copy with TMA or cp.async: {why}")
 
 
 def _for_cp_async(x):

@@ -96,7 +96,7 @@ struct ShimGroup {
     int kind;  // 0: ss, 1: rs, MN-major B
     uint64_t da, db;
     int accumulate;
-    int n;  // the product's N: 64 or 32
+    int n;  // the product's N: 128, 64 or 32
     std::vector<float*> d;
     std::vector<const uint32_t*> a;
   };
@@ -216,6 +216,16 @@ cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
 }
 inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;
+  return cudaSuccess;
+}
+// The SM count the shim reports: a card of 4 SMs, so that the small grids
+// of a test reach both of a launch plan's choices (flash_fwd.cu's
+// `fwd_groups`).
+constexpr int kShimSmCount = 4;
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr, int) {
+  if (attr != cudaDevAttrMultiProcessorCount) return cudaErrorInvalidValue;
+  *value = kShimSmCount;
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() {

@@ -2,9 +2,9 @@
 // with zero fill and the 128-byte swizzle, the thread-block cluster (rank,
 // barrier, mapa and ld.shared::cluster into a peer's window, and the launch
 // helper, which runs the blocks of a cluster together), the wgmma
-// descriptor and the m64n64k16 and m64n32k16 bf16 products (run when their
-// group is waited for, so a result read early or an operand released early
-// shows).
+// descriptor and the m64n128k16, m64n64k16 and m64n32k16 bf16
+// products (run when their group is waited for, so a result read early or
+// an operand released early shows).
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -211,7 +211,7 @@ inline float shim_mnmajor(const ShimDesc& s, int k, int n) {
   return shim_bf16_at(s.start + (k / 8) * s.sbo + (k % 8) * 128 + (n / 64) * s.lbo + 2 * (n % 64));
 }
 inline void shim_run(const ShimGroup::Op& op) {
-  float A[64][16], B[16][64];
+  float A[64][16], B[16][128];
   const ShimDesc db = shim_desc(op.db);
   for (int k = 0; k < 16; ++k)
     for (int n = 0; n < op.n; ++n)
@@ -262,6 +262,9 @@ inline void wgmma_64x64x16_ss(float (&d)[32], uint64_t da, uint64_t db, int accu
 }
 inline void wgmma_64x32x16_ss(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
   shim_issue(0, d, nullptr, da, db, accumulate, 32);
+}
+inline void wgmma_64x128x16_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  shim_issue(0, d, nullptr, da, db, accumulate, 128);
 }
 inline void wgmma_64x64x16_rs_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
   shim_issue(1, d, a, 0, db, 1);

@@ -75,9 +75,43 @@ def test_bf16_kernel_at_the_main_path_lengths_on_card(card, length, rows):
     assert (lse - want_lse).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_128_wide_kernel_from_packed_views_on_card(card, causal):
+    """The 128-wide bf16 kernel (TMA and wgmma) at a ragged length, q, k and
+    v views of one packed (B, T, 3, H, 128) projection: one launch, against
+    its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(128 + int(causal))
+    q, k, v = torch.randn((2, 1000, 3, 4, 128), generator=gen,
+                          device="cuda").to(torch.bfloat16).unbind(2)
+    ta.reset_counts()
+    o, lse = ta.flash_fwd(q, k, v, causal)
+    assert ta.flash_attention.kernel_launches == 1
+    want, want_lse = ta.attention_reference(q, k, v, causal, return_lse=True)
+    assert (o.float() - want.float()).abs().max().item() <= 8e-3
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+def test_bf16_kernel_on_small_grids_on_card(card, rows):
+    """Video to Foley's BH = 8 and 16 at T = 256: the plan takes one
+    warpgroup of 64 q rows a block, so 32 or 64 blocks run, fewer than the
+    card's SMs; against the plain version."""
+    q, k, v, _ = _qkv(rows, 256, torch.bfloat16, 31 + rows)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ta.fwd_plan(64, rows * 8, 256, sms)
+    assert plan["groups"] == 1 and plan["blocks"] == 32 * rows < sms
+    ta.reset_counts()
+    o, lse = ta.flash_fwd(q, k, v)
+    assert ta.flash_attention.kernel_launches == 1
+    want, want_lse = ta.attention_reference(q, k, v, return_lse=True)
+    assert (o.float() - want.float()).abs().max().item() <= 8e-3
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
 def test_misaligned_bf16_input_raises_on_card(card):
-    """cp.async takes 16-byte rows: an L stride that is not a multiple of 8
-    elements, or an address off 16 bytes, raises and launches nothing."""
+    """TMA takes 16-byte aligned operands and strides: an L stride that is
+    not a multiple of 8 elements, or an address off 16 bytes, raises and
+    launches nothing."""
     q, k, v, _ = _qkv(2, 256, torch.bfloat16, 5)
     odd = torch.zeros((2, 256, 8 * 64 + 1), dtype=torch.bfloat16, device="cuda")
     flat = torch.zeros(2 * 256 * 512 + 1, dtype=torch.bfloat16, device="cuda")
