@@ -9,7 +9,9 @@ Phases, each printed with its seconds; any failure exits non-zero:
      the registers, spills and static shared memory ptxas reports for K1,
      K2a and K2b at head widths 64 and 128 (K1's bf16 kernels gated to no
      spills and no C7520, their plan checked against ``fwd_plan``:
-     ``k1_ptxas``) and for their wide kernels (K1
+     ``k1_ptxas``; K2a's and K2b's bf16 kernels of ``flash_bwd_sm90.cu``
+     likewise against ``bwd_plan``: ``k2_sm90_ptxas``) and for their wide
+     kernels (K1
      of ``flash_fwd_wide_sm90.cu`` and K2a and K2b of
      ``flash_bwd_wide_sm90.cu`` at each width 192-512, gated to no spills,
      with their launch plans checked against ``wide_fwd_plan`` and
@@ -55,6 +57,17 @@ Phases, each printed with its seconds; any failure exits non-zero:
   7. training cross-check: one f32 loss and gradient at full width through
      the kernels against the plain attention, on the same batch, sigma and
      noise;
+ 7b. bf16 training at full width: (a) ``train_diffusion.main`` at phase
+     6's command line with ``--precision bf16`` (bf16 compute over f32
+     parameters, the JAX package's policy), cut to 2 micro-steps: finite
+     losses, a strict reload, K1, K2a and K2b 9 a forward or backward from
+     the bf16 kernels' C entries (``flash_fwd``, ``flash_bwd_dq_sm90``,
+     ``flash_bwd_dkv_sm90``), the plain versions never; then micro-steps fed
+     by ``device_prefetch`` (as 14c), timed beside f32's fed the same way
+     after phase 7, with both peaks; (b) one bf16 loss and gradient of the
+     seeded model through the kernels against the plain attention on phase
+     7's batch, sigma and noise, cuDNN deterministic, gated at
+     BF16_TRAIN_LOSS_TOL and BF16_TRAIN_GRAD_TOL;
   8. fused generation at full width: the same model and inputs as phase 4's
      B = 4 runs with the UNet's fused configuration on (``fused_resnet``,
      ``fused_stats`` at ``fold_cap`` 256, from the config as the JAX
@@ -86,13 +99,13 @@ Phases, each printed with its seconds; any failure exits non-zero:
      f32 without TF32, as ``video_to_foley.main`` runs it), their onset track, then the full-width SyncFusion at the fast
      point (DPM-Solver++(2M), 32 steps, CFG 1.5 in the band, DeepCache K = 2,
      split 4) generates one 2^18-sample clip; K1 launches 153 times, its
-     plain version never; one warm-up and 3 timed runs, each split into its
+     plain version never; one warm-up and 2 timed runs, each split into its
      onset and generation parts;
  14. CLAP at full width (HTSAT-tiny and roberta-base, seeded weights, f32
      without TF32): (a) ``ClapEmbedder.embed_audio`` timed on the training
      batch's conditioning chunks (B = 4 x 2^18 samples) and on one,
      ``embed_text`` on 1 and 4 prompts (the hashed tokenizer: the card has
-     no roberta files), one warm-up and 3 runs each; (b) the same weights
+     no roberta files), one warm-up and 2 runs each; (b) the same weights
      on the CPU, B = 1: the audio and text embeddings and the dB mel
      against the card's, gated; (c) ``train_diffusion.main`` with its
      default embedder, CLAP, at phase 6's command line cut to 2
@@ -101,7 +114,7 @@ Phases, each printed with its seconds; any failure exits non-zero:
      CLAP in the feeder thread against zero embeddings, in turns; (d)
      ``video_to_foley.main`` on phase 13's chunks and onset net at the fast
      point with ``--cond_wav`` (a seeded wav) and with ``--text``, one
-     warm-up and 3 runs each split into onset, CLAP and generation; 153 K1
+     warm-up and 2 runs each split into onset, CLAP and generation; 153 K1
      a clip.  No TPU kernel lies inside CLAP: the JAX package runs it
      through XLA;
  15. evaluation at full width (exp/evaluate_gh_gen.yaml): a 10-track test
@@ -140,7 +153,7 @@ Phases, each printed with its seconds; any failure exits non-zero:
      cfg/condfoleygen/*.yaml (the GPT 24 x 1024, SpecVQGAN ch 128, MelGAN
      ngf 32, the R(2+1)D-18 video net at 112 x 112), seeded weights, f32
      without TF32: (a) B = 4 seeded 2-s 22.05 kHz wavs and 60 frames, one
-     warm-up and 3 runs, each stage between CUDA events (wav_to_spec, VQ
+     warm-up and 2 runs, each stage between CUDA events (wav_to_spec, VQ
      encode, video features, 50 KV-cached GPT steps at top-k 512, VQ
      decode, MelGAN, 32 Griffin-Lim iterations), clips/s, peak memory; (b)
      the card against the CPU on one item (spectrogram, VQ codes under the
@@ -243,7 +256,8 @@ Phases, each printed with its seconds; any failure exits non-zero:
      clip (DPM++(2M) 8 steps, DeepCache K = 2) and ``train_diffusion
      --model_config`` for 2 micro-steps, their outputs and counts (gated).
 Phase 3 also holds the backward kernels K2a and K2b against their plain
-versions at the training shapes (with the time of SDPA's backward), times
+versions at the training shapes in both types and in bf16 at 128 wide
+(with the time of SDPA's backward alone, ``sdpa_bwd_ms``), times
 K1's f32 kernel per forward beside SDPA's f32 forward, and holds K3 and K4
 (the fused resnet chain) at every shape of that chain, in bf16 at B = 8
 and f32 at B = 4 (with their device time from the profiler), with a ragged
@@ -285,8 +299,9 @@ SCALE = 2.0
 HEADS, HEAD_DIM = 8, 64
 # phases 4 and 8: each generation configuration runs once to warm up, then
 # TIMED_RUNS times (phase 8 and 16a, off the main path: SIDE_RUNS), each run
-# timed and gated
-TIMED_RUNS = 3
+# timed and gated; phases 11, 13, 14 and 17 repeat their timed calls as
+# often.  Two, not three, keep the smoke within its 600 s with phase 7b
+TIMED_RUNS = 2
 SIDE_RUNS = 1
 # the serving configuration (bench.py): B = 8, 150-step DDIM, CFG 2.0 in the
 # band, DeepCache K = 4 at split 4 (levels 4-7 and the bottleneck, which hold
@@ -348,8 +363,29 @@ TRAIN_ROWS = BATCH
 # over up to 2048 keys; bf16 both round the f32 result, one ulp (2^-7 of
 # the value) may flip
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+# phase 3's bf16 K2 at 128 wide: rows x HEADS heads, T
+BWD_D128 = (2, 1024)
 # phase 6: micro-steps, accumulation, and the sample logger's steps
 TRAIN_STEPS, ACCUMULATE, SAMPLE_STEPS, SAMPLE_ITEMS = 4, 2, 2, 2
+# phase 7b: bf16 training (``--precision bf16``, bf16 compute over f32
+# parameters), phase 6's command line cut to BF16_TRAIN_STEPS micro-steps;
+# then one bf16 loss and gradient of the seeded model through the kernels
+# against the plain attention, as phase 7 measures f32 (loss relative;
+# gradients max |diff| / max(max |plain|, GRAD_FLOOR of the largest
+# gradient)), cuDNN deterministic (the plain run repeated reads 0).  The
+# basis: the bf16 K2 body that flash_bwd.cu ran before flash_bwd_sm90.cu
+# (tf32 mma.sync, P and dS as two tf32 parts) read a loss gap of 1.77e-5
+# and a gradient gap of 5.58e-2 (onsets_encoder.stem.bias, a bias whose
+# gradient cancels) on an NVIDIA H100 80GB HBM3 at 700 W, and the new body
+# 1.77e-5 and 8.15e-2 in the same call (``bf16_train_check_of``).  The loss
+# is the forward's alone (K1, the same in both); the gradients take K2's
+# bf16 dq, dk and dv, each rounded from f32, whose one-ulp flips the bf16
+# backward carries into such cancelling sums.  The tolerances are about
+# twice the old body's gaps: P and dS as hi + lo bf16 keep 16 bits where
+# its two tf32 parts kept ~21, so its dq, dk and dv flip somewhat more
+# often, but not twice as far.
+BF16_TRAIN_STEPS = 2
+BF16_TRAIN_LOSS_TOL, BF16_TRAIN_GRAD_TOL = 4e-5, 1.2e-1
 # phase 7, f32: the loss through the kernels against the plain attention,
 # relative (sums in other orders, ~1e-6 per attention call); the gradients,
 # max over parameter tensors of max |kernel - plain| / max |plain|, with
@@ -517,81 +553,100 @@ def bwd_work(b, h, t, d, dtype, causal):
             "dkv": (6 * row + 2 * vec, 8 * d * pairs)}
 
 
-def phase_bwd_kernels(attn):
-    """Phase 3, backward: K2a and K2b against their plain versions at the
-    training shapes (BH = 32), f32 and bf16, ragged and causal too; returns
-    the per-backward totals of the main path's f32 shapes."""
+def sdpa_bwd_call(q, k, v, do, causal: bool):
+    """SDPA's backward alone as a call (dq, dk and dv of one (B, L, H, D)
+    attention): the forward runs once here, the call is
+    ``torch.autograd.grad`` of its output with ``do``, keeping the graph."""
     import torch.nn.functional as F
 
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+
+def sdpa_bwd_ms(q, k, v, do, causal: bool, iters: int) -> float:
+    """``sdpa_bwd_call``'s ms, by CUDA events over ``iters`` calls.  (Forward
+    plus backward less the forward read 0.22-1.24 ms for one bf16 call at
+    BH = 32, T = 2048 from run to run on an NVIDIA H100 80GB HBM3; this
+    0.24-0.54, the autograd call's host time bounding it on a slow host:
+    ``attention_times_of`` reads its device time too.)"""
+    return time_ms(sdpa_bwd_call(q, k, v, do, causal), iters)
+
+
+def phase_bwd_kernels(attn):
+    """Phase 3, backward: K2a and K2b against their plain versions at the
+    training shapes (BH = 32), f32 and bf16, ragged and causal too, and in
+    bf16 at 128 wide (BWD_D128), each beside SDPA's backward timed alone
+    (``sdpa_bwd_ms``); returns the per-backward totals of the main path's
+    shapes by type, ``{dtype: {"dq": ..., "dkv": ...}}``."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(t, False) for t in ATTN_CALLS] + [(1000, False), (512, True)]
-    total = {name: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0,
-                    "max_abs_err": 0.0} for name in ("dq", "dkv")}
-    library_ms = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for t, causal in cases:
-            qkv = torch.randn((TRAIN_ROWS, t, 3, HEADS, HEAD_DIM), generator=gen,
-                              device="cuda").to(dtype)
-            q, k, v = qkv.unbind(2)
-            do = torch.randn((TRAIN_ROWS, t, HEADS, HEAD_DIM), generator=gen,
-                             device="cuda").to(dtype)
-            o, lse = attn.flash_fwd(q, k, v, causal)
-            dq, delta = attn.flash_bwd_dq(q, k, v, o, lse, do, causal)
-            dk, dv = attn.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
-            rdq, rdelta = attn.flash_bwd_dq_reference(q, k, v, o, lse, do, causal)
-            rdk, rdv = attn.flash_bwd_dkv_reference(q, k, v, do, lse, rdelta, causal)
-            torch.cuda.synchronize()
-            errs, rels = {}, []
-            for name, got, want in (("dq", dq, rdq), ("delta", delta, rdelta),
-                                    ("dk", dk, rdk), ("dv", dv, rdv)):
-                err = (got.float() - want.float()).abs().max().item()
-                errs[name] = err
-                rels.append(err / want.float().abs().max().item())
-            ok = max(rels) <= BWD_TOL[dtype]
-            ms = {"dq": time_ms(lambda: attn.flash_bwd_dq(q, k, v, o, lse, do, causal), 10),
-                  "dkv": time_ms(lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                                            causal), 10)}
-            plain = {"dq": time_ms(lambda: attn.flash_bwd_dq_reference(
-                         q, k, v, o, lse, do, causal), 3),
-                     "dkv": time_ms(lambda: attn.flash_bwd_dkv_reference(
-                         q, k, v, do, lse, delta, causal), 3)}
-            # SDPA's backward: forward plus backward, less the forward
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-            dot = do.transpose(1, 2)
-
-            def sdpa_fwd():
-                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-
-            def sdpa_fwd_bwd():
-                torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
-
-            lib = time_ms(sdpa_fwd_bwd, 10) - time_ms(sdpa_fwd, 10)
-            work = bwd_work(TRAIN_ROWS, HEADS, t, HEAD_DIM, dtype, causal)
-            bounds = {n_: bound_ms(*work[n_], dtype) for n_ in work}
-            print(f"  flash_bwd {str(dtype)[6:]:8s} T={t:4d} causal={int(causal)} "
-                  f"BH={TRAIN_ROWS * HEADS}: err dq {errs['dq']:.3e} delta "
-                  f"{errs['delta']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
-                  f"(max rel {max(rels):.2e}, tol {BWD_TOL[dtype]:.0e}) | "
-                  f"dq {ms['dq']:.4f} ms (plain {plain['dq']:.4f}, bound "
-                  f"{bounds['dq'][0]:.4f} {bounds['dq'][1]}), dkv {ms['dkv']:.4f} ms "
-                  f"(plain {plain['dkv']:.4f}, bound {bounds['dkv'][0]:.4f} "
-                  f"{bounds['dkv'][1]}), sdpa bwd {lib:.4f} ms "
-                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
-            check(ok, f"flash_bwd {dtype} T={t} causal={causal} disagrees with "
-                      f"its plain version")
-            if dtype == torch.float32 and not causal and t in ATTN_CALLS:
-                n = ATTN_CALLS[t]
-                library_ms += n * lib
-                for name, err in (("dq", max(errs["dq"], errs["delta"])),
-                                  ("dkv", max(errs["dk"], errs["dv"]))):
-                    tot = total[name]
-                    tot["ms"] += n * ms[name]
-                    tot["plain_ms"] += n * plain[name]
-                    tot["bytes"] += n * work[name][0]
-                    tot["ops"] += n * work[name][1]
-                    tot["max_abs_err"] = max(tot["max_abs_err"], err)
-    for tot in total.values():
-        tot["library_ms"] = library_ms
+    runs = [(dtype, TRAIN_ROWS, t, causal, HEAD_DIM)
+            for dtype in (torch.float32, torch.bfloat16) for t, causal in cases]
+    runs.append((torch.bfloat16, BWD_D128[0], BWD_D128[1], False, 128))
+    total = {dtype: {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+                            "ops": 0, "max_abs_err": 0.0} for name in ("dq", "dkv")}
+             for dtype in (torch.float32, torch.bfloat16)}
+    for dtype, rows, t, causal, d in runs:
+        qkv = torch.randn((rows, t, 3, HEADS, d), generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = qkv.unbind(2)
+        do = torch.randn((rows, t, HEADS, d), generator=gen,
+                         device="cuda").to(dtype)
+        o, lse = attn.flash_fwd(q, k, v, causal)
+        dq, delta = attn.flash_bwd_dq(q, k, v, o, lse, do, causal)
+        dk, dv = attn.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        rdq, rdelta = attn.flash_bwd_dq_reference(q, k, v, o, lse, do, causal)
+        rdk, rdv = attn.flash_bwd_dkv_reference(q, k, v, do, lse, rdelta, causal)
+        torch.cuda.synchronize()
+        errs, rels = {}, []
+        for name, got, want in (("dq", dq, rdq), ("delta", delta, rdelta),
+                                ("dk", dk, rdk), ("dv", dv, rdv)):
+            err = (got.float() - want.float()).abs().max().item()
+            errs[name] = err
+            rels.append(err / want.float().abs().max().item())
+        ok = max(rels) <= BWD_TOL[dtype]
+        ms = {"dq": time_ms(lambda: attn.flash_bwd_dq(q, k, v, o, lse, do, causal), 10),
+              "dkv": time_ms(lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                        causal), 10)}
+        plain = {"dq": time_ms(lambda: attn.flash_bwd_dq_reference(
+                     q, k, v, o, lse, do, causal), 3),
+                 "dkv": time_ms(lambda: attn.flash_bwd_dkv_reference(
+                     q, k, v, do, lse, delta, causal), 3)}
+        lib = sdpa_bwd_ms(q, k, v, do, causal, 10)
+        work = bwd_work(rows, HEADS, t, d, dtype, causal)
+        bounds = {n_: bound_ms(*work[n_], dtype) for n_ in work}
+        print(f"  flash_bwd {str(dtype)[6:]:8s} T={t:4d} causal={int(causal)} "
+              f"BH={rows * HEADS}{'' if d == HEAD_DIM else f' D={d}'}: err dq "
+              f"{errs['dq']:.3e} delta "
+              f"{errs['delta']:.3e} dk {errs['dk']:.3e} dv {errs['dv']:.3e} "
+              f"(max rel {max(rels):.2e}, tol {BWD_TOL[dtype]:.0e}) | "
+              f"dq {ms['dq']:.4f} ms (plain {plain['dq']:.4f}, bound "
+              f"{bounds['dq'][0]:.4f} {bounds['dq'][1]}), dkv {ms['dkv']:.4f} ms "
+              f"(plain {plain['dkv']:.4f}, bound {bounds['dkv'][0]:.4f} "
+              f"{bounds['dkv'][1]}), sdpa bwd {lib:.4f} ms "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        check(ok, f"flash_bwd {dtype} T={t} D={d} causal={causal} disagrees with "
+                  f"its plain version")
+        if not causal and t in ATTN_CALLS and d == HEAD_DIM:
+            n = ATTN_CALLS[t]
+            for name, err in (("dq", max(errs["dq"], errs["delta"])),
+                              ("dkv", max(errs["dk"], errs["dv"]))):
+                tot = total[dtype][name]
+                tot["ms"] += n * ms[name]
+                tot["plain_ms"] += n * plain[name]
+                tot["library_ms"] += n * lib
+                tot["bytes"] += n * work[name][0]
+                tot["ops"] += n * work[name][1]
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    for dtype, by_name in total.items():
+        for name, tot in by_name.items():
+            tot["bound_ms"], tot["bound_by"] = bound_ms(tot["bytes"], tot["ops"], dtype)
+            print(f"  flash_bwd_{name} {str(dtype)[6:]} per backward (9 calls, BH="
+                  f"{TRAIN_ROWS * HEADS}): kernel {tot['ms']:.4f} ms, plain "
+                  f"{tot['plain_ms']:.4f} ms, sdpa bwd (dq, dk, dv) {tot['library_ms']:.4f} "
+                  f"ms, bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})", flush=True)
     return total
 
 
@@ -695,18 +750,26 @@ def pick_ptxas(log: str, picks: dict) -> dict:
 
 
 # K1's two kernels in flash_fwd.cu (bf16: TMA and wgmma; f32: 3xTF32 on
-# mma.sync m16n8k8) and K2a's and K2b's in flash_bwd.cu, by input type and
-# head width (the 64-wide instantiations under the type's name, the 128-wide
+# mma.sync m16n8k8), K2a's and K2b's f32 ones in flash_bwd.cu (3xTF32) and
+# bf16 ones in flash_bwd_sm90.cu (TMA and wgmma), by input type and head
+# width (the 64-wide instantiations under the type's name, the 128-wide
 # ones with "_d128"), as tags of their mangled names
 K1_KERNELS = {f"{dtype}{sfx}": f"{name}ILi{d}E"
               for d, sfx in ((64, ""), (128, "_d128"))
               for dtype, name in (("bfloat16", "flash_fwd_sm90_kernel"),
                                   ("float32", "flash_fwd_3xtf32_kernel"))}
-K2_KERNELS = {key: {f"{dtype}{sfx}": f"{name}I{arg}Li{d}E"
-                    for d, sfx in ((64, ""), (128, "_d128"))
-                    for dtype, arg in (("float32", "f"), ("bfloat16", "13__nv_bfloat16"))}
+K2_KERNELS = {key: {f"float32{sfx}": f"{name}IfLi{d}E"
+                    for d, sfx in ((64, ""), (128, "_d128"))}
               for key, name in (("dq", "flash_bwd_dq_kernel"),
                                 ("dkv", "flash_bwd_dkv_kernel"))}
+K2_SM90_KERNELS = {key: {f"bfloat16{sfx}": f"{name}ILi{d}E"
+                         for d, sfx in ((64, ""), (128, "_d128"))}
+                   for key, name in (("dq", "flash_bwd_dq_sm90_kernel"),
+                                     ("dkv", "flash_bwd_dkv_sm90_kernel"))}
+SM90_BWD_PLAN_KEYS = ("dq_rows", "dq_groups", "key_tile", "dq_stages", "dq_threads",
+                      "dq_smem_bytes", "dq_blocks", "dkv_rows", "dkv_groups", "q_tile",
+                      "dkv_stages", "dkv_threads", "dkv_smem_bytes", "dkv_blocks",
+                      "box_cols", "dq_ops_per_pair", "dkv_ops_per_pair")
 # the chunked kernels of flash_wide.cu (heads wider than 512), one
 # instantiation per input type, by kernel and type
 WIDE_KERNELS = {key: {dtype: f"{name}I{arg}E"
@@ -801,6 +864,52 @@ def k1_ptxas(build, libs) -> dict:
                 report["plans"][f"BH={rows * HEADS} T={t}"] = (
                     f"{plan['groups']} groups, {plan['blocks']} blocks")
     return reports
+
+
+def k2_sm90_ptxas(build, libs) -> dict:
+    """The bf16 K2a's and K2b's ptxas reports (flash_bwd_sm90.cu) by width,
+    gated: no wgmma serialized (ptxas C7520), at most 255 registers, no
+    spills, shared memory within SMEM_MAX, and the library's launch plans
+    ``bwd_plan``'s at the training shapes on this card (BH = 32, every T of
+    ATTN_CALLS; 128 wide at BWD_D128), at small grids and at unequal
+    lengths.  Returns ``{"dq": {key: report}, "dkv": ...}``, each report
+    with its dynamic shared memory and the plans by "BH=<n> T=<t>"."""
+    import ctypes
+
+    from syncfusion_tpu_torch.ops import attention as attn
+
+    log = libs["flash_bwd_sm90"].with_suffix(".so.log").read_text()
+    serialized = [ln.strip() for ln in log.splitlines()
+                  if "C7520" in ln or "serialized" in ln]
+    check(not serialized, f"bf16 K2: ptxas serializes its wgmma: {serialized[:2]}")
+    plan_of = build.library("flash_bwd_sm90").flash_bwd_plan
+    plan_of.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(TRAIN_ROWS * HEADS, t, t) for t in ATTN_CALLS]
+    shapes += [(BWD_D128[0] * HEADS, BWD_D128[1], BWD_D128[1]), (1, 40, 40), (8, 200, 1000),
+               (16, 1000, 200)]
+    out = {}
+    for kernel, picks in K2_SM90_KERNELS.items():
+        out[kernel] = pick_ptxas(log, picks)
+        for key, report in out[kernel].items():
+            width = 128 if key.endswith("_d128") else 64
+            report["plans"] = {}
+            for bh, lq, lk in shapes:
+                buf = (ctypes.c_int * len(SM90_BWD_PLAN_KEYS))()
+                check(plan_of(width, bh, lq, lk, sms, buf) == 0,
+                      f"no plan for bf16 K2 {key}")
+                plan = dict(zip(SM90_BWD_PLAN_KEYS, buf))
+                want = attn.bwd_plan(width, bh, lq, sms, lk)
+                check(plan == want, f"bf16 K2 {key} at BH={bh} Lq={lq} Lk={lk}: the "
+                                    f"library's plan {plan} is not bwd_plan's {want}")
+                report["plans"][f"BH={bh} T={lq}" + (f" Lk={lk}" if lk != lq else "")] = (
+                    f"{plan[f'{kernel}_groups']} groups, {plan[f'{kernel}_blocks']} blocks")
+            report["dynamic_smem_bytes"] = plan[f"{kernel}_smem_bytes"]
+            check(report["registers"] <= 255 and report.get("spill_stores", 0) == 0
+                  and report.get("spill_loads", 0) == 0
+                  and report["dynamic_smem_bytes"] + report["smem_bytes"] <= attn.SMEM_MAX,
+                  f"bf16 {kernel} {key}: registers, spills or shared memory {report}")
+    return out
 
 
 def wide_fwd_ptxas(build, libs) -> dict:
@@ -1116,7 +1225,8 @@ def compare_fused_times(roots, dtypes=("float32",)) -> dict:
 
 def attention_times_of(root: str) -> dict:
     """K1's (bf16 and f32, BH = 64; bf16 also at BH = 128, 16 and 8 as
-    ``fwd_bf16_bh<n>``) and K2a's and K2b's (f32, BH = 32)
+    ``fwd_bf16_bh<n>``) and K2a's and K2b's (f32 and bf16, BH = 32; SDPA's
+    bf16 backward alone beside them as ``sdpa_bwd_bf16``)
     ms per forward or backward (the 9 calls of phase 3's main-path shapes,
     through the wrappers on qkv views), then K1 and SDPA at phase 21a's
     128-wide bf16 call (``fwd_bf16_d128``, ``sdpa_bf16_d128``: HW_ROWS x
@@ -1132,7 +1242,7 @@ def attention_times_of(root: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     more = {f"fwd_bf16_bh{rows * HEADS}": rows for rows in (SERVE_ROWS, *V2F_ROWS)}
     out = {f"{key}{sfx}": 0.0 for key in ("fwd_bf16", "fwd_f32", "dq_f32", "dkv_f32",
-                                          *more)
+                                          "dq_bf16", "dkv_bf16", "sdpa_bwd_bf16", *more)
            for sfx in ("", "_device")}
 
     def add(key, n, fn, tag):
@@ -1148,14 +1258,18 @@ def attention_times_of(root: str) -> dict:
             q, k, v = torch.randn((rows, t, 3, HEADS, HEAD_DIM), generator=gen,
                                   device="cuda").to(torch.bfloat16).unbind(2)
             add(key, n, lambda: attn.flash_fwd(q, k, v), "flash_fwd")
-        q, k, v = torch.randn((TRAIN_ROWS, t, 3, HEADS, HEAD_DIM), generator=gen,
-                              device="cuda").unbind(2)
-        do = torch.randn((TRAIN_ROWS, t, HEADS, HEAD_DIM), generator=gen, device="cuda")
-        o, lse = attn.flash_fwd(q, k, v)
-        _, delta = attn.flash_bwd_dq(q, k, v, o, lse, do)
-        add("dq_f32", n, lambda: attn.flash_bwd_dq(q, k, v, o, lse, do), "flash_bwd_dq")
-        add("dkv_f32", n, lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta),
-            "flash_bwd_dkv")
+        for dtype, sfx in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k, v = torch.randn((TRAIN_ROWS, t, 3, HEADS, HEAD_DIM), generator=gen,
+                                  device="cuda").to(dtype).unbind(2)
+            do = torch.randn((TRAIN_ROWS, t, HEADS, HEAD_DIM), generator=gen,
+                             device="cuda").to(dtype)
+            o, lse = attn.flash_fwd(q, k, v)
+            _, delta = attn.flash_bwd_dq(q, k, v, o, lse, do)
+            add(f"dq_{sfx}", n, lambda: attn.flash_bwd_dq(q, k, v, o, lse, do),
+                "flash_bwd_dq")
+            add(f"dkv_{sfx}", n, lambda: attn.flash_bwd_dkv(q, k, v, do, lse, delta),
+                "flash_bwd_dkv")
+        add("sdpa_bwd_bf16", n, sdpa_bwd_call(q, k, v, do, False), "")
     import torch.nn.functional as F
 
     q, k, v = torch.randn((HW_ROWS, HW_T, 3, HEADS, 128), generator=gen,
@@ -1464,12 +1578,12 @@ def reset_counts(attn, fr) -> None:
     fr.reset_counts()
 
 
-def train_args(shard: str, logs: str, steps: int) -> list:
-    """Phase 6's command line: f32, B = 4 x 2^18, accumulation 2, ``steps``
-    micro-steps, one validation batch and a 2-step sample logger at the
-    end."""
+def train_args(shard: str, logs: str, steps: int, precision: str = "32") -> list:
+    """Phase 6's command line: f32 (or ``precision``), B = 4 x 2^18,
+    accumulation 2, ``steps`` micro-steps, one validation batch and a 2-step
+    sample logger at the end."""
     return ["--train_path", shard, "--val_path", shard, "--logs_dir", logs,
-            "--precision", "32", "--batch_size", str(BATCH), "--length", str(LENGTH),
+            "--precision", precision, "--batch_size", str(BATCH), "--length", str(LENGTH),
             "--accumulate_grad_batches", str(ACCUMULATE), "--max_steps", str(steps),
             "--log_every_n_steps", "1", "--val_check_interval", str(steps),
             "--val_batches", "1", "--num_items", str(SAMPLE_ITEMS), "--sampling_steps",
@@ -1477,12 +1591,13 @@ def train_args(shard: str, logs: str, steps: int) -> list:
 
 
 def phase_train(attn, fr, tmp: str, name: str, model_cfg=None, embedder="none",
-                steps: int = TRAIN_STEPS):
-    """Phases 6, 10 and 14c: the training command line at full width, f32,
-    ``steps`` micro-steps, with the default model or ``model_cfg`` (passed
-    as ``--model_config``), and ``--embedder embedder`` (None: the default,
-    CLAP).  Returns (final state, launch counts, seconds per micro-step,
-    peak GiB, the micro-steps' losses)."""
+                steps: int = TRAIN_STEPS, precision: str = "32"):
+    """Phases 6, 7b, 10 and 14c: the training command line at full width,
+    f32 (or ``precision``), ``steps`` micro-steps, with the default model or
+    ``model_cfg`` (passed as ``--model_config``), and ``--embedder
+    embedder`` (None: the default, CLAP).  Returns (final state, launch
+    counts, seconds per micro-step (the median of steps 2 on), peak GiB,
+    the micro-steps' losses, the seconds of steps 2 on)."""
     from syncfusion_tpu_torch import train_diffusion
     from syncfusion_tpu_torch.core.checkpoint import CheckpointConfig, Checkpointer
 
@@ -1490,7 +1605,7 @@ def phase_train(attn, fr, tmp: str, name: str, model_cfg=None, embedder="none",
     if not os.path.exists(shard):
         write_shard(shard)
     logs = os.path.join(tmp, name)
-    args = train_args(shard, logs, steps) + ["--device", "cuda"]
+    args = train_args(shard, logs, steps, precision) + ["--device", "cuda"]
     if embedder is not None:
         args += ["--embedder", embedder]
     if model_cfg is not None:
@@ -1542,8 +1657,8 @@ def phase_train(attn, fr, tmp: str, name: str, model_cfg=None, embedder="none",
             "k4_plain_calls": 0}
     print(f"  launches {launched} (expected {want}), peak memory {peak:.3f} GiB")
     check(launched == want, f"launch counts {launched} != {want}")
-    sec = statistics.median(r["sec_per_step"] for r in train[1:])
-    return state, launched, sec, peak, losses
+    secs = [r["sec_per_step"] for r in train[1:]]
+    return state, launched, statistics.median(secs), peak, losses, secs
 
 
 def training_batch(tmp: str, shard: str | None = None) -> tuple:
@@ -1597,12 +1712,13 @@ def print_gaps(label: str, rows) -> None:
           f"unfloored {raw[3]:.2e} ({raw[2]}, max |g| {raw[1]:.2e})")
 
 
-def train_vs_plain(model, attn, fr, blocks, tmp: str):
+def train_vs_plain(model, attn, fr, blocks, tmp: str, rerun: list | None = None):
     """Phase 7: one f32 loss and gradient through the kernels and through
     the plain attention, same batch, sigma and noise.  Returns (relative
     loss difference, max over tensors of max |dg| / max(max |g_plain|,
     GRAD_FLOOR · the largest gradient)).  A second plain run shows the
-    run-to-run rounding of the same computation (printed)."""
+    run-to-run rounding of the same computation (printed, and its gap
+    appended to ``rerun`` where given).  Phase 7b runs it in bf16."""
     batch = training_batch(tmp)
     reset_counts(attn, fr)
     loss_k, grads_k = loss_and_grads(model, batch)
@@ -1616,15 +1732,84 @@ def train_vs_plain(model, attn, fr, blocks, tmp: str):
     _, grads_p2 = loss_and_grads(model, batch)
     for m in attns:
         del m.attend
-    rels, rerun = grad_gaps(grads_k, grads_p), grad_gaps(grads_p2, grads_p)
+    rels, again = grad_gaps(grads_k, grads_p), grad_gaps(grads_p2, grads_p)
+    if rerun is not None:
+        rerun.append(again[0][0])
     top = max(row[1] for row in rels)
     floored = sum(row[1] < GRAD_FLOOR * top for row in rels)
     print(f"  largest gradient {top:.3e}; {floored} of {len(rels)} tensors have "
           f"max |g| below {GRAD_FLOOR:.0e} of it; worst: " + ", ".join(
               f"{n_} {r:.2e} (max |g| {g:.2e})" for r, g, n_, _ in rels[:3]))
     print_gaps("kernels vs plain", rels)
-    print_gaps("plain vs plain, run to run", rerun)
+    print_gaps("plain vs plain, run to run", again)
     return abs(loss_k - loss_p) / abs(loss_p), rels[0][0]
+
+
+def bf16_train_check(attn, fr, blocks, tmp: str) -> dict:
+    """Phase 7b(b): the full-width model in bf16 on phase 4's seeded
+    weights, one loss and gradient on phase 7's batch, sigma and noise
+    through the kernels and through the plain attention (``train_vs_plain``),
+    cuDNN deterministic, so that the plain run repeated shows no other
+    source of difference.  Returns the loss's relative difference, the
+    gradients' floored gap and the repeated plain run's."""
+    from syncfusion_tpu_torch.models.syncfusion import SyncFusionDiffusion
+
+    model = SyncFusionDiffusion.from_config(None, dtype=torch.bfloat16, device="cuda",
+                                            seed=0)
+    rerun = []
+    with cudnn_deterministic():
+        loss, grad = train_vs_plain(model, attn, fr, blocks, tmp, rerun)
+    return {"loss": loss, "grad": grad, "rerun": rerun[0]}
+
+
+def bf16_train_check_of(root: str) -> dict:
+    """``bf16_train_check`` of the ``syncfusion_tpu_torch`` of another
+    checkout at ``root`` (on a fresh shard written as phase 6's): how the
+    tolerance of phase 7b was set from the bf16 K2 body that flash_bwd.cu
+    ran before flash_bwd_sm90.cu, e.g. ``python3 -c "import chip_smoke as
+    c; print(c.bf16_train_check_of('<root>'))"``.  Call it in a fresh
+    process, before anything imports the package."""
+    sys.path.insert(0, os.path.abspath(root))
+    from syncfusion_tpu_torch.device import set_exact_f32
+    from syncfusion_tpu_torch.models import blocks
+    from syncfusion_tpu_torch.ops import attention as attn
+    from syncfusion_tpu_torch.ops import fused_resblock as fr
+
+    set_exact_f32()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_shard(os.path.join(tmp, "shard.tar"))
+        return bf16_train_check(attn, fr, blocks, tmp)
+
+
+def phase_train_bf16(attn, fr, blocks, tmp: str) -> dict:
+    """Phase 7b: (a) ``train_diffusion.main`` at phase 6's command line in
+    bf16 (``--precision bf16``: bf16 compute over f32 parameters, the JAX
+    package's policy), cut to BF16_TRAIN_STEPS micro-steps: finite losses,
+    a strict reload, K1, K2a and K2b 9 a forward or backward, all from the
+    bf16 kernels' C entries, the plain versions never (``phase_train``'s
+    gates and the entries'); then, as 14c times them, micro-steps fed by
+    ``device_prefetch`` (``feed_step_times``); (b)
+    ``bf16_train_check``, gated at BF16_TRAIN_LOSS_TOL and
+    BF16_TRAIN_GRAD_TOL.  Returns the record."""
+    from syncfusion_tpu_torch.models.embedder import ZeroEmbedder
+
+    attn.reset_counts()
+    state, launched, _, peak, losses, _ = phase_train(attn, fr, tmp, "bf16",
+                                                      steps=BF16_TRAIN_STEPS,
+                                                      precision="bf16")
+    entries = dict(attn.flash_attention.entry_launches)
+    forwards, backwards = BF16_TRAIN_STEPS + 1 + SAMPLE_STEPS, BF16_TRAIN_STEPS
+    want = {"flash_fwd": 9 * forwards, "flash_bwd_dq_sm90": 9 * backwards,
+            "flash_bwd_dkv_sm90": 9 * backwards}
+    print(f"  bf16 training: launches by C entry {entries} (expected {want})")
+    check(entries == want, f"bf16 training launched {entries}, want {want}")
+    check(state.model.unet.dtype == torch.bfloat16, "the trainer's model is not bf16")
+    secs = feed_step_times(state, os.path.join(tmp, "shard.tar"),
+                           ZeroEmbedder(512, device="cuda"))
+    del state
+    torch.cuda.empty_cache()
+    return {"launched": launched, "entries": entries, "losses": losses, "secs": secs,
+            "peak_gib": peak, **bf16_train_check(attn, fr, blocks, tmp)}
 
 
 def fused_vs_plain(attn, fr, noise, onsets, embedding, tmp: str):
@@ -4174,7 +4359,8 @@ def head_width_case(attn, d: int, heads: int, dtype, seed: int) -> dict:
     got = {c: getattr(attn.flash_attention, c) for c in attn.COUNTS}
     entries = dict(attn.flash_attention.entry_launches)
     width = attn.kernel_width(d)
-    want_entries = {attn._ENTRIES[attn.kernel_source(i, width)][i]: 1 for i in range(3)}
+    want_entries = {attn._ENTRIES[attn.kernel_source(i, width, dtype)][i]: 1
+                    for i in range(3)}
     qr, kr, vr = (x.detach().requires_grad_() for x in qkv.unbind(2))
     o_ref, lse_ref = attn.attention_reference(qr, kr, vr, return_lse=True)
     o_ref.backward(do)
@@ -4202,15 +4388,9 @@ def head_width_case(attn, d: int, heads: int, dtype, seed: int) -> dict:
     plain_dkv = time_ms(lambda: attn.flash_bwd_dkv_reference(
         qd, kd, vd, do, lse_ref, delta), 3)
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
-    dot = do.transpose(1, 2)
     backend = sdpa_backend(qt, kt, vt)
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt)
-
-    lib = time_ms(sdpa_fwd, HW_ITERS)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot),
-                      HW_ITERS) - lib
+    lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), HW_ITERS)
+    lib_bwd = sdpa_bwd_ms(qd, kd, vd, do, False, HW_ITERS)
     bms, by = bound_ms(*attention_work(HW_ROWS, heads, HW_T, d, dtype, False), dtype)
     work = bwd_work(HW_ROWS, heads, HW_T, d, dtype, False)
     rec = {"max_abs_err": err_o, "lse_err": err_l, "grad_rel_err": max(rels),
@@ -4343,8 +4523,6 @@ def wide_training_backward(attn) -> dict:
     no plain call (gated), timed beside the plain versions, SDPA's backward
     (with the backend it picks) and the bounds.  Returns ``{"dq": record,
     "dkv": record}``."""
-    import torch.nn.functional as F
-
     heads, d = WIDE_SWITCHES["attention_heads"], WIDE_SWITCHES["attention_features"]
     rows, dtype = TRAIN_ROWS, torch.float32
     gen = torch.Generator(device="cuda").manual_seed(29)
@@ -4369,16 +4547,8 @@ def wide_training_backward(attn) -> dict:
     plain = {"dq": time_ms(lambda: attn.flash_bwd_dq_reference(q, k, v, o, lse, do), 3),
              "dkv": time_ms(lambda: attn.flash_bwd_dkv_reference(q, k, v, do, lse, delta),
                             3)}
-    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
-    dot = do.transpose(1, 2)
-    backend = sdpa_backend(qt, kt, vt)
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt)
-
-    lib = time_ms(sdpa_fwd, HW_ITERS)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot),
-                      HW_ITERS) - lib
+    backend = sdpa_backend(*(x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)))
+    lib_bwd = sdpa_bwd_ms(q, k, v, do, False, HW_ITERS)
     work = bwd_work(rows, heads, WIDE_T, d, dtype, False)
     blocks = attn.wide_bwd_blocks(d, dtype, rows * heads, WIDE_T, WIDE_T)
     out = {}
@@ -4628,7 +4798,7 @@ def phase_wide_entry_points(attn, fr, tmp: str) -> dict:
           f"generate wrote {wav.shape} at {sr} Hz")
     check({k: got[k] for k in want} == want, f"generate (2 x 256 heads): launches {got}")
     launched = {"generate_wide": got}
-    state, launched["train_wide"], sec_t, peak, _ = phase_train(
+    state, launched["train_wide"], sec_t, peak, _, _ = phase_train(
         attn, fr, tmp, "wide", wide_model_cfg(), steps=WIDE_TRAIN_STEPS)
     print(f"  train_diffusion --model_config (2 x 256 heads), f32, B={BATCH}, "
           f"L={LENGTH}: {sec_t:.4f} s at micro-step {WIDE_TRAIN_STEPS}, peak memory "
@@ -4698,11 +4868,13 @@ def main() -> int:
     smem = _build.library("flash_bwd").flash_bwd_smem
     for key, by_type in k2_regs.items():
         for dtype, report in by_type.items():
-            report["dynamic_smem_bytes"] = smem(int(key == "dkv"),
-                                                int(dtype.startswith("bfloat16")),
+            report["dynamic_smem_bytes"] = smem(int(key == "dkv"), 0,
                                                 128 if dtype.endswith("_d128") else 64)
             check(report["dynamic_smem_bytes"] > 0, f"no shared memory for K2 {key}")
-    print(f"  K2a and K2b registers and spills: {k2_regs}")
+    print(f"  K2a and K2b (f32, flash_bwd.cu) registers and spills: {k2_regs}")
+    k2_sm90_regs = k2_sm90_ptxas(_build, libs)
+    print(f"  K2a and K2b (bf16, flash_bwd_sm90.cu) registers, spills and plans: "
+          f"{k2_sm90_regs}")
     wide_log = libs["flash_wide"].with_suffix(".so.log").read_text()
     wide_smem = _build.library("flash_wide").flash_wide_smem
     wide_regs = {key: pick_ptxas(wide_log, picks) for key, picks in WIDE_KERNELS.items()}
@@ -4832,8 +5004,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        state, train_launched, sec, peak, train_losses = phase_train(attn, fr, tmp,
-                                                                      "plain")
+        state, train_launched, sec, peak, train_losses, secs32 = phase_train(
+            attn, fr, tmp, "plain")
         print(f"  training, f32, B={BATCH}, L={LENGTH}: {sec:.4f} s per micro-step "
               f"(median of steps 2-{TRAIN_STEPS}), peak memory {peak:.3f} GiB")
         phase("6 training at full width", t0)
@@ -4845,9 +5017,31 @@ def main() -> int:
               f"|diff| / max |plain| {rel_grad:.3e} (tol {TRAIN_GRAD_TOL:.0e})")
         check(rel_loss <= TRAIN_LOSS_TOL, "training loss cross-check disagrees")
         check(rel_grad <= TRAIN_GRAD_TOL, "training gradient cross-check disagrees")
+        # phase 7b's f32 side: micro-steps fed as 7b feeds its bf16 ones
+        from syncfusion_tpu_torch.models.embedder import ZeroEmbedder
+
+        fed32 = feed_step_times(state, os.path.join(tmp, "shard.tar"),
+                                ZeroEmbedder(512, device="cuda"))
         del state
         torch.cuda.empty_cache()
         phase("7 training cross-check", t0)
+
+        t0 = time.perf_counter()
+        train16 = phase_train_bf16(attn, fr, blocks, tmp)
+        print(f"  bf16 training, B={BATCH}, L={LENGTH}: ms per fed micro-step "
+              f"{spread(train16['secs'])} against f32's {spread(fed32)} "
+              f"({statistics.median(fed32) / statistics.median(train16['secs']):.3f}x); "
+              f"peak memory {train16['peak_gib']:.3f} GiB (f32, phase 6: {peak:.3f}); "
+              f"phase 6's own micro-steps 2-{TRAIN_STEPS}, f32: ms {spread(secs32)}")
+        print(f"  bf16 loss and gradient, kernels vs plain attention: loss "
+              f"{train16['loss']:.3e} relative (tol {BF16_TRAIN_LOSS_TOL:.1e}), gradients "
+              f"{train16['grad']:.3e} (tol {BF16_TRAIN_GRAD_TOL:.1e}); plain vs plain "
+              f"{train16['rerun']:.3e}")
+        check(all(math.isfinite(x) for x in train16["losses"]), "bf16 training loss")
+        check(train16["loss"] <= BF16_TRAIN_LOSS_TOL, "bf16 training loss cross-check disagrees")
+        check(train16["grad"] <= BF16_TRAIN_GRAD_TOL,
+              "bf16 training gradient cross-check disagrees")
+        phase("7b bf16 training at full width", t0)
 
         t0 = time.perf_counter()
         fused = SyncFusionDiffusion.from_config(fused_model_cfg(), dtype=torch.bfloat16,
@@ -4889,7 +5083,7 @@ def main() -> int:
         phase("9 fused cross-check", t0)
 
         t0 = time.perf_counter()
-        state, fused_train, sec_f, peak_f, _ = phase_train(attn, fr, tmp, "fused",
+        state, fused_train, sec_f, peak_f, _, _ = phase_train(attn, fr, tmp, "fused",
                                                         fused_model_cfg())
         print(f"  fused training, f32, B={BATCH}, L={LENGTH}: {sec_f:.4f} s per "
               f"micro-step (plain UNet, phase 6: {sec:.4f}), peak memory "
@@ -4924,7 +5118,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        state, clap_train, sec_c, peak_c, _ = phase_train(
+        state, clap_train, sec_c, peak_c, _, _ = phase_train(
             attn, fr, tmp, "clap", embedder=None, steps=CLAP_TRAIN_STEPS)
         print(f"  CLAP-conditioned training (default embedder), f32, B={BATCH}, "
               f"L={LENGTH}: {sec_c:.4f} s at micro-step {CLAP_TRAIN_STEPS} (phase 6, "
@@ -5107,35 +5301,55 @@ def main() -> int:
                                  "dq"),
                                 ("flash_bwd_dkv", "syncfusion_tpu/ops/attention.py:181",
                                  "dkv")):
-        tot = bwd_total[key]
-        bms, by = bound_ms(tot["bytes"], tot["ops"], torch.float32)
-        rows.append({
-            "name": name,
-            "route": "cuda",
-            "source": "syncfusion_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": replaces,
-            "launches": sum(launched_by_path(f"{key}_launches").values()),
-            "launches_by_path": launched_by_path(f"{key}_launches"),
-            "max_abs_err": tot["max_abs_err"],
-            "ms": tot["ms"],
-            "plain_ms": tot["plain_ms"],
-            "bound_ms": bms,
-            "bound_by": by,
-            "library_ms": tot["library_ms"],
-            "library_note": "SDPA forward+backward minus forward: dq, dk and dv "
-                            "together",
-            "work": "the 9 attention calls of one training backward, f32, "
-                    "BH=32, T=2048x2, 1024x2, 512x2, 256x3",
-            "design": "tensor cores: mma.sync m16n8k8 tf32, f32 operands as "
-                      "3xTF32 (bf16 q, k, v, dO unsplit), cp.async ring of 2 "
-                      "stages, 4 warps of 16 rows a block",
-            "ptxas": k2_regs[key],
-            "head_widths": {f"d{d}_{dtype}": rec[key]
-                            for (d, dtype), rec in widths.items()},
-            "head_widths_work": f"one call at B={HW_ROWS} x {HEADS} heads, T={HW_T}, "
-                                "on operands padded to the kernel width; library_ms "
-                                "is SDPA's whole backward (dq, dk and dv)",
-        })
+        entry = f"{name}_sm90"
+        for dtype, source in ((torch.float32, "flash_bwd.cu"),
+                              (torch.bfloat16, "flash_bwd_sm90.cu")):
+            tot = bwd_total[dtype][key]
+            f32 = dtype == torch.float32
+            by_path = (launched_by_path(f"{key}_launches") if f32 else
+                       {"train_bf16": train16["entries"][entry],
+                        **{f"head_width_{d}_bfloat16": rec["entries"].get(entry, 0)
+                           for (d, t_), rec in widths.items() if t_ == "bfloat16"}})
+            rows.append({
+                "name": name if f32 else entry,
+                "route": "cuda",
+                "source": f"syncfusion_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": tot["max_abs_err"],
+                "ms": tot["ms"],
+                "plain_ms": tot["plain_ms"],
+                "bound_ms": tot["bound_ms"],
+                "bound_by": tot["bound_by"],
+                "library_ms": tot["library_ms"],
+                "library_note": "SDPA's backward alone (sdpa_bwd_ms): dq, dk and dv "
+                                "together",
+                "work": f"the 9 attention calls of one training backward, {str(dtype)[6:]}, "
+                        "BH=32, T=2048x2, 1024x2, 512x2, 256x3",
+                "design": ("tensor cores: mma.sync m16n8k8 tf32, f32 operands as "
+                           "3xTF32, cp.async ring of 2 stages, 4 warps of 16 rows a "
+                           "block") if f32 else
+                          ("TMA through 4-D tensor maps into a ring of 4 slots on "
+                           "mbarriers (K2a: K and V in 64-key tiles; K2b: q and dO in "
+                           "32-row tiles, the LSE and delta from L2); one or two "
+                           "warpgroups of 64 own rows a block (bwd_plan), their "
+                           "outputs at the full width in registers; S and dP on wgmma "
+                           "m64n64k16 (K2a) or m64n32k16 (K2b, keys as M), the outputs "
+                           "on m64n64k16 with P and dS as hi + lo bf16 from registers; "
+                           "the next tile's S and dP issued with this tile's output "
+                           "products"),
+                "ptxas": k2_regs[key] if f32 else k2_sm90_regs[key],
+                "head_widths": {f"d{d}_{t_}": rec[key] for (d, t_), rec in widths.items()
+                                if t_ == str(dtype)[6:]},
+                "head_widths_work": f"one call at B={HW_ROWS} x {HEADS} heads, T={HW_T}, "
+                                    "on operands padded to the kernel width; library_ms "
+                                    "is SDPA's whole backward (dq, dk and dv)",
+            })
+            if not f32:
+                rows[-1]["train_bf16"] = {k_: train16[k_] for k_ in (
+                    "loss", "grad", "rerun", "peak_gib")} | {
+                    "ms_fed_micro_step": statistics.median(train16["secs"]) * 1e3}
     wide_paths = {"wide_forward": wide_model["launched"]["forward"],
                   "wide_micro_step": wide_model["launched"]["micro_step"],
                   **wide_launched}

@@ -1,4 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): dQ, and dK with dV.
+// Flash-attention backward for Hopper (sm_90a) in f32: dQ, and dK with
+// dV, at heads of 64 and 128.  bf16 inputs at those widths go to
+// flash_bwd_sm90.cu (TMA and wgmma).
 //
 // Replaces the TPU kernels of syncfusion_tpu/ops/attention.py that `_flash_bwd`
 // launches through `pl.pallas_call`:
@@ -32,10 +34,8 @@
 // Products: every one runs on the tensor cores as tf32 `mma.sync`, f32
 // operands as 3xTF32, with per-tile partial sums added in f32 and a
 // permuted k order that needs no shuffle or transpose: the scheme and its
-// helpers are in tf32_mma.cuh, shared with K1's f32 forward.  bf16 inputs
-// (q, k, v, dO) are exact in tf32 and unsplit; P and dS are f32 in both
-// instantiations and always split.  One body per kernel serves both input
-// types.
+// helpers are in tf32_mma.cuh, shared with K1's f32 forward.  The bodies
+// are templates of the input type, built for f32 only.
 //
 // Tiles arrive by 16-byte `cp.async` copies: the resident tiles (q and dO
 // in flash_bwd_dq, K and V in flash_bwd_dkv) once, the streamed ones (K/V;
@@ -48,7 +48,7 @@
 // and at 128; the wrapper zero-pads a narrower head to the next of the two
 // and passes the true width's scale (the zero columns change no logit, no
 // delta, and come out of dq, dk and dv as 0).  At 128 the f32 tiles take
-// ~205 KB, one block an SM, and the bf16 tiles ~103 KB, two; at 256 they
+// ~205 KB, one block an SM; at 256 they
 // would take ~405 KB, above the 232,448 B a block may have on the NVIDIA
 // H100 80GB HBM3 (700 W), so a head wider than 128 goes to
 // flash_bwd_wide_sm90.cu (up to 512: TMA-fed, the outputs at the full width
@@ -410,16 +410,13 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Launches `Launch<T, kD>::run(args...)` for dtype (0 = float32, 1 =
-// bfloat16) and head_dim (64 or 128); cudaErrorInvalidValue for any other.
+// Launches `Launch<float, kD>::run(args...)` for dtype 0 (float32) and
+// head_dim 64 or 128; cudaErrorInvalidValue for any other (bfloat16 is
+// flash_bwd_sm90.cu's).
 template <template <typename, int> class Launch, typename... Args>
 cudaError_t dispatch(int dtype, int head_dim, Args... args) {
   if (dtype == 0 && head_dim == 64) return Launch<float, 64>::run(args...);
   if (dtype == 0 && head_dim == 128) return Launch<float, 128>::run(args...);
-  if (dtype == 1 && head_dim == 64)
-    return Launch<__nv_bfloat16, 64>::run(args...);
-  if (dtype == 1 && head_dim == 128)
-    return Launch<__nv_bfloat16, 128>::run(args...);
   return cudaErrorInvalidValue;
 }
 
@@ -445,8 +442,9 @@ struct SmemOf {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128, the instantiation
-// (q, k, v, o, dout and dq are that wide).  `strides` holds the (b, l, h)
+// dtype: 0 = float32 (flash_bwd_sm90.cu's flash_bwd_dq_sm90 takes
+// bfloat16); head_dim: 64 or 128, the instantiation (q, k, v, o, dout and
+// dq are that wide).  `strides` holds the (b, l, h)
 // element strides of q, k, v, o, dout, dq in that order (18 values).
 // Writes dq and delta = rowsum(dout∘o).  Returns the launch's cudaError_t
 // (0 on success); the caller raises on anything else.

@@ -634,20 +634,6 @@ __global__ void __launch_bounds__(128 * kMaxGroups, 1)
     }
 }
 
-// The card's SM count, asked once per device (0 where the query fails).
-inline int sm_count() {
-  static int sms[kMaxDevices] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev < kMaxDevices && sms[dev] != 0) return sms[dev];
-  int n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-      cudaSuccess)
-    return 0;
-  if (dev < kMaxDevices) sms[dev] = n;
-  return n;
-}
-
 template <int kD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int batch, int heads, int lq, int lk,

@@ -1,8 +1,8 @@
 // Host code of the TMA-fed kernels (flash_fwd.cu's bf16 K1,
-// flash_fwd_wide_sm90.cu, flash_fwd_cluster_sm90.cu and
+// flash_bwd_sm90.cu, flash_fwd_wide_sm90.cu, flash_fwd_cluster_sm90.cu and
 // flash_bwd_wide_sm90.cu): the tensor maps their loads read, built per call
 // with cuTensorMapEncodeTiled from the operands' strides, or taken from a
-// cache of the maps built before.
+// cache of the maps built before; the card's SM count.
 
 #pragma once
 
@@ -110,6 +110,23 @@ inline cudaError_t tensor_map_cached(CUtensorMap* map, const void* base,
   next = (next + 1) % kMapCache;
   if (used < kMapCache) ++used;
   return cudaSuccess;
+}
+
+// The card's SM count, asked once per device (0 where the query fails): the
+// launch plans of the bf16 K1 (flash_fwd.cu) and K2 (flash_bwd_sm90.cu)
+// take it.
+inline int sm_count() {
+  constexpr int kCards = 64;
+  static int sms[kCards] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kCards && sms[dev] != 0) return sms[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < kCards) sms[dev] = n;
+  return n;
 }
 
 }  // namespace

@@ -6,13 +6,15 @@ package's custom VJP.  On a CUDA tensor its forward is the hand-written
 kernel of ``csrc/flash_fwd.cu`` (the port of the TPU kernel
 ``_flash_kernel``, K1: bf16 on TMA and wgmma, its launch plan
 ``fwd_plan``'s; f32 as 3xTF32 on mma.sync) and its backward
-the two kernels of ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel``, K2a,
-then ``_flash_bwd_dkv_kernel``, K2b; on the tensor cores likewise).  All
-three copy with ``cp.async`` (or TMA) and so take 16-byte aligned operands
-with B, L and H strides in multiples of 16 bytes, see
-``cp_async_misalignment``.
+two kernels (``_flash_bwd_dq_kernel``, K2a, then ``_flash_bwd_dkv_kernel``,
+K2b): in bf16 those of ``csrc/flash_bwd_sm90.cu`` (TMA, mbarrier rings and
+wgmma, the launch plan ``bwd_plan``'s), in f32 those of
+``csrc/flash_bwd.cu`` (3xTF32 on mma.sync).  All copy with ``cp.async``
+(or TMA) and so take 16-byte aligned operands with B, L and H strides in
+multiples of 16 bytes, see ``cp_async_misalignment``.
 Those kernels are built for heads of 64 and of 128 features
-(``KERNEL_WIDTHS``).  A wider head goes, by width (``kernel_source``), to
+(``KERNEL_WIDTHS``).  A wider head goes, by width (``kernel_source``, which
+also picks K2's source by type), to
 the Hopper kernels of ``csrc/flash_fwd_wide_sm90.cu`` (K1) and
 ``csrc/flash_bwd_wide_sm90.cu`` (K2a, K2b) at any multiple of 64 from 192 to
 ``WIDE_FWD_MAX`` (TMA loads into an mbarrier-signalled ring, bf16 on wgmma,
@@ -71,6 +73,11 @@ SMEM_MAX = 232448  # shared memory a block may have on an H100
 # its K and V rings (as many as fit a block)
 FWD_KEY_TILE = {64: 64, 128: 128}
 FWD_STAGES = {64: 4, 128: 3}
+# flash_bwd_sm90.cu's bf16 K2: K2a streams K and V in tiles of BWD_KEY_TILE
+# keys, K2b q and dO in tiles of BWD_Q_TILE rows (by head width), each
+# through a ring of BWD_STAGES slots
+BWD_KEY_TILE, BWD_STAGES = 64, 4
+BWD_Q_TILE = {64: 64, 128: 32}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -189,6 +196,43 @@ def fwd_plan(width: int, batch_heads: int, lq: int, sms: int) -> dict:
             "box_cols": 64, "ops_per_pair": 6, "blocks": -(-lq // rows) * batch_heads}
 
 
+def bwd_plan(width: int, batch_heads: int, lq: int, sms: int,
+             lk: int | None = None) -> dict:
+    """The launch plans of the bf16 K2a and K2b of ``csrc/flash_bwd_sm90.cu``
+    at a head ``width`` of 64 or 128, ``batch_heads`` (B x H) and lengths
+    ``lq`` and ``lk`` (default ``lq``) on a card of ``sms`` SMs, as its
+    ``bwd_groups`` and ``BwdPlan`` set them (its C entry ``flash_bwd_plan``
+    returns the same).  For each kernel (``dq_*`` K2a, ``dkv_*`` K2b): the
+    rows a block owns (K2a q rows, K2b keys; 64 a warpgroup), its consumer
+    warpgroups (two, sharing every streamed tile, where a grid of 128-row
+    blocks still has one for each SM; else one), the rows of a streamed
+    tile (K2a keys of K and V, K2b q rows of q and dO), the ring's slots,
+    threads (thread 0 also issues the TMA loads), dynamic shared memory (two
+    groups' own tiles, the ring, K2a's LSE and delta, the barriers and 1024
+    bytes for the alignment, whatever the groups) and the blocks of the
+    grid; then the columns of a TMA box and the operations per (query,
+    key) pair in units of the width, against the function's 6 and 8 (S and
+    dP on wgmma, the outputs with P and dS as hi + lo bf16)."""
+    if width not in KERNEL_WIDTHS:
+        raise ValueError(f"the bf16 K2 of flash_bwd_sm90.cu takes widths "
+                         f"{KERNEL_WIDTHS}; got {width}")
+    lk = lq if lk is None else lk
+    row = width * 2  # bytes of a bf16 row
+    own = 2 * 2 * 64 * row  # two tiles of 64 rows for each of two groups
+    plan = {}
+    for key, length, tile, vec in (("dq", lq, BWD_KEY_TILE, 2 * 2 * 64 * 4),
+                                   ("dkv", lk, BWD_Q_TILE[width], 0)):
+        groups = 2 if -(-length // 128) * batch_heads >= sms else 1
+        rows = 64 * groups
+        plan |= {f"{key}_rows": rows, f"{key}_groups": groups,
+                 ("key_tile" if key == "dq" else "q_tile"): tile,
+                 f"{key}_stages": BWD_STAGES, f"{key}_threads": 128 * groups,
+                 f"{key}_smem_bytes": (1024 + own + BWD_STAGES * 2 * tile * row + vec
+                                       + 8 * (2 * BWD_STAGES + 1)),
+                 f"{key}_blocks": -(-length // rows) * batch_heads}
+    return plan | {"box_cols": 64, "dq_ops_per_pair": 8, "dkv_ops_per_pair": 12}
+
+
 def wide_fwd_plan(width: int, dtype) -> dict:
     """The launch plan of the wide K1 at a head ``width`` (a multiple of
     ``WIDE_STEP`` above 128, at most ``WIDE_FWD_MAX``) and ``dtype``, as
@@ -302,16 +346,19 @@ def wide_bwd_blocks(width: int, dtype, batch_heads: int, lq: int, lk: int) -> di
             "dkv": -(-lk // rows) * batch_heads * plan["roles"]}
 
 
-def kernel_source(index: int, d: int) -> str:
+def kernel_source(index: int, d: int, dtype=torch.float32) -> str:
     """The source (``csrc/<name>.cu``) of K1 (``index`` 0), K2a (1) or K2b
-    (2) at kernel width ``d``: ``flash_fwd`` and ``flash_bwd`` at 64 and
-    128, the Hopper sources ``flash_fwd_wide_sm90`` and
+    (2) at kernel width ``d`` for inputs of ``dtype``: at 64 and 128
+    ``flash_fwd``, and for K2a and K2b ``flash_bwd_sm90`` in bf16 and
+    ``flash_bwd`` in f32; the Hopper sources ``flash_fwd_wide_sm90`` and
     ``flash_bwd_wide_sm90`` at 192 to ``WIDE_FWD_MAX``; above, K1 on
     thread-block clusters, ``flash_fwd_cluster_sm90``, up to
     ``CLUSTER_FWD_MAX``, and ``flash_wide`` (the chunked kernels) for K1
     wider still and for K2a and K2b."""
     if d <= KERNEL_WIDTHS[-1]:
-        return "flash_fwd" if index == 0 else "flash_bwd"
+        if index == 0:
+            return "flash_fwd"
+        return "flash_bwd_sm90" if dtype == torch.bfloat16 else "flash_bwd"
     if d <= WIDE_FWD_MAX:
         return "flash_fwd_wide_sm90" if index == 0 else "flash_bwd_wide_sm90"
     if index == 0 and d <= CLUSTER_FWD_MAX:
@@ -322,6 +369,7 @@ def kernel_source(index: int, d: int) -> str:
 # the C entries of each source, by kernel index: K1 0, K2a 1, K2b 2
 _ENTRIES = {"flash_fwd": {0: "flash_fwd"},
             "flash_bwd": {1: "flash_bwd_dq", 2: "flash_bwd_dkv"},
+            "flash_bwd_sm90": {1: "flash_bwd_dq_sm90", 2: "flash_bwd_dkv_sm90"},
             "flash_fwd_wide_sm90": {0: "flash_fwd_wide"},
             "flash_bwd_wide_sm90": {1: "flash_bwd_dq_wide", 2: "flash_bwd_dkv_wide"},
             "flash_fwd_cluster_sm90": {0: "flash_fwd_cluster"},
@@ -444,11 +492,11 @@ def flash_fwd(q, k, v, causal: bool = False, scale: float | None = None):
     o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = [t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)]
-    _raise_on(_entry(0, d)(
+    _raise_on(_entry(0, d, q.dtype)(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, h, lq, lk, d, *strides, int(causal),
         _scale(q, scale), _stream(q)), "flash_fwd")
-    _launched(0, d)
+    _launched(0, d, q.dtype)
     return o, lse
 
 
@@ -457,20 +505,21 @@ def _stride_array(*tensors):
         *[t.stride(i) for t in tensors for i in (0, 1, 2)])
 
 
-def _entry(index: int, d: int):
-    """The C entry of K1 (0), K2a (1) or K2b (2) for heads of ``d``."""
-    return _kernels(kernel_source(index, d))[index]
+def _entry(index: int, d: int, dtype):
+    """The C entry of K1 (0), K2a (1) or K2b (2) for heads of ``d`` in
+    ``dtype``."""
+    return _kernels(kernel_source(index, d, dtype))[index]
 
 
 _COUNT_OF = ("kernel_launches", "dq_launches", "dkv_launches")
 
 
-def _launched(index: int, d: int) -> None:
-    """Count one launch of K1 (0), K2a (1) or K2b (2) at heads of ``d``:
-    the kernel's count and its C entry's."""
+def _launched(index: int, d: int, dtype) -> None:
+    """Count one launch of K1 (0), K2a (1) or K2b (2) at heads of ``d`` in
+    ``dtype``: the kernel's count and its C entry's."""
     name = _COUNT_OF[index]
     setattr(flash_attention, name, getattr(flash_attention, name) + 1)
-    flash_attention.entry_launches[_ENTRIES[kernel_source(index, d)][index]] += 1
+    flash_attention.entry_launches[_ENTRIES[kernel_source(index, d, dtype)][index]] += 1
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False,
@@ -487,12 +536,12 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False,
     b, lq, h, d = q.shape
     dq = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    _raise_on(_entry(1, d)(
+    _raise_on(_entry(1, d, q.dtype)(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), b, h, lq, k.shape[1], d, _stride_array(q, k, v, o, do, dq),
         int(causal), _scale(q, scale), _stream(q)), "flash_bwd_dq")
-    _launched(1, d)
+    _launched(1, d, q.dtype)
     return dq, delta
 
 
@@ -510,12 +559,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False,
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     b, lq, h, d = q.shape
-    _raise_on(_entry(2, d)(
+    _raise_on(_entry(2, d, q.dtype)(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, h, lq, k.shape[1], d, _stride_array(q, k, v, do, dk, dv),
         int(causal), _scale(q, scale), _stream(q)), "flash_bwd_dkv")
-    _launched(2, d)
+    _launched(2, d, q.dtype)
     return dk, dv
 
 

@@ -165,6 +165,21 @@ def test_kernel_source_by_width(width, sources):
         assert index in ta._ENTRIES[source]
 
 
+@pytest.mark.parametrize("width,sources", [
+    (64, ("flash_fwd", "flash_bwd_sm90", "flash_bwd_sm90")),
+    (128, ("flash_fwd", "flash_bwd_sm90", "flash_bwd_sm90")),
+    (192, ("flash_fwd_wide_sm90", "flash_bwd_wide_sm90", "flash_bwd_wide_sm90")),
+    (576, ("flash_fwd_cluster_sm90", "flash_wide", "flash_wide"))])
+def test_kernel_source_by_type(width, sources):
+    """bf16 K2a and K2b at 64 and 128 run flash_bwd_sm90.cu (TMA and wgmma),
+    f32 flash_bwd.cu's 3xTF32 body; every other source serves both types."""
+    got = tuple(ta.kernel_source(index, width, torch.bfloat16) for index in range(3))
+    assert got == sources
+    for index, source in enumerate(got):
+        assert index in ta._ENTRIES[source]
+    assert ta.kernel_source(1, width, torch.float32) == ta.kernel_source(1, width)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [8, 128, 192, 256])
 def test_padded_path_matches_the_pallas_kernels(padded, d, causal):

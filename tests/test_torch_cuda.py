@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
 K1 (the flash-attention forward), K2a and K2b (its backward), all on the
-tensor cores with f32 as 3xTF32, and K3 and K4 (the fused resnet chain, on
+tensor cores with f32 as 3xTF32 (bf16 K1 and K2 on TMA and wgmma), and K3 and K4 (the fused resnet chain, on
 the tensor cores too: bf16 with hi + lo bf16 activations, f32 as 3xTF32);
 the DeepCache samplers through K1 against the plain attention; the onset
 net and its train step, the CLAP embedder, VGGish (with the on-device
@@ -228,6 +228,33 @@ def test_misaligned_backward_operand_raises_on_card(card, dtype):
         with pytest.raises(ValueError, match="cp.async"):
             ta.flash_bwd_dkv(q, k, v, bad, lse, delta)
     assert ta.flash_attention.dq_launches == ta.flash_attention.dkv_launches == 0
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_backward_runs_the_hopper_kernels_on_card(card, d, causal):
+    """bf16 K2a and K2b at 64 and 128 are ``csrc/flash_bwd_sm90.cu``'s (TMA
+    rings and wgmma), f32 ones ``csrc/flash_bwd.cu``'s, by C entry; the bf16
+    pair at a ragged length against the plain versions (dq, dk and dv within
+    8e-3 of max |plain|, delta within 1e-5) and the same bits twice."""
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v = torch.randn((2, 1001, 3, 8, d), generator=gen, device="cuda").to(
+        torch.bfloat16).unbind(2)
+    do = torch.randn((2, 1001, 8, d), generator=gen, device="cuda").to(torch.bfloat16)
+    o, lse, got = _backward(q, k, v, do, causal)
+    assert dict(ta.flash_attention.entry_launches) == {"flash_bwd_dq_sm90": 1,
+                                                        "flash_bwd_dkv_sm90": 1}
+    want_dq, want_delta = ta.flash_bwd_dq_reference(q, k, v, o, lse, do, causal)
+    want = (want_dq, want_delta,
+            *ta.flash_bwd_dkv_reference(q, k, v, do, lse, want_delta, causal))
+    for i, (g, w) in enumerate(zip(got, want)):
+        tol = 1e-5 if i == 1 else 8e-3
+        assert (g.float() - w.float()).abs().max().item() <= tol * w.float().abs().max().item()
+    _, _, again = _backward(q, k, v, do, causal)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    _backward(*(x.float() for x in (q, k, v, do)), causal)
+    assert dict(ta.flash_attention.entry_launches) == {"flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 
 
 def _head_width_case(d, heads, dtype, tol, length, causal):
